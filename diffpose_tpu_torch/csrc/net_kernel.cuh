@@ -82,7 +82,7 @@ __device__ __forceinline__ void fma4(float4& acc, float s, float4 v) {
   acc.w = fmaf(s, v.w, acc.w);
 }
 
-enum Epi { kStore, kStoreBias, kReluBias, kAddBias };
+enum Epi { kStore, kStoreBias, kReluBias, kAddBias, kAdd };
 
 // C[r, :N] (=, +=) A[r, :K] @ W[K, N] (+ bias) for the tile's rows.
 // Thread = (column group of 4, row group); row group g takes rows g, g+G, ...
@@ -125,7 +125,7 @@ __device__ __forceinline__ void gemm(const float* A, const float* __restrict__ W
     }
   }
   float4 b = zero4();
-  if constexpr (EPI != kStore) b = ldg4(bias + 4 * cg);
+  if constexpr (EPI != kStore && EPI != kAdd) b = ldg4(bias + 4 * cg);
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = rg + i * G;
@@ -133,7 +133,7 @@ __device__ __forceinline__ void gemm(const float* A, const float* __restrict__ W
     float* c = C + r * LDC + 4 * cg;
     float4 v = add4(acc[i], b);
     if constexpr (EPI == kReluBias) v = relu4(v);
-    if constexpr (EPI == kAddBias) v = add4(ld4(c), v);
+    if constexpr (EPI == kAddBias || EPI == kAdd) v = add4(ld4(c), v);
     st4(c, v);
   }
 }

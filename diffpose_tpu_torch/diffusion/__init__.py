@@ -1,4 +1,9 @@
-from diffpose_tpu_torch.diffusion.ddim import ddim_sample, make_skip_sequence, q_sample
+from diffpose_tpu_torch.diffusion.ddim import (
+    antithetic_timesteps,
+    ddim_sample,
+    make_skip_sequence,
+    q_sample,
+)
 from diffpose_tpu_torch.diffusion.schedule import (
     alphas_cumprod,
     compute_alpha,
@@ -7,6 +12,7 @@ from diffpose_tpu_torch.diffusion.schedule import (
 )
 
 __all__ = [
+    "antithetic_timesteps",
     "alphas_cumprod",
     "compute_alpha",
     "ddim_sample",

@@ -38,17 +38,35 @@ def make_skip_sequence(
     raise NotImplementedError(skip_type)
 
 
-def q_sample(x0: torch.Tensor, t: torch.Tensor, noise: torch.Tensor, betas) -> torch.Tensor:
+def antithetic_timesteps(generator: torch.Generator, n: int, num_timesteps: int) -> torch.Tensor:
+    """Antithetic timestep pairs: ⌈n/2⌉ uniform draws ``t`` from
+    ``generator`` (on its device), mirrored as ``T−1−t`` and cut to ``n``
+    (reference training loop, ``runners/diffpose_frame.py:216-218``)."""
+    t = torch.randint(0, num_timesteps, (n // 2 + 1,), generator=generator,
+                      device=generator.device)
+    return torch.cat([t, num_timesteps - t - 1])[:n]
+
+
+def q_sample_tables(betas, dtype=torch.float32, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(√ᾱ, √(1−ᾱ))`` as tensors, computed in float64 on the host, which
+    avoids the float32 ``1−ᾱ`` cancellation."""
+    ab = np.cumprod(1.0 - np.asarray(betas, np.float64))
+    return (torch.as_tensor(np.sqrt(ab), dtype=dtype, device=device),
+            torch.as_tensor(np.sqrt(1.0 - ab), dtype=dtype, device=device))
+
+
+def q_sample(x0: torch.Tensor, t: torch.Tensor, noise: torch.Tensor, betas,
+             tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """Forward process ``x_t = √ᾱ_t·x0 + √(1−ᾱ_t)·noise``.
 
     ``noise`` is already scaled per coordinate (the reference multiplies
     by ``targets_noise_scale`` first, ``runners/diffpose_frame.py:219-222``);
-    ``t`` indexes the unpadded ᾱ.  The √ᾱ and √(1−ᾱ) tables are computed in
-    float64 on the host, which avoids the float32 ``1−ᾱ`` cancellation.
+    ``t`` indexes the unpadded ᾱ.  ``tables``: :func:`q_sample_tables` of
+    ``betas`` made once by a caller that samples every step; ``betas`` is
+    then not read.
     """
-    ab = np.cumprod(1.0 - np.asarray(betas, np.float64))
-    sqrt_ab = torch.as_tensor(np.sqrt(ab), dtype=x0.dtype, device=x0.device)
-    sqrt_1mab = torch.as_tensor(np.sqrt(1.0 - ab), dtype=x0.dtype, device=x0.device)
+    sqrt_ab, sqrt_1mab = tables if tables is not None else q_sample_tables(
+        betas, x0.dtype, x0.device)
     t = torch.as_tensor(t, dtype=torch.long, device=x0.device)
     bshape = (-1,) + (1,) * (x0.ndim - 1)
     return x0 * sqrt_ab[t].reshape(bshape) + noise * sqrt_1mab[t].reshape(bshape)

@@ -6,6 +6,9 @@ names, so reference checkpoints load into them unchanged.  This module
 
 * turns a Flax parameter tree of those models (a nested dict of numpy
   arrays) into such a ``state_dict`` (:func:`state_dict_from_flax`), and
+* turns tensors named like that ``state_dict`` back into the Flax tree
+  (:func:`flax_from_state_dict`), so that gradients and updated parameters
+  can be compared leaf by leaf, and
 * reads and writes the reference 5-element checkpoint list
   ``[model, optim, epoch, step, ema]`` (``runners/diffpose_frame.py:248-255``),
   whose names carry ``DataParallel``'s ``module.`` prefix.
@@ -79,6 +82,48 @@ def state_dict_from_flax(
             put_linear((f"res_{i}", "temb_proj"), f"{g}.temb_proj")
 
     return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
+
+
+def flax_from_state_dict(
+    state: Mapping[str, torch.Tensor], *, with_temb: bool, num_layers: int
+) -> Dict[str, dict]:
+    """The inverse of :func:`state_dict_from_flax`: tensors named like the
+    reference ``state_dict`` (parameters, their gradients, ...) → the Flax
+    tree of numpy arrays.  Dense weights go back to ``[in, out]``, Chebyshev
+    weights lose the singleton axis, their biases become ``[out]``.  The
+    ``temb.dense`` entries of a GCNPose are dropped, as Flax has none."""
+    def arr(name):
+        return np.asarray(torch.as_tensor(state[name]).detach().cpu().numpy())
+
+    def cheb(name):
+        return {"w": arr(f"{name}.weight")[:, 0], "b": arr(f"{name}.bias").reshape(-1)}
+
+    def linear(name):
+        return {"kernel": arr(f"{name}.weight").T, "bias": arr(f"{name}.bias")}
+
+    tree: Dict[str, dict] = {"gconv_input": cheb("gconv_input"),
+                             "gconv_output": cheb("gconv_output")}
+    if with_temb:
+        tree["temb_dense_0"] = linear("temb.dense.0")
+        tree["temb_dense_1"] = linear("temb.dense.1")
+    for i in range(num_layers):
+        a = f"atten_layers.{i}"
+        tree[f"atten_{i}"] = {
+            "attn": {name: linear(f"{a}.self_attn.linears.{j}")
+                     for j, name in enumerate(ATTN_NAMES)},
+            **{norm: {"scale": arr(f"{a}.sublayer.{j}.norm.a_2"),
+                      "bias": arr(f"{a}.sublayer.{j}.norm.b_2")}
+               for j, norm in enumerate(("norm1", "norm2"))},
+            "gnet": {"a_hat": arr(f"{a}.feed_forward.A_hat"),
+                     "fc1": linear(f"{a}.feed_forward.gconv1.fc"),
+                     "fc2": linear(f"{a}.feed_forward.gconv2.fc")},
+        }
+        g = f"gconv_layers.{i}"
+        res = {conv: {"gconv": cheb(f"{g}.{conv}.gconv")} for conv in ("gconv1", "gconv2")}
+        if with_temb:
+            res["temb_proj"] = linear(f"{g}.temb_proj")
+        tree[f"res_{i}"] = res
+    return tree
 
 
 def _strip_prefix(state: Optional[Mapping]) -> Optional[Dict[str, torch.Tensor]]:

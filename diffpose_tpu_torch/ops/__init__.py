@@ -1,2 +1,3 @@
-"""Fused forwards over hand-written CUDA kernels (``fused_denoiser``) and the
-eval pipeline built on them (``fused_pipeline``)."""
+"""Fused forwards over hand-written CUDA kernels (``fused_denoiser``), the
+eval pipeline built on them (``fused_pipeline``), and the fused train stack
+(``fused_train``) with its plain reference (``train_ref``)."""

@@ -95,7 +95,50 @@ def sparse_terms(basis: np.ndarray):
             np.asarray(val, np.float32))
 
 
-def prepare_weights(model, device="cuda") -> Weights:
+def sparse_terms_transposed(basis: np.ndarray):
+    """Term list of the transposed Chebyshev mixes, one list per (order k,
+    output joint m): ``v_k[m] = Σ_j T_k[j, m] · dy[j]``, as the backward
+    of a ChebConv needs them.
+
+    Returns ``(ptr [K1·N + 1], idx [nnz], val [nnz])`` with the terms of
+    ``(k, m)`` at ``ptr[k·N + m] .. ptr[k·N + m + 1]`` and ``idx = j``.
+    """
+    k1, n, _ = basis.shape
+    ptr, idx, val = [0], [], []
+    for k in range(k1):
+        for m in range(n):
+            for j in range(n):
+                c = float(basis[k, j, m])
+                if abs(c) > 1e-12:
+                    idx.append(j)
+                    val.append(c)
+            ptr.append(len(idx))
+    return (np.asarray(ptr, np.int32), np.asarray(idx, np.int32),
+            np.asarray(val, np.float32))
+
+
+@functools.lru_cache(maxsize=16)
+def _graph_constants(basis_bytes: bytes, shape: tuple, device: torch.device) -> Dict[str, Any]:
+    """What depends on the Chebyshev basis alone, on ``device``: the dense
+    stack and both term lists.  Cached, so that preparing weights every
+    train step uploads nothing; the tensors are shared and never written."""
+    basis = np.frombuffer(basis_bytes, np.float32).reshape(shape)
+    ptr, idx, val = sparse_terms(basis.astype(np.float64))
+    tptr, tidx, tval = sparse_terms_transposed(basis.astype(np.float64))
+    return dict(
+        basis=torch.as_tensor(basis.copy(), device=device),
+        basis_host=basis,
+        cheb_ptr=torch.as_tensor(ptr, device=device),
+        cheb_idx=torch.as_tensor(idx, device=device),
+        cheb_val=torch.as_tensor(val, device=device),
+        cheb_nnz=len(val),
+        chebt_ptr=torch.as_tensor(tptr, device=device),
+        chebt_idx=torch.as_tensor(tidx, device=device),
+        chebt_val=torch.as_tensor(tval, device=device),
+    )
+
+
+def prepare_weights(model, device="cuda", *, differentiable: bool = False) -> Weights:
     """Stack a GCNDiff or GCNPose module's weights for the fused forward.
 
     The returned dict holds, on ``device``: per-layer stacks ``[L, ...]`` in
@@ -104,13 +147,22 @@ def prepare_weights(model, device="cuda") -> Weights:
     ``[H, 3H]`` matrix with 1/√d_k folded into q's weight and bias; the
     timestep MLP (denoiser only); the Chebyshev basis, dense and as a term
     list.  Also the configuration (``has_temb``, ``num_layers``, ...).
+
+    By default the tensors are a detached snapshot (eval).  With
+    ``differentiable=True`` (training; the module already lies on
+    ``device``) the same arithmetic stays in the autograd graph, so that
+    gradients of the stacks reach the module's parameters: ``A_hat``
+    through the learned Laplacian, q's weight and bias through the fold.
     """
     device = resolve_device(device)
     has_temb = hasattr(model.gconv_layers[0], "temb_proj")
     num_layers, hid, heads = model.num_layers, model.hid_dim, model.num_heads
     att, res = model.atten_layers, model.gconv_layers
 
-    def f32(t):  # a copy: the weights are a snapshot of the module
+    def f32(t):
+        if differentiable:
+            return t.to(device=device, dtype=torch.float32)
+        # a copy: the weights are a snapshot of the module
         return t.detach().to(device=device, dtype=torch.float32, copy=True)
 
     def stack(fn):
@@ -122,7 +174,7 @@ def prepare_weights(model, device="cuda") -> Weights:
     def lin(m):  # torch Linear [out, in] -> [in, out]
         return m.weight.t()
 
-    with torch.no_grad():
+    with torch.enable_grad() if differentiable else torch.no_grad():
         w = dict(
             win=f32(cheb_cat(model.gconv_input.weight)).contiguous(),
             bin=f32(model.gconv_input.bias.reshape(-1)),
@@ -150,9 +202,10 @@ def prepare_weights(model, device="cuda") -> Weights:
         )
         # Fold the attention score scale into the q projection, weight AND
         # bias, as _weight_stacks does (pallas_denoiser.py:396-400).
-        scale = 1.0 / math.sqrt(hid // heads)
-        w["wqkv"][:, :, :hid] *= scale
-        w["bqkv"][:, :hid] *= scale
+        fold = torch.ones(3 * hid, device=device)
+        fold[:hid] = 1.0 / math.sqrt(hid // heads)
+        w["wqkv"] = w["wqkv"] * fold
+        w["bqkv"] = w["bqkv"] * fold
         if has_temb:
             dense = model.temb.dense
             w.update(
@@ -162,15 +215,9 @@ def prepare_weights(model, device="cuda") -> Weights:
                 btp=stack(lambda i: res[i].temb_proj.bias),
             )
 
-    basis = model.gconv_input.basis.detach().cpu().numpy()
-    ptr, idx, val = sparse_terms(basis.astype(np.float64))
+    basis = model.gconv_input.basis.detach().cpu().numpy().astype(np.float32)
+    w.update(_graph_constants(basis.tobytes(), basis.shape, device))
     w.update(
-        basis=torch.as_tensor(basis, device=device),
-        basis_host=basis,
-        cheb_ptr=torch.as_tensor(ptr, device=device),
-        cheb_idx=torch.as_tensor(idx, device=device),
-        cheb_val=torch.as_tensor(val, device=device),
-        cheb_nnz=len(val),
         has_temb=has_temb,
         num_layers=num_layers,
         num_heads=heads,
