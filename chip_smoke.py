@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's frame eval and training paths on one GPU and check them.
+"""Drive the PyTorch/CUDA port's frame family on one GPU and check it: the eval
+and training functions, every kernel, and the command line over the runner.
 
 Run from the root of a checkout, on a host with one NVIDIA H100:
 
@@ -36,7 +37,27 @@ Phases (each fails loudly; none catches its own failure):
    TOL_STEP_PARAMS); 25 steps at lr 1e-3 on one fixed draw, whose loss must
    fall; one sweep of 4 steps against 4 single steps;
 7. time the two kernels, the weight-gradient products, the optimizer and
-   EMA, whole fused, plain and module steps.
+   EMA, whole fused, plain and module steps;
+8. hold the seeded-dropout kernel pair (masks drawn in the kernels with
+   Philox from a step seed) against its plain version, B=1024 and 1000: the
+   masks the forward dumps equal ``ops/philox.py:philox_masks`` bit for bit,
+   keep rates within 0.01 of 0.9 / 0.75 / 0.9, one seed gives one mask set and
+   two seeds two; forward output and stashes within 5e-5 of ``layers_forward``
+   over those masks; the backward, given no masks, within the limits of
+   phase 5 of ``stack_bwd_plain`` over them;
+9. time the seeded pair beside the explicit-mask pair, turn by turn, and
+   the fused step with ``dropout="prng"`` beside ``"masks"``;
+10. run the command line in process, ``diffpose_tpu_torch.cli.main_frame``
+    with ``configs/human36m_diffpose_uvxyz_cpn.yml``, 8192 synthetic frames,
+    B=1024, ``--train_impl fused --dropout_impl prng --denoiser_impl fused``:
+    train 2 epochs (1 seeded forward + 1 seeded backward launch a step, 1
+    lifter + 2 denoiser launches an eval batch, none of the explicit-mask
+    pair), resume for a third, then evaluate the checkpoint's ``.pth`` files
+    alone: files written, finite falling epoch losses, the eval-only P1/P2
+    equal to the last epoch's to 1e-3 mm;
+11. time the runner: train epochs (loader, copies, steps),
+    ``throughput_stats()`` of an evaluation, and its layers one by one
+    (loader gather, pinned copies, one eval step, the Procrustes metric).
 
 The line before the last holds the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -47,16 +68,23 @@ from __future__ import annotations
 import copy
 import functools
 import json
+import logging
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 
+from diffpose_tpu_torch.data.loader import prefetch_to_device
 from diffpose_tpu_torch.data.synthetic import make_synthetic_dataset
 from diffpose_tpu_torch.diffusion import get_beta_schedule
 from diffpose_tpu_torch.graph import H36M_EDGES, cheb_basis_from_edges
+from diffpose_tpu_torch.metrics import p_mpjpe_per_sample
 from diffpose_tpu_torch.models import GCNDiff, GCNPose
 from diffpose_tpu_torch.ops import _build
 from diffpose_tpu_torch.ops.fused_denoiser import (
@@ -72,6 +100,7 @@ from diffpose_tpu_torch.ops.fused_denoiser import (
 from diffpose_tpu_torch.ops import fused_train as ft
 from diffpose_tpu_torch.ops.fused_denoiser import _cheb
 from diffpose_tpu_torch.ops.fused_pipeline import lift_and_denoise, make_eval_fn
+from diffpose_tpu_torch.ops.philox import philox_masks
 from diffpose_tpu_torch.ops.train_ref import layers_forward, make_dropout_masks
 from diffpose_tpu_torch.models.ema import ema_register, ema_update
 from diffpose_tpu_torch.train.optim import make_optimizer
@@ -89,10 +118,13 @@ TOL_PIPELINE = 2e-4   # tests/test_pallas_pipeline.py
 # under GRAD_ABS pass (gradients that are mathematically 0), others must be
 # under GRAD_REL of the reference's largest entry.
 GRAD_ABS, GRAD_REL = 1e-5, 1e-3
+PRNG_RATE_TOL = 0.01   # drawn keep rates against 0.9 / 0.75 / 0.9 (scripts/probe_prng_dropout.py)
 TRAIN_STEPS = 20
 TRAIN_FRAMES = 8192
 FAST_STEPS = 25
 TRAIN_LR = 2e-5
+CLI_CONFIG = "configs/human36m_diffpose_uvxyz_cpn.yml"
+CLI_FRAMES = 8192
 TOL_STEP_LOSS = 1e-3       # relative, fused against plain, step by step
 TOL_STEP_GRAD_NORM = 1e-4  # relative, step by step
 # Parameters after TRAIN_STEPS Adam steps.  Adam divides by the root of the
@@ -323,11 +355,11 @@ def train_phases(dev, basis, diff, g):
         ids = idx[(i * BATCH) % TRAIN_FRAMES:][:BATCH]
         return {k: v.index_select(0, ids) for k, v in data.items()}
 
-    def fresh(impl, lr=TRAIN_LR):
+    def fresh(impl, lr=TRAIN_LR, dropout="masks"):
         model = copy.deepcopy(diff).train()
         opt = make_optimizer(model.parameters(), lr=lr)
         state = TrainState.create(model, opt, ema_register(model))
-        return state, make_train_step(model, opt, BETAS, impl=impl, ema_mu=0.999)
+        return state, make_train_step(model, opt, BETAS, impl=impl, ema_mu=0.999, dropout=dropout)
 
     state, step = fresh("fused")
     draws = [step.draw(batch_of(i), g) for i in range(TRAIN_STEPS)]
@@ -447,7 +479,8 @@ def train_phases(dev, basis, diff, g):
 
     common = dict(route="cuda", source="diffpose_tpu_torch/csrc/train_kernel.cu", library_ms=None,
                   batch=BATCH, steps=TRAIN_STEPS)
-    return [
+    ctx = dict(wt=wt, kept=kept, fresh=fresh, batch_of=batch_of, bounds=(f_bound, b_bound))
+    return ctx, [
         dict(name="train_kernel[fwd]", replaces="diffpose_tpu/ops/pallas_train.py:215",
              launches=launches["fwd"], max_abs_err=errs["fwd"], ms=fwd_ms, plain_ms=plain_fwd_ms,
              bound_ms=f_bound, bound_by=f_by_what, **common),
@@ -455,6 +488,248 @@ def train_phases(dev, basis, diff, g):
              launches=launches["bwd"], max_abs_err=errs["bwd"], ms=bwd_ms, plain_ms=plain_bwd_ms,
              bound_ms=b_bound, bound_by=b_by_what, **common),
     ]
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def prng_phases(dev, diff, g, ctx, card):
+    """Phases 8-9: the seeded-dropout kernel pair against its plain version,
+    and its times; returns the two kernels' records without their launches."""
+    L, H, heads, n = diff.num_layers, diff.hid_dim, diff.num_heads, 17
+    wt, ikeep = ctx["wt"], ft._inv_keep(None)
+    shape = dict(num_layers=L, n_pts=n, num_heads=heads, hid_dim=H)
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    kept = {}
+
+    # 8. kernels against their plain versions
+    for bsz in (BATCH, 1000):
+        x = torch.randn((bsz, n, 5), generator=g, device=dev)
+        t = torch.randint(0, len(BETAS), (bsz,), generator=g, device=dev).to(torch.float32)
+        seed = torch.randint(-(1 << 31), (1 << 31) - 1, (1,), generator=g, device=dev,
+                             dtype=torch.int32)
+        with torch.no_grad():
+            tp = timestep_projections(wt, t)
+            h0 = _cheb(x, wt["win"], wt["bin"], wt["basis"]).contiguous()
+        d5, st, dumped = ft.stack_fwd_prng(wt, h0, tp, seed, dump=True)
+        torch.cuda.synchronize()
+        masks = philox_masks(seed, batch=bsz, device=dev, **shape)
+        same = {k: bool(torch.equal(dumped[k], getattr(masks, k))) for k in ft.MASK_KEYS}
+        rates = {k: float(dumped[k].float().mean()) for k in ft.MASK_KEYS}
+        print(f"prng masks B={bsz:5d} seed {int(seed):11d}: dumped == philox_masks {same}  keep rates " +
+              "  ".join(f"{k} {v:.4f}" for k, v in rates.items()))
+        check(all(same.values()), f"dumped masks differ from philox_masks at B={bsz}: {same}")
+        for k, want in zip(ft.MASK_KEYS, (0.9, 0.75, 0.75, 0.9, 0.9)):
+            check(abs(rates[k] - want) < PRNG_RATE_TOL, f"keep rate of {k}: {rates[k]} against {want}")
+        again = ft.stack_fwd_prng(wt, h0, tp, seed, dump=True)[2]
+        other = ft.stack_fwd_prng(wt, h0, tp, seed + 1, dump=True)[2]
+        check(all(torch.equal(again[k], dumped[k]) for k in ft.MASK_KEYS), "one seed, two mask sets")
+        differ = {k: float((other[k] != dumped[k]).float().mean()) for k in ft.MASK_KEYS}
+        check(all(v > 0.05 for v in differ.values()), f"two seeds give the same masks: {differ}")
+        d5_nodump, _ = ft.stack_fwd_prng(wt, h0, tp, seed)
+        check(bool(torch.equal(d5_nodump, d5)), "the dump changes the forward's output")
+
+        d5_plain, st_plain = layers_forward(wt, h0, tp, masks, return_stashes=True)
+        e_fwd = {"d5": max_err(d5, d5_plain), **{k: max_err(st[k], st_plain[k]) for k in st}}
+        print(f"prng fwd B={bsz:5d}: max|kernel-plain| " +
+              "  ".join(f"{k} {v:.2e}" for k, v in e_fwd.items()))
+        check(max(e_fwd.values()) <= TOL_KERNEL, f"seeded train forward kernel B={bsz}")
+        errs["fwd"] = max(errs["fwd"], *e_fwd.values())
+
+        # The backward gets the plain forward's stashes (see phase 5) and no
+        # masks: agreeing with the plain backward over philox_masks shows that
+        # it regenerates the forward's bits.
+        st_ref = {k: v.contiguous() for k, v in st_plain.items()}
+        dd5 = torch.randn((bsz, n, H), generator=g, device=dev)
+        da0, dtp, ds = ft.stack_bwd_prng(wt, seed, st_ref, dd5)
+        torch.cuda.synchronize()
+        da0_p, dtp_p, ds_p = ft.stack_bwd_plain(wt, masks, st_ref, dd5)
+        wg, wg_p = ft.weight_grads(wt, st_ref, ds), ft.weight_grads(wt, st_ref, ds_p)
+        rel = {"dA0": grad_close(da0, da0_p), "dtp": grad_close(dtp, dtp_p),
+               **{k: grad_close(ds[k], ds_p[k]) for k in ds},
+               **{k: grad_close(wg[k], wg_p[k]) for k in ft.STACK_KEYS}}
+        print(f"prng bwd B={bsz:5d}: rel err (0 = under {GRAD_ABS:g} abs) " +
+              "  ".join(f"{k} {v:.1e}" for k, v in rel.items()))
+        check(max(rel.values()) < GRAD_REL, f"seeded train backward kernel B={bsz}: {rel}")
+        errs["bwd"] = max(errs["bwd"], max_err(da0, da0_p), max_err(dtp, dtp_p),
+                          *[max_err(ds[k], ds_p[k]) for k in ds])
+        if bsz == BATCH:
+            kept = dict(h0=h0, tp=tp, seed=seed, st=st, dd5=dd5, masks=masks)
+        del st_plain, st_ref, ds_p, wg, wg_p
+
+    # 9. times: the seeded pair beside the explicit-mask pair, turn by turn
+    k, ke = kept, ctx["kept"]
+    drop = ft._seeded(k["seed"], None)
+    runs = {
+        "fwd": (lambda: ft._launch_fwd(wt, k["h0"], k["tp"], drop, ikeep),
+                lambda: ft._launch_fwd(wt, ke["h0"], ke["tp"], ke["km"], ikeep)),
+        "bwd": (lambda: ft._launch_bwd(wt, drop, k["st"], k["dd5"], ikeep),
+                lambda: ft._launch_bwd(wt, ke["km"], ke["st"], ke["dd5"], ikeep)),
+    }
+    ms = {}
+    for name, (seeded, explicit) in runs.items():
+        a, b, c, d = time_ms(explicit), time_ms(seeded), time_ms(seeded), time_ms(explicit)
+        ms[name] = ((b + c) / 2, (a + d) / 2)
+        print(f"prng {name} kernel B={BATCH}: seeded {b:.4f} {c:.4f} ms  explicit masks {a:.4f} "
+              f"{d:.4f} ms  bound {ctx['bounds'][name == 'bwd']:.4f} ms (operations)  [{card}]")
+    # the plain versions: philox_masks (numpy on the host, timed once) and then
+    # layers_forward / stack_bwd_plain with those masks
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    philox_masks(k["seed"], batch=BATCH, device=dev, **shape)
+    torch.cuda.synchronize()
+    philox_ms = 1e3 * (time.perf_counter() - t0)
+    with torch.no_grad():
+        plain_fwd = time_ms(lambda: layers_forward(wt, k["h0"], k["tp"], k["masks"]), reps=3)
+        plain_bwd = time_ms(lambda: ft.stack_bwd_plain(wt, k["masks"], k["st"], k["dd5"]), reps=3)
+    print(f"prng plain versions B={BATCH}: philox_masks {philox_ms:.1f} ms on the host, then "
+          f"layers_forward {plain_fwd:.4f} ms, stack_bwd_plain {plain_bwd:.4f} ms")
+
+    step_ms = {}
+    for dropout in ("masks", "prng", "prng", "masks"):
+        s_state, s_step = ctx["fresh"]("fused", dropout=dropout)
+        d = s_step.draw(ctx["batch_of"](0), g)
+        got = (time_ms(lambda: s_step.draw(ctx["batch_of"](0), g), reps=5),
+               time_ms(lambda: s_step.apply(s_state, d), reps=5),
+               time_ms(lambda: s_step(s_state, ctx["batch_of"](0), g), reps=5))
+        step_ms.setdefault(dropout, []).append(got)
+        print(f"fused step B={BATCH} dropout={dropout:5s}: draw {got[0]:.4f}  apply {got[1]:.4f}  "
+              f"whole {got[2]:.4f} ms  {BATCH / got[2] * 1e3:.1f} frames/s  [{card}]")
+
+    common = dict(route="cuda", source="diffpose_tpu_torch/csrc/train_kernel.cu", library_ms=None,
+                  batch=BATCH, bound_by="operations")
+    return [
+        dict(name="train_kernel[fwd,prng]", replaces="diffpose_tpu/ops/pallas_train.py:314",
+             max_abs_err=errs["fwd"], ms=ms["fwd"][0], explicit_masks_ms=ms["fwd"][1],
+             plain_ms=philox_ms + plain_fwd, bound_ms=ctx["bounds"][0], **common),
+        dict(name="train_kernel[bwd,prng]", replaces="diffpose_tpu/ops/pallas_train.py:581",
+             max_abs_err=errs["bwd"], ms=ms["bwd"][0], explicit_masks_ms=ms["bwd"][1],
+             plain_ms=philox_ms + plain_bwd, bound_ms=ctx["bounds"][1], **common),
+    ]
+
+
+def reset_launch_counts():
+    for fn in (fused_lifter, fused_denoiser, ft.stack_fwd, ft.stack_bwd, ft.stack_fwd_prng,
+               ft.stack_bwd_prng):
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"lifter": fused_lifter.launches, "denoiser": fused_denoiser.launches,
+            "fwd": ft.stack_fwd.launches, "bwd": ft.stack_bwd.launches,
+            "fwd_prng": ft.stack_fwd_prng.launches, "bwd_prng": ft.stack_bwd_prng.launches}
+
+
+def logged_errors(stdout_txt: Path):
+    """Every ``MPJPE: x | P-MPJPE: y`` line the runner logged (mm, 4 decimals)."""
+    return [(float(a), float(b)) for a, b in
+            re.findall(r" - MPJPE: ([0-9.]+) \| P-MPJPE: ([0-9.]+)", stdout_txt.read_text())]
+
+
+def cli_phases(card):
+    """Phases 10-11: the port's command line, in process, at full width:
+    train 2 epochs, resume for a third, evaluate the checkpoint; then the
+    runner's own times.  Returns the launch counts of the training run."""
+    from diffpose_tpu_torch.cli import main_frame
+    from diffpose_tpu_torch.cli.common import setup_experiment
+    from diffpose_tpu_torch.train.trainer import DiffposeRunner
+
+    exp = Path(tempfile.mkdtemp(prefix="chip_smoke_exp_"))
+    steps_per_epoch = -(-CLI_FRAMES // BATCH)
+    eval_batches = -(-(CLI_FRAMES // 4) // BATCH)
+    common = ["--config", CLI_CONFIG, "--exp", str(exp), "--ni", "--synthetic_frames",
+              str(CLI_FRAMES), "--batch_size", str(BATCH), "--denoiser_impl", "fused"]
+    train = common + ["--doc", "run", "--train", "--train_impl", "fused", "--dropout_impl", "prng"]
+    run = exp / "run"
+
+    # 10. train, resume, eval-only
+    reset_launch_counts()
+    check(main_frame.main(train + ["--n_epochs", "2"]) == 0, "the CLI training run failed")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {"lifter": 2 * eval_batches, "denoiser": 2 * len(SEQ) * eval_batches, "fwd": 0, "bwd": 0,
+            "fwd_prng": 2 * steps_per_epoch, "bwd_prng": 2 * steps_per_epoch}
+    print(f"main path (CLI: 2 epochs of {steps_per_epoch} steps, {eval_batches} eval batches each) "
+          f"launches: {counts}")
+    check(counts == want, f"CLI training run launches {counts}, expected {want}")
+    check(main_frame.main(train + ["--n_epochs", "3", "--resume"]) == 0, "the CLI resume failed")
+    log = (run / "stdout.txt").read_text()
+    check(f"resumed from step {2 * steps_per_epoch} (epoch 2)" in log, "the resume was not logged")
+    check(log.count("| Epoch 00") == 3, "the resumed run did not train exactly one more epoch")
+    rows = [line.split("\t") for line in (run / "log.tsv").read_text().splitlines()[1:]]
+    losses = [float(r[2]) for r in rows]
+    print(f"CLI log.tsv: {len(rows)} rows, epoch losses {losses}, P1 {[float(r[3]) for r in rows]}")
+    check(len(rows) == 3 and all(v == v and abs(v) != float("inf") for v in losses),
+          f"log.tsv rows or losses: {rows}")
+    check(losses[-1] < losses[0], f"the epoch loss did not fall: {losses}")
+    last = 3 * steps_per_epoch
+    files = sorted(f.name for f in run.iterdir())
+    for name in ("config.yml", "stdout.txt", "log.tsv", f"ckpt_{last:08d}.pth",
+                 f"ckpt_{last:08d}.pose.pth"):
+        check(name in files, f"{name} missing from the run's folder: {files}")
+
+    reset_launch_counts()
+    check(main_frame.main(common + [
+        "--doc", "evalonly", "--track_metrics",
+        "--model_diff_path", str(run / f"ckpt_{last:08d}.pth"),
+        "--model_pose_path", str(run / f"ckpt_{last:08d}.pose.pth")]) == 0, "the CLI eval run failed")
+    e_counts = launch_counts()
+    check(e_counts == dict(want, lifter=eval_batches, denoiser=len(SEQ) * eval_batches,
+                           fwd_prng=0, bwd_prng=0), f"CLI eval-only launches {e_counts}")
+    trained, alone = logged_errors(run / "stdout.txt")[-1], logged_errors(exp / "evalonly" / "stdout.txt")[-1]
+    print(f"eval-only from the checkpoint: P1/P2 {alone} mm, the training run's last epoch {trained} mm")
+    check(max(abs(a - b) for a, b in zip(trained, alone)) <= 1e-3,
+          "eval-only from the checkpoint disagrees with the training run's last eval")
+    check("throughput: {" in (exp / "evalonly" / "stdout.txt").read_text(), "no throughput line")
+
+    # 11. the runner's times: epochs of the train loop alone (loader, copies,
+    # steps, one read of the losses), and throughput_stats() of an evaluation
+    args = main_frame.parse_args(train + ["--doc", "times", "--n_epochs", "4"])
+    config = setup_experiment(args)
+    runner = DiffposeRunner(config, seed=args.seed, log_dir=None, denoiser_impl="fused",
+                            train_impl="fused", dropout_impl="prng")
+    runner.create_diffusion_model()
+    runner.create_pose_model()
+    runner.set_data(make_synthetic_dataset(CLI_FRAMES, seed=args.seed),
+                    make_synthetic_dataset(CLI_FRAMES // 4, seed=args.seed + 1))
+    runner.train()
+    secs = runner.train_seconds
+    runner.evaluate(is_train=True)
+    stats = runner.throughput_stats()
+    print(f"runner train epochs of {CLI_FRAMES} frames at B={BATCH} (fused, prng): " +
+          " ".join(f"{v:.4f}" for v in secs) +
+          f" s; last epoch {CLI_FRAMES / secs[-1]:.1f} frames/s  [{card}]")
+    print(f"runner eval (fused, tt={config.testing.test_times}): {stats}  [{card}]")
+
+    # the runner's layers one by one: the loader's host gather, the same with
+    # its pinned copies to the card, one eval step on a batch that lies on
+    # the card, and the Procrustes metric alone
+    dev = runner.device
+    loader = runner._make_loader(runner.train_data, shuffle=True)
+    t0 = time.perf_counter()
+    n_batches = sum(1 for _ in loader.epoch(0))
+    gather_ms = 1e3 * (time.perf_counter() - t0) / n_batches
+    t0 = time.perf_counter()
+    for batch in prefetch_to_device(loader.epoch(0), size=2, device=dev):
+        pass
+    torch.cuda.synchronize()
+    copy_ms = 1e3 * (time.perf_counter() - t0) / n_batches
+    eval_fn = runner._get_eval_fn(SEQ)
+    prepared = eval_fn.prepare(runner.state, runner.pose_params)
+    step_ms = time_ms(lambda: eval_fn(runner.state, runner.pose_params, batch, None,
+                                      prepared=prepared), reps=5)
+    pred, target = torch.randn(2, BATCH, 17, 3, device=dev).unbind(0)
+    p2_ms = time_ms(lambda: p_mpjpe_per_sample(pred, target), reps=5)
+    print(f"runner layers at B={BATCH}: loader gather {gather_ms:.4f} ms/batch on the host, with "
+          f"pinned copies {copy_ms:.4f} ms/batch; eval step {step_ms:.4f} ms/batch of which "
+          f"p_mpjpe_per_sample {p2_ms:.4f} ms  [{card}]")
+    logging.getLogger().handlers.clear()
+    shutil.rmtree(exp)
+    return counts
 
 
 def main() -> int:
@@ -577,11 +852,15 @@ def main() -> int:
             print(f"eval b={BATCH} tt={tt}: {ms:.4f} ms, {BATCH / ms * 1e3:.1f} frames/s "
                   f"(plain pipeline {plain_ms:.4f} ms, {BATCH / plain_ms * 1e3:.1f} frames/s)")
 
-    kernels += train_phases(dev, basis, diff, g)
+    ctx, train_records = train_phases(dev, basis, diff, g)
+    kernels += train_records
+    card = card_line()
+    prng_records = prng_phases(dev, diff, g, ctx, card)
+    cli_counts = cli_phases(card)
+    for rec, key in zip(prng_records, ("fwd_prng", "bwd_prng")):
+        kernels.append(dict(rec, launches=cli_counts[key]))
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -30,11 +30,34 @@ bool supported(int hid, int heads, int n_pts, int batch, int num_layers, int nnz
 // launch.  Supported: hid 96, 4 heads, 17 joints, Chebyshev order 2, any
 // number of layers and any batch >= 1.  ikp, iks, ikc are 1/keep of the
 // attention-probability, sublayer and Chebyshev dropout.
+//
+// The dropout decisions are either explicit uint8 masks (mp, m1..m4) or, for
+// seeded = 1, drawn in the kernel from `seed` (one int32 in device memory, so
+// that no launch waits for the host to read it) with the thresholds
+// ceil(keep * 2^23) thp, ths, thc (philox.cuh); the masks are then not read,
+// and the forward writes what it drew to those of dmp, dm1..dm4 that are not
+// null.
+
+namespace {
+
+traink::DropArgs drop_args(const unsigned char* mp, const unsigned char* m1,
+                           const unsigned char* m2, const unsigned char* m3,
+                           const unsigned char* m4, unsigned char* dmp, unsigned char* dm1,
+                           unsigned char* dm2, unsigned char* dm3, unsigned char* dm4,
+                           const unsigned* seed, unsigned thp, unsigned ths, unsigned thc) {
+  return traink::DropArgs{{mp, m1, m2, m3, m4}, {dmp, dm1, dm2, dm3, dm4},
+                          {thp, ths, ths, thc, thc}, seed};
+}
+
+}  // namespace
 
 extern "C" int train_stack_forward(
     int device, int hid, int heads, int n_pts, int batch, int num_layers, float ikp, float iks,
-    float ikc, const float* h0, const float* tp, const unsigned char* mp, const unsigned char* m1,
-    const unsigned char* m2, const unsigned char* m3, const unsigned char* m4, const float* ln1s,
+    float ikc, int seeded, const unsigned* seed, unsigned thp, unsigned ths, unsigned thc,
+    const float* h0, const float* tp, const unsigned char* mp, const unsigned char* m1,
+    const unsigned char* m2, const unsigned char* m3, const unsigned char* m4,
+    unsigned char* dmp, unsigned char* dm1, unsigned char* dm2, unsigned char* dm3,
+    unsigned char* dm4, const float* ln1s,
     const float* ln1b, const float* ln2s, const float* ln2b, const float* wqkv, const float* bqkv,
     const float* wao, const float* bao, const float* lap, const float* wfc1, const float* bfc1,
     const float* wfc2, const float* bfc2, const float* wg1, const float* bg1, const float* wg2,
@@ -44,18 +67,21 @@ extern "C" int train_stack_forward(
   if (!supported(hid, heads, n_pts, batch, num_layers, cheb_nnz)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const traink::FwdArgs a{h0,   tp,   mp,   m1,   m2,       m3,       m4,       ln1s,     ln1b,
-                          ln2s, ln2b, wqkv, bqkv, wao,      bao,      lap,      wfc1,     bfc1,
-                          wfc2, bfc2, wg1,  bg1,  wg2,      bg2,      cheb_ptr, cheb_idx, cheb_val,
-                          cheb_nnz, d5, ha, hb,   hc,       y1,       att,      r1,       rc1,
-                          u,    rd1,  batch, num_layers, ikp, iks, ikc};
-  return launch(traink::train_forward_kernel, a, netk::SMEM_BYTES,
-                static_cast<cudaStream_t>(stream));
+  const traink::FwdArgs a{
+      h0,   tp,   drop_args(mp, m1, m2, m3, m4, dmp, dm1, dm2, dm3, dm4, seed, thp, ths, thc),
+      ln1s, ln1b, ln2s, ln2b, wqkv, bqkv, wao,      bao,      lap,      wfc1,     bfc1,
+      wfc2, bfc2, wg1,  bg1,  wg2,  bg2,  cheb_ptr, cheb_idx, cheb_val, cheb_nnz, d5,
+      ha,   hb,   hc,   y1,   att,  r1,   rc1,      u,        rd1,      batch,    num_layers,
+      ikp,  iks,  ikc};
+  const auto s = static_cast<cudaStream_t>(stream);
+  return seeded ? launch(traink::train_forward_kernel<true>, a, netk::SMEM_BYTES, s)
+                : launch(traink::train_forward_kernel<false>, a, netk::SMEM_BYTES, s);
 }
 
 extern "C" int train_stack_backward(
     int device, int hid, int heads, int n_pts, int batch, int num_layers, float ikp, float iks,
-    float ikc, const float* dd5, const unsigned char* mp, const unsigned char* m1,
+    float ikc, int seeded, const unsigned* seed, unsigned thp, unsigned ths, unsigned thc,
+    const float* dd5, const unsigned char* mp, const unsigned char* m1,
     const unsigned char* m2, const unsigned char* m3, const unsigned char* m4, const float* ha,
     const float* hb, const float* y1, const float* r1, const float* rc1, const float* rd1,
     const float* ln1s, const float* ln2s, const float* wqkv, const float* bqkv,
@@ -66,12 +92,15 @@ extern "C" int train_stack_backward(
   if (!supported(hid, heads, n_pts, batch, num_layers, tnnz)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const traink::BwdArgs a{dd5,  mp,    m1,   m2,    m3,    m4,   ha,    hb,   y1,   r1,  rc1,
-                          rd1,  ln1s,  ln2s, wqkv,  bqkv,  wqkvt, waot, lap,  wfc1t, wfc2t,
-                          wg1t, wg2t,  tptr, tidx,  tval,  tnnz, da0,   dtp,  dqkv, do1, df1,
-                          df2,  dc1,   dc2,  batch, num_layers, ikp, iks, ikc};
-  return launch(traink::train_backward_kernel, a, traink::BWD_SMEM_BYTES,
-                static_cast<cudaStream_t>(stream));
+  const traink::BwdArgs a{
+      dd5,  drop_args(mp, m1, m2, m3, m4, nullptr, nullptr, nullptr, nullptr, nullptr, seed, thp,
+                      ths, thc),
+      ha,   hb,   y1,   r1,   rc1,  rd1,  ln1s, ln2s, wqkv, bqkv, wqkvt, waot,  lap,
+      wfc1t, wfc2t, wg1t, wg2t, tptr, tidx, tval, tnnz, da0,  dtp,  dqkv,  do1,   df1,
+      df2,  dc1,  dc2,  batch, num_layers, ikp, iks, ikc};
+  const auto s = static_cast<cudaStream_t>(stream);
+  return seeded ? launch(traink::train_backward_kernel<true>, a, traink::BWD_SMEM_BYTES, s)
+                : launch(traink::train_backward_kernel<false>, a, traink::BWD_SMEM_BYTES, s);
 }
 
 extern "C" const char* train_error_string(int code) {

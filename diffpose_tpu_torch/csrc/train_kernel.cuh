@@ -2,7 +2,12 @@
 // layer + residual Chebyshev block, with dropout), one launch each.
 //
 // Counterparts of diffpose_tpu/ops/pallas_train.py:_stack_fwd_kernel and
-// _stack_bwd_kernel (explicit dropout masks).  The tile, the thread block
+// _stack_bwd_kernel (explicit dropout masks, PRNG = false) and of
+// _stack_fwd_kernel_prng and _stack_bwd_kernel_prng (PRNG = true: every
+// dropout decision is drawn in the kernel with Philox4x32-10 from the step
+// seed and the element's place, keyed as philox.cuh sets out, so the
+// backward regenerates the forward's masks and none exists in device
+// memory; the forward can dump what it drew).  The tile, the thread block
 // and the GEMM, mixing and LayerNorm stages are those of net_kernel.cuh:
 // one CTA owns TB samples (ROWS joint rows, sample-major); the forward keeps
 // the residual stream h in shared memory through all layers, the backward
@@ -20,6 +25,7 @@
 #pragma once
 
 #include "net_kernel.cuh"
+#include "philox.cuh"
 
 namespace traink {
 
@@ -30,13 +36,25 @@ constexpr int PAIRS = N_PTS * N_PTS;
 static_assert(TB * HEADS * N_PTS <= THREADS, "attention backward needs a thread per (b, head, joint)");
 constexpr int TTERMS = 3 * N_PTS;                       // (order, joint) lists of the transposed mixes
 constexpr int TPTR_PAD = (TTERMS + 1 + 3) / 4 * 4;
+// dropout streams: 0 attention probabilities, 1..4 the sites after attention,
+// after GraphNet, after Chebyshev conv 1 and 2
+constexpr int DROPS = 5;
+
+// Where the dropout decisions come from.  Explicit masks: m[s] (uint8 0/1).
+// Drawn in the kernel: the step seed, one int32 in device memory, and
+// thresh[s] = ceil(keep_s * 2^23); the forward writes what it drew to dump[s]
+// where that is not null.
+struct DropArgs {
+  const unsigned char* m[DROPS];
+  unsigned char* dump[DROPS];
+  unsigned thresh[DROPS];
+  const unsigned* seed;
+};
 
 struct FwdArgs {
   const float* h0;     // [B, 17, HID]
   const float* tp;     // [L, B, HID]
-  const unsigned char* mp;                       // attention mask
-  const unsigned char* m1; const unsigned char* m2;  // after attention / GraphNet
-  const unsigned char* m3; const unsigned char* m4;  // after Chebyshev conv 1 / 2
+  DropArgs drop;
   const float* ln1s; const float* ln1b; const float* ln2s; const float* ln2b;
   const float* wqkv; const float* bqkv; const float* wao; const float* bao;
   const float* lap;
@@ -54,9 +72,7 @@ struct FwdArgs {
 
 struct BwdArgs {
   const float* dd5;    // [B, 17, HID]
-  const unsigned char* mp;
-  const unsigned char* m1; const unsigned char* m2;
-  const unsigned char* m3; const unsigned char* m4;
+  DropArgs drop;
   const float* ha; const float* hb; const float* y1; const float* r1;
   const float* rc1; const float* rd1;
   const float* ln1s; const float* ln2s;
@@ -94,6 +110,93 @@ __device__ __forceinline__ float4 mask4(const unsigned char* m, float s) {
   return make_float4((v & 0xffu) ? s : 0.f, (v & 0xff00u) ? s : 0.f, (v & 0xff0000u) ? s : 0.f,
                      (v & 0xff000000u) ? s : 0.f);
 }
+// Keep decisions (bits 0..3) as dropout factors 0 or s.
+__device__ __forceinline__ float4 keep_factors(unsigned bits, float s) {
+  return make_float4((bits & 1u) ? s : 0.f, (bits & 2u) ? s : 0.f, (bits & 4u) ? s : 0.f,
+                     (bits & 8u) ? s : 0.f);
+}
+
+// The dropout of one site over one tile in one layer: factor(r, c, s) gives the
+// factors (0 or s) of row r, columns c..c+3.
+template <bool PRNG>
+struct Site {
+  const unsigned char* m;   // explicit: the tile's first row in [L, B*17, HID]
+  unsigned char* dump;      // drawn: the same place in the dump, or null
+  unsigned k0, k1, thresh, b0;
+  __device__ __forceinline__ float4 factor(int r, int c, float s) const {
+    if constexpr (PRNG) {
+      const unsigned group = (r % N_PTS) * (HID / 4) + c / 4;
+      const unsigned bits = philox::keep4(
+          philox::philox4x32_10(make_uint4(group, b0 + r / N_PTS, 0u, 0u), k0, k1), thresh);
+      if (dump != nullptr)
+        *reinterpret_cast<unsigned int*>(dump + r * HID + c) =
+            (bits & 1u) | (bits & 2u) << 7 | (bits & 4u) << 14 | (bits & 8u) << 21;
+      return keep_factors(bits, s);
+    } else {
+      return mask4(m + r * HID + c, s);
+    }
+  }
+};
+
+// The dropout of the attention probabilities over one tile in one layer.
+// Drawn: row(b, hd, n) draws the query's row once, bit m set where the
+// probability of key m is kept.  Explicit: keep() reads the mask's byte.
+template <bool PRNG>
+struct Probs {
+  const unsigned char* m;   // explicit: the tile's first sample in [L, B, HEADS, 17, 17]
+  unsigned char* dump;
+  unsigned k0, k1, thresh, b0;
+  static __device__ __forceinline__ int at(int b, int hd, int n) {
+    return ((b * HEADS + hd) * N_PTS + n) * N_PTS;
+  }
+  __device__ __forceinline__ bool keep(unsigned bits, int pos, int k) const {
+    if constexpr (PRNG) {
+      return (bits >> k & 1u) != 0u;
+    } else {
+      return __ldg(m + pos + k) != 0;
+    }
+  }
+  __device__ __forceinline__ unsigned row(int b, int hd, int n) const {
+    unsigned bits = 0u;
+    if constexpr (PRNG) {
+      const int pos = at(b, hd, n);
+      const unsigned group = static_cast<unsigned>(hd * N_PTS + n) << 3;
+#pragma unroll
+      for (int j = 0; j < (N_PTS + 3) / 4; ++j)
+        bits |= philox::keep4(
+                    philox::philox4x32_10(make_uint4(group + j, b0 + b, 0u, 0u), k0, k1), thresh)
+                << (4 * j);
+      bits &= (1u << N_PTS) - 1u;
+      if (dump != nullptr) {
+#pragma unroll
+        for (int k = 0; k < N_PTS; ++k) dump[pos + k] = (bits >> k) & 1u;
+      }
+    }
+    return bits;
+  }
+};
+
+// Stream s of layer l for the tile whose first sample is b0 (smp = l*B + b0).
+template <bool PRNG>
+__device__ __forceinline__ Site<PRNG> site_of(const DropArgs& d, int s, int l, int b0,
+                                              size_t smp) {
+  const size_t at = smp * N_PTS * HID;
+  return Site<PRNG>{PRNG ? nullptr : d.m[s] + at,
+                    PRNG && d.dump[s] != nullptr ? d.dump[s] + at : nullptr,
+                    PRNG ? __ldg(d.seed) : 0u,
+                    static_cast<unsigned>(l * philox::STREAMS + s), d.thresh[s],
+                    static_cast<unsigned>(b0)};
+}
+template <bool PRNG>
+__device__ __forceinline__ Probs<PRNG> probs_of(const DropArgs& d, int l, int b0, size_t smp) {
+  const size_t at = smp * HEADS * PAIRS;
+  return Probs<PRNG>{PRNG ? nullptr : d.m[0] + at,
+                     PRNG && d.dump[0] != nullptr ? d.dump[0] + at : nullptr,
+                     PRNG ? __ldg(d.seed) : 0u,
+                     static_cast<unsigned>(l * philox::STREAMS), d.thresh[0],
+                     static_cast<unsigned>(b0)};
+}
+
 // Where x > 0 keep g, else 0 (ReLU backward).
 __device__ __forceinline__ float4 gate4(float4 g, float4 x) {
   return make_float4(x.x > 0.f ? g.x : 0.f, x.y > 0.f ? g.y : 0.f, x.z > 0.f ? g.z : 0.f,
@@ -129,15 +232,17 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ src, float* 
 // ---------------------------------------------------------------------------
 
 // netk::attention with dropout on the probabilities: p * mask * ikp.
+template <bool PRNG>
 __device__ __forceinline__ void attention_dropout(const float* qkv, float* out,
-                                                  const unsigned char* __restrict__ mp, float ikp,
+                                                  const Probs<PRNG> mp, float ikp,
                                                   int nb, int tid) {
   for (int it = tid; it < nb * HEADS * N_PTS; it += THREADS) {
     const int n = it % N_PTS;
     const int hd = (it / N_PTS) % HEADS;
     const int b = it / (N_PTS * HEADS);
     const float* base = qkv + b * N_PTS * LDB + hd * DK;
-    const unsigned char* mrow = mp + ((b * HEADS + hd) * N_PTS + n) * N_PTS;
+    const unsigned kept = mp.row(b, hd, n);
+    const int mat = mp.at(b, hd, n);
     float4 q[DK / 4];
 #pragma unroll
     for (int d = 0; d < DK / 4; ++d) q[d] = ld4(base + n * LDB + 4 * d);
@@ -170,7 +275,7 @@ __device__ __forceinline__ void attention_dropout(const float* qkv, float* out,
     for (int d = 0; d < DK / 4; ++d) o[d] = zero4();
 #pragma unroll
     for (int m = 0; m < N_PTS; ++m) {
-      const float p = __ldg(mrow + m) ? s[m] / sum * ikp : 0.f;
+      const float p = mp.keep(kept, mat, m) ? s[m] / sum * ikp : 0.f;
       const float* vr = base + m * LDB + 2 * HID;
 #pragma unroll
       for (int d = 0; d < DK / 4; ++d) fma4(o[d], p, ld4(vr + 4 * d));
@@ -183,9 +288,9 @@ __device__ __forceinline__ void attention_dropout(const float* qkv, float* out,
 
 // h += src * mask * scale over the real rows; optionally stashes src (before
 // the dropout) and the new h.
+template <bool PRNG>
 __device__ __forceinline__ void residual_dropout(float* h, const float* src, int lds,
-                                                 const unsigned char* __restrict__ mask,
-                                                 float scale, float* __restrict__ stash_src,
+                                                 const Site<PRNG> mask, float scale, float* __restrict__ stash_src,
                                                  float* __restrict__ stash_h, int nb, int tid) {
   constexpr int NG = HID / 4;
   for (int it = tid; it < nb * N_PTS * NG; it += THREADS) {
@@ -193,15 +298,15 @@ __device__ __forceinline__ void residual_dropout(float* h, const float* src, int
     const int c = 4 * (it % NG);
     const float4 v = ld4(src + r * lds + c);
     if (stash_src != nullptr) st4(stash_src + r * HID + c, v);
-    const float4 hv = add4(ld4(h + r * LDH + c), mul4(v, mask4(mask + r * HID + c, scale)));
+    const float4 hv = add4(ld4(h + r * LDH + c), mul4(v, mask.factor(r, c, scale)));
     st4(h + r * LDH + c, hv);
     if (stash_h != nullptr) st4(stash_h + r * HID + c, hv);
   }
 }
 
 // y = rc1 on entry; stashes rc1, then y = rc1 * mask * scale + tp[b], stashed as u.
-__device__ __forceinline__ void cheb_dropout_tp(float* y, const unsigned char* __restrict__ mask,
-                                                float scale, const float* __restrict__ tp,
+template <bool PRNG>
+__device__ __forceinline__ void cheb_dropout_tp(float* y, const Site<PRNG> mask, float scale, const float* __restrict__ tp,
                                                 float* __restrict__ rc1, float* __restrict__ u,
                                                 int nb, int tid) {
   constexpr int NG = HID / 4;
@@ -210,13 +315,14 @@ __device__ __forceinline__ void cheb_dropout_tp(float* y, const unsigned char* _
     const int c = 4 * (it % NG);
     const float4 v = ld4(y + r * LDH + c);
     st4(rc1 + r * HID + c, v);
-    const float4 uv = add4(mul4(v, mask4(mask + r * HID + c, scale)),
+    const float4 uv = add4(mul4(v, mask.factor(r, c, scale)),
                            ldg4(tp + (r / N_PTS) * HID + c));
     st4(y + r * LDH + c, uv);
     st4(u + r * HID + c, uv);
   }
 }
 
+template <bool PRNG>
 __global__ void __launch_bounds__(THREADS, 1) train_forward_kernel(const FwdArgs a) {
   extern __shared__ float4 smem4[];
   float* h = reinterpret_cast<float*>(smem4);
@@ -255,13 +361,14 @@ __global__ void __launch_bounds__(THREADS, 1) train_forward_kernel(const FwdArgs
     gemm<HID, 3 * HID, LDH, LDB, kStoreBias>(y, a.wqkv + static_cast<size_t>(l) * HID * 3 * HID,
                                              a.bqkv + l * 3 * HID, big, tid);
     __syncthreads();
-    attention_dropout(big, y, a.mp + smp * HEADS * PAIRS, a.ikp, nb, tid);
+    attention_dropout(big, y, probs_of<PRNG>(a.drop, l, b0, smp), a.ikp, nb, tid);
     __syncthreads();
     store_rows<HID>(y, LDH, a.att + row * HID, nb, tid);
     gemm<HID, HID, LDH, LDB, kStoreBias>(y, a.wao + static_cast<size_t>(l) * HID * HID,
                                          a.bao + l * HID, big, tid);
     __syncthreads();
-    residual_dropout(h, big, LDB, a.m1 + row * HID, a.iks, nullptr, a.hb + row * HID, nb, tid);
+    residual_dropout(h, big, LDB, site_of<PRNG>(a.drop, 1, l, b0, smp), a.iks, nullptr,
+                     a.hb + row * HID, nb, tid);
     __syncthreads();
 
     // GraphNet sublayer: h += dropout(lap . (relu(fc1(lap . LN2(h))) @ W_fc2) + b_fc2)
@@ -279,7 +386,8 @@ __global__ void __launch_bounds__(THREADS, 1) train_forward_kernel(const FwdArgs
     mix<HID, LDH, LDB, kMixStoreBias, true>(y, big, cptr, cidx, cval, lap, a.bfc2 + l * HID,
                                             nullptr, nb, tid);
     __syncthreads();
-    residual_dropout(h, big, LDB, a.m2 + row * HID, a.iks, nullptr, a.hc + row * HID, nb, tid);
+    residual_dropout(h, big, LDB, site_of<PRNG>(a.drop, 2, l, b0, smp), a.iks, nullptr,
+                     a.hc + row * HID, nb, tid);
     __syncthreads();
 
     // residual Chebyshev block: h += dropout(relu(cheb2(dropout(relu(cheb1(h))) + tp)))
@@ -289,8 +397,8 @@ __global__ void __launch_bounds__(THREADS, 1) train_forward_kernel(const FwdArgs
     mix<HID, LDB, LDH, kMixReluBiasTp, false>(big, y, cptr, cidx, cval, lap, a.bg1 + l * HID,
                                               nullptr, nb, tid);
     __syncthreads();
-    cheb_dropout_tp(y, a.m3 + row * HID, a.ikc, a.tp + smp * HID, a.rc1 + row * HID,
-                    a.u + row * HID, nb, tid);
+    cheb_dropout_tp(y, site_of<PRNG>(a.drop, 3, l, b0, smp), a.ikc, a.tp + smp * HID,
+                    a.rc1 + row * HID, a.u + row * HID, nb, tid);
     __syncthreads();
     gemm<HID, 3 * HID, LDH, LDB, kStore>(y, a.wg2 + static_cast<size_t>(l) * HID * 3 * HID,
                                          nullptr, big, tid);
@@ -298,7 +406,8 @@ __global__ void __launch_bounds__(THREADS, 1) train_forward_kernel(const FwdArgs
     mix<HID, LDB, LDH, kMixReluBiasTp, false>(big, y, cptr, cidx, cval, lap, a.bg2 + l * HID,
                                               nullptr, nb, tid);
     __syncthreads();
-    residual_dropout(h, y, LDH, a.m4 + row * HID, a.ikc, a.rd1 + row * HID, nullptr, nb, tid);
+    residual_dropout(h, y, LDH, site_of<PRNG>(a.drop, 4, l, b0, smp), a.ikc, a.rd1 + row * HID,
+                     nullptr, nb, tid);
     __syncthreads();
   }
   store_rows<HID>(h, LDH, a.d5 + static_cast<size_t>(b0) * N_PTS * HID, nb, tid);
@@ -317,8 +426,9 @@ static_assert(BWD_SMEM_BYTES <= 232448, "backward tile exceeds an SM's shared me
 
 // out = g * mask * scale, gated by relu_src > 0 where given; written to the
 // d-stash too.  Rows of absent samples get zeros.  out may alias g.
+template <bool PRNG>
 __device__ __forceinline__ void dropout_bwd(const float* g, float* out,
-                                            const unsigned char* __restrict__ mask, float scale,
+                                            const Site<PRNG> mask, float scale,
                                             const float* __restrict__ relu_src,
                                             float* __restrict__ dstash, int nb, int tid) {
   constexpr int NG = HID / 4;
@@ -327,7 +437,7 @@ __device__ __forceinline__ void dropout_bwd(const float* g, float* out,
     const int c = 4 * (it % NG);
     float4 v = zero4();
     if (r < nb * N_PTS) {
-      v = mul4(ld4(g + r * LDH + c), mask4(mask + r * HID + c, scale));
+      v = mul4(ld4(g + r * LDH + c), mask.factor(r, c, scale));
       if (relu_src != nullptr) v = gate4(v, ldg4(relu_src + r * HID + c));
       st4(dstash + r * HID + c, v);
     }
@@ -441,9 +551,12 @@ __device__ __forceinline__ void ln_bwd_add(float* dh, const float* g, const floa
 // datt is the gradient of the attention output.  Phase 1, thread = query n:
 // recompute the softmax row, ds[n, :] and the dropped probabilities into sp,
 // dq[n] in registers.  Phase 2, thread = key m: dk[m] and dv[m] from the
-// columns of sp.  Phase 3: all three overwrite this head's columns.
+// columns of sp.  Phase 3: all three overwrite this head's columns.  The
+// dropout decisions of a query's row are fetched (or drawn) once, in phase 1;
+// phase 2 meets them again in the dropped probabilities of sp.
+template <bool PRNG>
 __device__ __forceinline__ void attention_bwd(float* qkv, const float* datt,
-                                              const unsigned char* __restrict__ mp, float ikp,
+                                              const Probs<PRNG> mp, float ikp,
                                               float* sp, int nb, int tid) {
   const int n = tid % N_PTS;
   const int hd = (tid / N_PTS) % HEADS;
@@ -457,7 +570,8 @@ __device__ __forceinline__ void attention_bwd(float* qkv, const float* datt,
 
   float4 dq[DK / 4], dk[DK / 4], dv[DK / 4];
   if (live) {
-    const unsigned char* mrow = mp + ((b * HEADS + hd) * N_PTS + n) * N_PTS;
+    const unsigned kept = mp.row(b, hd, n);
+    const int mat = mp.at(b, hd, n);
     float4 q[DK / 4], da[DK / 4];
 #pragma unroll
     for (int d = 0; d < DK / 4; ++d) {
@@ -495,7 +609,7 @@ __device__ __forceinline__ void attention_bwd(float* qkv, const float* datt,
     float rowdot = 0.f;
 #pragma unroll
     for (int m = 0; m < N_PTS; ++m) {
-      const float keep = __ldg(mrow + m) ? ikp : 0.f;
+      const float keep = mp.keep(kept, mat, m) ? ikp : 0.f;
       s[m] = s[m] / sum;
       dp[m] *= keep;
       pd_s[n * N_PTS + m] = s[m] * keep;
@@ -539,6 +653,7 @@ __device__ __forceinline__ void attention_bwd(float* qkv, const float* datt,
   }
 }
 
+template <bool PRNG>
 __global__ void __launch_bounds__(THREADS, 1) train_backward_kernel(const BwdArgs a) {
   extern __shared__ float4 smem4[];
   float* dh = reinterpret_cast<float*>(smem4);
@@ -571,7 +686,8 @@ __global__ void __launch_bounds__(THREADS, 1) train_backward_kernel(const BwdArg
     const size_t wsq = static_cast<size_t>(l) * HID * HID;
 
     // Chebyshev block: h_out = hc + rd1*m4*ikc, rd1 = relu(cheb2(u)), u = rc1*m3*ikc + tp
-    dropout_bwd(dh, ba, a.m4 + row * HID, a.ikc, a.rd1 + row * HID, a.dc2 + row * HID, nb, tid);
+    dropout_bwd(dh, ba, site_of<PRNG>(a.drop, 4, l, b0, smp), a.ikc, a.rd1 + row * HID,
+                a.dc2 + row * HID, nb, tid);
     for (int i = tid; i < PAIRS; i += THREADS) lap[i] = a.lap[l * PAIRS + i];
     __syncthreads();
     mix_t(ba, big, tptr, tidx, tval, tid);
@@ -580,7 +696,8 @@ __global__ void __launch_bounds__(THREADS, 1) train_backward_kernel(const BwdArg
     __syncthreads();
     joint_sum(ba, a.dtp + smp * HID, nb, tid);
     __syncthreads();
-    dropout_bwd(ba, ba, a.m3 + row * HID, a.ikc, a.rc1 + row * HID, a.dc1 + row * HID, nb, tid);
+    dropout_bwd(ba, ba, site_of<PRNG>(a.drop, 3, l, b0, smp), a.ikc, a.rc1 + row * HID,
+                a.dc1 + row * HID, nb, tid);
     __syncthreads();
     mix_t(ba, big, tptr, tidx, tval, tid);
     __syncthreads();
@@ -588,7 +705,8 @@ __global__ void __launch_bounds__(THREADS, 1) train_backward_kernel(const BwdArg
     __syncthreads();
 
     // GraphNet: hc = hb + f2*m2*iks, f2 = lap.(r1 @ W2) + b2, r1 = relu(fc1(lap.LN2(hb)))
-    dropout_bwd(dh, ba, a.m2 + row * HID, a.iks, nullptr, a.df2 + row * HID, nb, tid);
+    dropout_bwd(dh, ba, site_of<PRNG>(a.drop, 2, l, b0, smp), a.iks, nullptr,
+                a.df2 + row * HID, nb, tid);
     __syncthreads();
     lap_mix_t(ba, bb, lap, tid);
     __syncthreads();
@@ -606,7 +724,8 @@ __global__ void __launch_bounds__(THREADS, 1) train_backward_kernel(const BwdArg
     __syncthreads();
 
     // attention: hb = ha + o1*m1*iks, o1 = att @ Wo + bo; probabilities recomputed from y1
-    dropout_bwd(dh, ba, a.m1 + row * HID, a.iks, nullptr, a.do1 + row * HID, nb, tid);
+    dropout_bwd(dh, ba, site_of<PRNG>(a.drop, 1, l, b0, smp), a.iks, nullptr,
+                a.do1 + row * HID, nb, tid);
     __syncthreads();
     gemm<HID, HID, LDH, LDH, kStore>(ba, a.waot + wsq, nullptr, bb, tid);            // d att
     __syncthreads();
@@ -614,7 +733,7 @@ __global__ void __launch_bounds__(THREADS, 1) train_backward_kernel(const BwdArg
     __syncthreads();
     gemm<HID, 3 * HID, LDH, LDB, kStoreBias>(ba, a.wqkv + 3 * wsq, a.bqkv + l * 3 * HID, big, tid);
     __syncthreads();
-    attention_bwd(big, bb, a.mp + smp * HEADS * PAIRS, a.ikp, sp, nb, tid);
+    attention_bwd(big, bb, probs_of<PRNG>(a.drop, l, b0, smp), a.ikp, sp, nb, tid);
     __syncthreads();
     store_rows<3 * HID>(big, LDB, a.dqkv + row * 3 * HID, nb, tid);
     gemm<3 * HID, HID, LDB, LDH, kStore>(big, a.wqkvt + 3 * wsq, nullptr, ba, tid);  // d y1

@@ -10,39 +10,19 @@ arrays are equal to that package's for equal arguments.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 
+from diffpose_tpu_torch.data.h36m import ALL_ACTIONS
+from diffpose_tpu_torch.data.pipeline import FlatDataset  # noqa: F401  (re-exported)
 from diffpose_tpu_torch.graph import H36M_EDGES
-
-ALL_ACTIONS = (
-    "Directions", "Discussion", "Eating", "Greeting", "Phoning", "Photo",
-    "Posing", "Purchases", "Sitting", "SittingDown", "Smoking", "Waiting",
-    "WalkDog", "Walking", "WalkTogether",
-)
 
 # Approximate H3.6M bone lengths in metres, in the order of H36M_EDGES.
 _BONE_LENGTHS = (
     0.13, 0.45, 0.45, 0.13, 0.45, 0.45, 0.24, 0.25, 0.12, 0.12,
     0.15, 0.28, 0.25, 0.15, 0.28, 0.25,
 )
-
-
-@dataclass
-class FlatDataset:
-    """Contiguous frame-major arrays.  ``poses_3d`` are root-centred;
-    ``action_ids`` index into ``actions``."""
-
-    poses_3d: np.ndarray        # [F, 17, 3] float32
-    poses_2d_gmm: np.ndarray    # [F, 17, K, 5] float32: weight, mean uv, var uv
-    action_ids: np.ndarray      # [F] int32
-    camera_para: np.ndarray     # [F, 4] float32
-    actions: Tuple[str, ...]
-
-    def __len__(self):
-        return self.poses_3d.shape[0]
 
 
 def make_synthetic_dataset(

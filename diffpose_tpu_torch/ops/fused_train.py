@@ -2,8 +2,11 @@
 
 Replaces the TPU kernels ``diffpose_tpu/ops/pallas_train.py:215
 _stack_fwd_kernel`` and ``:531 _stack_bwd_kernel`` (the explicit-mask
-dropout mode).  The CUDA source is ``csrc/train_kernel.cuh`` (device code)
-and ``csrc/train_kernel.cu`` (launch).
+dropout mode) and ``:314 _stack_fwd_kernel_prng`` and ``:581
+_stack_bwd_kernel_prng`` (dropout drawn in the kernels from a step seed).
+The CUDA source is ``csrc/train_kernel.cuh`` (device code, templated on the
+dropout's source), ``csrc/philox.cuh`` (the generator and its keying) and
+``csrc/train_kernel.cu`` (launch).
 
 * **forward** (:func:`stack_fwd`): the training forward of all L layers
   including dropout, one launch; writes the stack's output and the
@@ -39,13 +42,24 @@ Design, and where it differs from the TPU kernels:
   buffers, one 3H-wide buffer that holds in turn the Chebyshev partial
   mixes, ``df1``, and the recomputed QKV overwritten in place by ``dqkv``,
   and a 17×17 scratch per (sample, head);
-* the last tile masks its absent samples itself: any batch ≥ 1.
+* the last tile masks its absent samples itself: any batch ≥ 1;
+* seeded dropout (:func:`stack_fwd_prng`, :func:`stack_bwd_prng`): the TPU's
+  generator has no counterpart, so the kernels carry Philox4x32-10, keyed on
+  (seed, layer, stream, global sample, place in the sample) and not on the
+  tile; the backward regenerates the forward's decisions, the attention row
+  once per (sample, head, query); no mask lies in device memory (39 MB a
+  step at B=1024 with explicit masks) and the per-step draw disappears.  The
+  seed is an ``int32[1]`` on the device, read by the kernel, so no launch
+  waits for the host.  About 2,000 Philox calls per sample and layer in each
+  kernel add integer work; the bound stays the float operations' one.
 
 On CPU tensors the wrappers run the plain versions: ``layers_forward`` and
 :func:`stack_bwd_plain`, the hand-written backward in tensor operations
-(the formulas the CUDA kernel implements).  On CUDA tensors they launch
-the kernels or raise.  ``stack_fwd.launches`` / ``stack_bwd.launches``
-count kernel launches.
+(the formulas the CUDA kernel implements), the seeded ones with
+``ops/philox.py:philox_masks``, which gives the kernels' bits.  On CUDA
+tensors they launch the kernels or raise.  ``stack_fwd.launches``,
+``stack_bwd.launches``, ``stack_fwd_prng.launches`` and
+``stack_bwd_prng.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -53,7 +67,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,6 +84,7 @@ from diffpose_tpu_torch.ops.fused_denoiser import (
     prepare_weights,
     timestep_projections,
 )
+from diffpose_tpu_torch.ops.philox import keep_thresholds, philox_masks
 from diffpose_tpu_torch.ops.train_ref import (
     STASH_KEYS,
     DropoutMasks,
@@ -266,13 +281,15 @@ _BWD_WEIGHTS = ("ln1s", "ln2s", "wqkv", "bqkv", "wqkv_t", "wao_t", "lap",
 def _library() -> ctypes.CDLL:
     lib = _build.load("train_kernel")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    u32 = ctypes.c_uint
+    drop = [i32, ptr] + [u32] * 3          # seeded, seed, three thresholds
     lib.train_stack_forward.argtypes = (
-        [i32] * 6 + [f32] * 3 + [ptr] * (2 + len(MASK_KEYS) + len(_FWD_WEIGHTS)) + [i32]
-        + [ptr] * (1 + len(STASH_KEYS)) + [ptr])
+        [i32] * 6 + [f32] * 3 + drop + [ptr] * (2 + 2 * len(MASK_KEYS) + len(_FWD_WEIGHTS))
+        + [i32] + [ptr] * (1 + len(STASH_KEYS)) + [ptr])
     lib.train_stack_forward.restype = i32
     lib.train_stack_backward.argtypes = (
-        [i32] * 6 + [f32] * 3 + [ptr] * (1 + len(MASK_KEYS) + len(BWD_STASH_KEYS)
-                                          + len(_BWD_WEIGHTS) + 3) + [i32]
+        [i32] * 6 + [f32] * 3 + drop + [ptr] * (1 + len(MASK_KEYS) + len(BWD_STASH_KEYS)
+                                                 + len(_BWD_WEIGHTS) + 3) + [i32]
         + [ptr] * (2 + len(DSTASH_KEYS)) + [ptr])
     lib.train_stack_backward.restype = i32
     lib.train_error_string.argtypes = [i32]
@@ -290,7 +307,21 @@ def _stack_shapes(w: Weights) -> Dict[str, tuple]:
     )
 
 
-def _check_common(w: Weights, km: Dict[str, torch.Tensor], ref: torch.Tensor):
+class _Drop(NamedTuple):
+    """The dropout arguments of one launch: explicit masks (``km``) or a seed."""
+
+    km: Optional[Dict[str, torch.Tensor]]
+    seed: Optional[torch.Tensor]
+    thresholds: Tuple[int, int, int]
+
+    def args(self):
+        """(seeded, seed pointer, thresholds, the five mask pointers)."""
+        if self.seed is not None:
+            return (1, self.seed.data_ptr(), *self.thresholds, *[None] * len(MASK_KEYS))
+        return (0, None, 0, 0, 0, *[self.km[k].data_ptr() for k in MASK_KEYS])
+
+
+def _check_common(w: Weights, drop: _Drop, ref: torch.Tensor):
     """Checks shared by both launches; returns ``(B, L, H, n, device)``."""
     cfg = (w["hid_dim"], w["num_heads"], w["n_pts"])
     if cfg != (KERNEL_HID, KERNEL_HEADS, KERNEL_PTS):
@@ -303,10 +334,16 @@ def _check_common(w: Weights, km: Dict[str, torch.Tensor], ref: torch.Tensor):
     bsz, L, H, n, dev = ref.shape[0], w["num_layers"], w["hid_dim"], w["n_pts"], ref.device
     if bsz < 1:
         raise ValueError("the kernels take a batch of at least 1")
-    _check_tensor("masks.probs", km["probs"], (L, bsz, w["num_heads"], n, n), torch.uint8, dev)
-    for k in MASK_KEYS[1:]:
-        _check_tensor(f"masks.{k}", km[k], (L, bsz, n, H), torch.uint8, dev)
+    if drop.seed is not None:
+        _check_tensor("seed", drop.seed, (1,), torch.int32, dev)
+    else:
+        for k, shape in _mask_shapes(L, bsz, w["num_heads"], n, H).items():
+            _check_tensor(f"masks.{k}", drop.km[k], shape, torch.uint8, dev)
     return bsz, L, H, n, dev
+
+
+def _mask_shapes(L, bsz, heads, n, H) -> Dict[str, tuple]:
+    return {"probs": (L, bsz, heads, n, n), **{k: (L, bsz, n, H) for k in MASK_KEYS[1:]}}
 
 
 def _raise_on(code: int, what: str):
@@ -315,9 +352,16 @@ def _raise_on(code: int, what: str):
         raise RuntimeError(f"{what} kernel: {msg} (cudaError {code})")
 
 
-def _launch_fwd(w: Weights, h0, tp, km, ikeep: Rates):
-    """One launch of the forward kernel; every input is checked first."""
-    bsz, L, H, n, dev = _check_common(w, km, h0)
+def _launch_fwd(w: Weights, h0, tp, drop, ikeep: Rates, *, dump: bool = False):
+    """One launch of the forward kernel; every input is checked first.
+    ``drop``: the masks' dict, or a :class:`_Drop`.  With ``dump`` (seeded
+    dropout only) also returns the masks the kernel drew, in
+    :func:`kernel_masks`' layout."""
+    if not isinstance(drop, _Drop):
+        drop = _Drop(drop, None, (0, 0, 0))
+    if dump and drop.seed is None:
+        raise ValueError("only the seeded forward can dump its masks")
+    bsz, L, H, n, dev = _check_common(w, drop, h0)
     _check_tensor("h0", h0, (bsz, n, H), torch.float32, dev)
     _check_tensor("tp", tp, (L, bsz, H), torch.float32, dev)
     for name, shape in _stack_shapes(w).items():
@@ -329,19 +373,26 @@ def _launch_fwd(w: Weights, h0, tp, km, ikeep: Rates):
     d5 = torch.empty((bsz, n, H), dtype=torch.float32, device=dev)
     st = {k: torch.empty((L, bsz, n, _STASH_WIDTH.get(k, 1) * H), dtype=torch.float32, device=dev)
           for k in STASH_KEYS}
+    dumped = {k: torch.empty(shape, dtype=torch.uint8, device=dev)
+              for k, shape in _mask_shapes(L, bsz, w["num_heads"], n, H).items()} if dump else {}
+    seeded, seed_ptr, thp, ths, thc, *mask_ptrs = drop.args()
     code = _library().train_stack_forward(
-        dev.index, H, w["num_heads"], n, bsz, L, *ikeep,
-        h0.data_ptr(), tp.data_ptr(), *[km[k].data_ptr() for k in MASK_KEYS],
+        dev.index, H, w["num_heads"], n, bsz, L, *ikeep, seeded, seed_ptr, thp, ths, thc,
+        h0.data_ptr(), tp.data_ptr(), *mask_ptrs,
+        *[dumped[k].data_ptr() if dump else None for k in MASK_KEYS],
         *[w[k].data_ptr() for k in _FWD_WEIGHTS], w["cheb_nnz"],
         d5.data_ptr(), *[st[k].data_ptr() for k in STASH_KEYS],
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(code, "train_stack_forward")
-    return d5, st
+    return (d5, st, dumped) if dump else (d5, st)
 
 
-def _launch_bwd(w: Weights, km, st, dd5, ikeep: Rates):
-    """One launch of the backward kernel; every input is checked first."""
-    bsz, L, H, n, dev = _check_common(w, km, dd5)
+def _launch_bwd(w: Weights, drop, st, dd5, ikeep: Rates):
+    """One launch of the backward kernel; every input is checked first.
+    ``drop``: the masks' dict, or a :class:`_Drop`."""
+    if not isinstance(drop, _Drop):
+        drop = _Drop(drop, None, (0, 0, 0))
+    bsz, L, H, n, dev = _check_common(w, drop, dd5)
     _check_tensor("dd5", dd5, (bsz, n, H), torch.float32, dev)
     for k in BWD_STASH_KEYS:
         _check_tensor(k, st[k], (L, bsz, n, _STASH_WIDTH.get(k, 1) * H), torch.float32, dev)
@@ -362,8 +413,8 @@ def _launch_bwd(w: Weights, km, st, dd5, ikeep: Rates):
     ds = {k: torch.empty((L, bsz, n, _DSTASH_WIDTH.get(k, 1) * H), dtype=torch.float32,
                          device=dev) for k in DSTASH_KEYS}
     code = _library().train_stack_backward(
-        dev.index, H, w["num_heads"], n, bsz, L, *ikeep,
-        dd5.data_ptr(), *[km[k].data_ptr() for k in MASK_KEYS],
+        dev.index, H, w["num_heads"], n, bsz, L, *ikeep, *drop.args()[:5],
+        dd5.data_ptr(), *drop.args()[5:],
         *[st[k].data_ptr() for k in BWD_STASH_KEYS], *[wb[k].data_ptr() for k in _BWD_WEIGHTS],
         tptr.data_ptr(), tidx.data_ptr(), tval.data_ptr(), tval.numel(),
         da0.data_ptr(), dtp.data_ptr(), *[ds[k].data_ptr() for k in DSTASH_KEYS],
@@ -396,8 +447,49 @@ def stack_bwd(w: Weights, km: Dict[str, torch.Tensor], st: Dict[str, torch.Tenso
     return out
 
 
+def _seeded(seed: torch.Tensor, rates) -> _Drop:
+    return _Drop(None, seed, keep_thresholds(rates))
+
+
+def _masks_of_seed(w: Weights, seed, batch: int, device, dtype, rates) -> DropoutMasks:
+    return philox_masks(seed, num_layers=w["num_layers"], batch=batch, n_pts=w["n_pts"],
+                        num_heads=w["num_heads"], hid_dim=w["hid_dim"], rates=rates,
+                        device=device, dtype=dtype)
+
+
+def stack_fwd_prng(w: Weights, h0: torch.Tensor, tp: torch.Tensor, seed: torch.Tensor, *,
+                   rates=None, dump: bool = False):
+    """:func:`stack_fwd` with the dropout drawn from ``seed`` (``int32[1]`` on
+    ``h0``'s device) as ``csrc/philox.cuh`` sets out: one launch of the seeded
+    forward kernel for CUDA tensors, ``layers_forward`` with
+    :func:`philox_masks` (the same bits) for CPU tensors.  With ``dump`` also
+    returns the masks that were drawn, in :func:`kernel_masks`' layout."""
+    if h0.device.type == "cpu":
+        masks = _masks_of_seed(w, seed, h0.shape[0], h0.device, h0.dtype, rates)
+        out = layers_forward(w, h0, tp, masks, rates=rates, return_stashes=True)
+        return (*out, kernel_masks(masks)) if dump else out
+    out = _launch_fwd(w, h0, tp, _seeded(seed, rates), _inv_keep(rates), dump=dump)
+    stack_fwd_prng.launches += 1
+    return out
+
+
+def stack_bwd_prng(w: Weights, seed: torch.Tensor, st: Dict[str, torch.Tensor],
+                   dd5: torch.Tensor, *, rates=None):
+    """:func:`stack_bwd` regenerating the masks :func:`stack_fwd_prng` drew
+    from the same ``seed``: one launch of the seeded backward kernel for CUDA
+    tensors, :func:`stack_bwd_plain` with :func:`philox_masks` for CPU tensors."""
+    if dd5.device.type == "cpu":
+        masks = _masks_of_seed(w, seed, dd5.shape[0], dd5.device, dd5.dtype, rates)
+        return stack_bwd_plain(w, masks, st, dd5, rates=rates)
+    out = _launch_bwd(w, _seeded(seed, rates), st, dd5, _inv_keep(rates))
+    stack_bwd_prng.launches += 1
+    return out
+
+
 stack_fwd.launches = 0
 stack_bwd.launches = 0
+stack_fwd_prng.launches = 0
+stack_bwd_prng.launches = 0
 
 
 class _TrainStack(torch.autograd.Function):
@@ -406,8 +498,10 @@ class _TrainStack(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cfg, km, h0, tp, *stack):
+        """``km``: the masks' dict, or the step seed (a tensor) of the seeded pair."""
         w = dict(cfg, **dict(zip(STACK_KEYS, stack)))
-        d5, st = stack_fwd(w, h0.contiguous(), tp.contiguous(), km, rates=cfg["rates"])
+        fwd = stack_fwd_prng if isinstance(km, torch.Tensor) else stack_fwd
+        d5, st = fwd(w, h0.contiguous(), tp.contiguous(), km, rates=cfg["rates"])
         ctx.cfg, ctx.km, ctx.st = cfg, km, st
         ctx.save_for_backward(*stack)
         return d5
@@ -416,15 +510,22 @@ class _TrainStack(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dd5):
         w = dict(ctx.cfg, **dict(zip(STACK_KEYS, ctx.saved_tensors)))
-        da0, dtp, ds = stack_bwd(w, ctx.km, ctx.st, dd5.contiguous(), rates=ctx.cfg["rates"])
+        bwd = stack_bwd_prng if isinstance(ctx.km, torch.Tensor) else stack_bwd
+        da0, dtp, ds = bwd(w, ctx.km, ctx.st, dd5.contiguous(), rates=ctx.cfg["rates"])
         grads = weight_grads(w, ctx.st, ds)
         return (None, None, da0, dtp, *[grads[k] for k in STACK_KEYS])
 
 
 def build_train_stack(basis: np.ndarray, *, num_layers: int = 5, num_heads: int = 4,
-                      hid_dim: int = 96, rates=None):
-    """Build ``stack_apply(weights, h0, tp, masks) → d5``, differentiable
-    through the kernel pair.
+                      hid_dim: int = 96, rates=None, dropout: str = "masks"):
+    """Build ``stack_apply(weights, h0, tp, masks_or_seed) → d5``,
+    differentiable through the kernel pair.
+
+    ``dropout="masks"``: the fourth argument holds explicit masks;
+    ``dropout="prng"``: it is the step seed, an ``int32[1]`` tensor on
+    ``h0``'s device, and the seeded kernel pair draws the masks (the autograd
+    node keeps the seed, no mask).  The function then also carries
+    ``run_fwd_dump(w, h0, tp, seed) → (d5, stashes, masks)``.
 
     ``weights``: :func:`prepare_weights`' dict (made with
     ``differentiable=True`` for gradients to reach the module); ``h0``
@@ -433,6 +534,9 @@ def build_train_stack(basis: np.ndarray, *, num_layers: int = 5, num_heads: int 
     ``(p_attn_probs, p_sublayer, p_cheb)``.  The returned function carries
     ``run_fwd`` / ``run_bwd``, the kernel wrappers with these rates.
     """
+    if dropout not in ("masks", "prng"):
+        raise ValueError(f"dropout must be 'masks' or 'prng', got {dropout!r}")
+    prng = dropout == "prng"
     basis = np.asarray(basis, np.float32)
     rates = resolve_rates(rates)
     expect = (num_layers, num_heads, hid_dim)
@@ -444,13 +548,18 @@ def build_train_stack(basis: np.ndarray, *, num_layers: int = 5, num_heads: int 
                              f"the stack was built for {expect}")
         if not np.array_equal(w["basis_host"], basis):
             raise ValueError("weights were prepared for another Chebyshev basis")
+        if prng != isinstance(masks, torch.Tensor):
+            raise ValueError(f"a stack built with dropout={dropout!r} takes "
+                             f"{'a seed tensor' if prng else 'masks'}, got {type(masks).__name__}")
         km = kernel_masks(masks) if isinstance(masks, DropoutMasks) else masks
         cfg = {k: v for k, v in w.items() if k not in STACK_KEYS}
         cfg["rates"] = rates
         return _TrainStack.apply(cfg, km, h0, tp, *[w[k] for k in STACK_KEYS])
 
-    stack_apply.run_fwd = functools.partial(stack_fwd, rates=rates)
-    stack_apply.run_bwd = functools.partial(stack_bwd, rates=rates)
+    stack_apply.run_fwd = functools.partial(stack_fwd_prng if prng else stack_fwd, rates=rates)
+    stack_apply.run_bwd = functools.partial(stack_bwd_prng if prng else stack_bwd, rates=rates)
+    stack_apply.run_fwd_dump = (functools.partial(stack_fwd_prng, rates=rates, dump=True)
+                                if prng else None)
     return stack_apply
 
 
@@ -459,7 +568,8 @@ def fused_train_forward(model, x: torch.Tensor, t: torch.Tensor, masks, stack_fn
     stack, differentiable with respect to the module's parameters: the
     weight prep, the timestep MLP and the input and output ChebConv are
     plain PyTorch under autograd; the L layers run through ``stack_fn``
-    (from :func:`build_train_stack`)."""
+    (from :func:`build_train_stack`), which takes ``masks``: explicit masks
+    or, built with ``dropout="prng"``, the step seed."""
     w = prepare_weights(model, device=x.device, differentiable=True)
     tp = timestep_projections(w, t)
     h0 = _cheb(x, w["win"], w["bin"], w["basis"])
@@ -467,9 +577,11 @@ def fused_train_forward(model, x: torch.Tensor, t: torch.Tensor, masks, stack_fn
     return _cheb(d5, w["wout"], w["bout"], w["basis"])
 
 
-def make_train_step(model, optimizer, betas, *, impl: str = "fused", ema_mu=0.999, device="cuda"):
+def make_train_step(model, optimizer, betas, *, impl: str = "fused", ema_mu=0.999, device="cuda",
+                    dropout: str = "masks"):
     """The fused drop-in for the module train step: ``train.steps.make_train_step``
     with the kernel pair as the denoiser's forward and backward."""
     from diffpose_tpu_torch.train import steps  # steps imports this module
 
-    return steps.make_train_step(model, optimizer, betas, impl=impl, ema_mu=ema_mu, device=device)
+    return steps.make_train_step(model, optimizer, betas, impl=impl, ema_mu=ema_mu, device=device,
+                                 dropout=dropout)

@@ -1,1 +1,1 @@
-"""Training: optimizer, train state, EMA-carrying step functions, checkpoints."""
+"""Training: optimizer, train state, train and eval step functions, checkpoints, the runner."""

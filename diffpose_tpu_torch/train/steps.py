@@ -1,4 +1,4 @@
-"""Train step functions of the frame family.
+"""Train and eval step functions of the frame family.
 
 One step: GMM kernel draw → antithetic timesteps → ``e = randn·noise_scale``
 → q-sample → denoiser forward → ε-MSE → backward → global-norm clip →
@@ -16,19 +16,35 @@ model, optimizer and EMA shadow are updated in place.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+import contextlib
+import functools
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
-from diffpose_tpu_torch.data.gmm import sample_gmm_batch
-from diffpose_tpu_torch.diffusion.ddim import antithetic_timesteps, q_sample, q_sample_tables
+from diffpose_tpu_torch.data.gmm import sample_gmm_batch, sample_gmm_batch_per_sample
+from diffpose_tpu_torch.diffusion.ddim import (
+    antithetic_timesteps,
+    ddim_sample,
+    q_sample,
+    q_sample_tables,
+)
+from diffpose_tpu_torch.metrics import mpjpe_per_sample, p_mpjpe_per_sample
 from diffpose_tpu_torch.models.ema import ema_update
-from diffpose_tpu_torch.ops.fused_denoiser import resolve_device
+from diffpose_tpu_torch.ops.fused_denoiser import (
+    fused_denoiser,
+    fused_lifter,
+    prepare_weights,
+    resolve_device,
+)
 from diffpose_tpu_torch.ops.fused_train import build_train_stack, fused_train_forward
+from diffpose_tpu_torch.ops.philox import philox_masks
 from diffpose_tpu_torch.ops.train_ref import DropoutMasks, make_dropout_masks, train_forward
 from diffpose_tpu_torch.train.state import TrainState
 
 IMPLS = ("fused", "plain", "module")
+DROPOUTS = ("masks", "prng")
+_INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
 
 
 class StepDraws(NamedTuple):
@@ -38,6 +54,7 @@ class StepDraws(NamedTuple):
     t: torch.Tensor                    # [B] int64 timesteps
     e: torch.Tensor                    # [B, J, 5] target noise, scaled per coordinate
     masks: Optional[DropoutMasks]      # None for impl="module" (nn.Dropout draws its own)
+    seed: Optional[torch.Tensor] = None  # int32[1], dropout="prng": the masks' seed
 
 
 def diffusion_loss(eps: torch.Tensor, target_noise: torch.Tensor) -> torch.Tensor:
@@ -45,7 +62,7 @@ def diffusion_loss(eps: torch.Tensor, target_noise: torch.Tensor) -> torch.Tenso
 
 
 def make_train_step(model, optimizer, betas, *, impl: str = "fused",
-                    ema_mu: Optional[float] = 0.999, device="cuda"):
+                    ema_mu: Optional[float] = 0.999, device="cuda", dropout: str = "masks"):
     """Build ``train_step(state, batch, generator) → (state, metrics)``.
 
     ``impl``: ``"fused"`` runs the denoiser's layers through the CUDA
@@ -53,7 +70,11 @@ def make_train_step(model, optimizer, betas, *, impl: str = "fused",
     versions); ``"plain"`` is ``train_ref.train_forward`` under autograd
     with the same explicit masks; ``"module"`` is ``GCNDiff.train()`` under
     autograd with ``nn.Dropout``, which draws from torch's default
-    generator.  ``model`` lies on ``device``; ``generator`` is a
+    generator.  ``dropout`` (``"fused"`` and ``"plain"``): ``"masks"`` draws
+    explicit masks from the generator each step; ``"prng"`` draws one int32
+    seed, from which the seeded kernel pair draws the masks itself (Philox,
+    ``csrc/philox.cuh``; on a CPU device and for ``"plain"``:
+    ``ops/philox.py:philox_masks``, the same bits).  ``model`` lies on ``device``; ``generator`` is a
     ``torch.Generator`` of that device; ``optimizer`` is
     ``train.optim.make_optimizer``'s.  ``batch``: ``poses_3d [B, J, 3]`` and
     ``poses_2d_gmm [B, J, K, 5]``.  ``metrics``: ``loss`` and ``grad_norm``
@@ -61,6 +82,12 @@ def make_train_step(model, optimizer, betas, *, impl: str = "fused",
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if dropout not in DROPOUTS:
+        raise ValueError(f"dropout must be one of {DROPOUTS}, got {dropout!r}")
+    if dropout == "prng" and impl == "module":
+        raise ValueError("impl='module' draws its dropout with nn.Dropout; dropout='prng' "
+                         "belongs to impl='fused' and 'plain'")
+    prng = dropout == "prng"
     device = resolve_device(device)
     if next(model.parameters()).device.type != device.type:
         raise ValueError(f"the model lies on {next(model.parameters()).device}, not on {device}")
@@ -68,7 +95,7 @@ def make_train_step(model, optimizer, betas, *, impl: str = "fused",
     tables = q_sample_tables(betas, torch.float32, device)
     cfg = dict(num_layers=model.num_layers, num_heads=model.num_heads, hid_dim=model.hid_dim)
     basis = model.gconv_input.basis.detach().cpu().numpy()
-    stack_fn = build_train_stack(basis, **cfg) if impl == "fused" else None
+    stack_fn = build_train_stack(basis, **cfg, dropout=dropout) if impl == "fused" else None
 
     def draw(batch: dict, generator: torch.Generator) -> StepDraws:
         gmm = torch.as_tensor(batch["poses_2d_gmm"], device=device)
@@ -79,12 +106,18 @@ def make_train_step(model, optimizer, betas, *, impl: str = "fused",
         e = torch.randn(uvxyz.shape, generator=generator, device=device,
                         dtype=uvxyz.dtype) * noise_scale
         x_t = q_sample(uvxyz, t, e, betas, tables)
-        masks = None
-        if impl != "module":
+        masks = seed = None
+        if prng:
+            seed = torch.randint(_INT32_MIN, _INT32_MAX, (1,), generator=generator, device=device,
+                                 dtype=torch.int32)
+            if impl == "plain":
+                masks = philox_masks(seed, n_pts=n_pts, batch=n, **cfg, device=device,
+                                     dtype=torch.float32)
+        elif impl != "module":
             masks = make_dropout_masks(
                 generator, n_pts=n_pts, batch=n, **cfg,
                 dtype=torch.uint8 if impl == "fused" else torch.float32)
-        return StepDraws(x_t, t, e, masks)
+        return StepDraws(x_t, t, e, masks, seed)
 
     def apply(state: TrainState, draws: StepDraws):
         if state.model is not model or state.optimizer is not optimizer:
@@ -93,7 +126,8 @@ def make_train_step(model, optimizer, betas, *, impl: str = "fused",
         optimizer.zero_grad()
         t = draws.t.to(torch.float32)
         if impl == "fused":
-            eps = fused_train_forward(model, draws.x_t, t, draws.masks, stack_fn)
+            eps = fused_train_forward(model, draws.x_t, t, draws.seed if prng else draws.masks,
+                                      stack_fn)
         elif impl == "plain":
             eps = train_forward(model, draws.x_t, t, draws.masks)
         else:
@@ -114,7 +148,7 @@ def make_train_step(model, optimizer, betas, *, impl: str = "fused",
 
 
 def make_train_sweep_step(model, optimizer, betas, *, sweep: int, impl: str = "fused",
-                          ema_mu: Optional[float] = 0.999, device="cuda",
+                          ema_mu: Optional[float] = 0.999, device="cuda", dropout: str = "masks",
                           base_step: Optional[Callable] = None):
     """Device-resident-data training: ``sweep`` optimizer steps per call.
 
@@ -128,7 +162,7 @@ def make_train_sweep_step(model, optimizer, betas, *, sweep: int, impl: str = "f
     [N, J, K, 5]}`` on the device.
     """
     base = base_step or make_train_step(model, optimizer, betas, impl=impl, ema_mu=ema_mu,
-                                        device=device)
+                                        device=device, dropout=dropout)
 
     def sweep_step(state: TrainState, data: dict, idx: torch.Tensor, generator: torch.Generator):
         if idx.shape[0] != sweep:
@@ -141,3 +175,110 @@ def make_train_sweep_step(model, optimizer, betas, *, sweep: int, impl: str = "f
         return state, {"loss": torch.stack(losses)}
 
     return sweep_step
+
+
+EVAL_IMPLS = ("module", "fused")
+
+
+@contextlib.contextmanager
+def _swapped_in(model, params):
+    """Run the body with ``model``'s parameters holding ``params``' values
+    (the EMA shadow), then put the live values back."""
+    if params is None:
+        yield
+        return
+    live = {name: p.data for name, p in model.named_parameters()}
+    try:
+        for name, p in model.named_parameters():
+            p.data = params[name]
+        yield
+    finally:
+        for name, p in model.named_parameters():
+            p.data = live[name]
+
+
+def make_eval_step(diff_model, pose_model, betas, seq: Sequence[int], *, test_times: int = 1,
+                   eta: float = 0.0, add_start_noise: bool = False, use_ema: bool = False,
+                   gmm_base_seed: int = 0, impl: str = "module", device="cuda"):
+    """Build the evaluation step (lift → DDIM loop → hypothesis mean).
+    Counterpart of ``diffpose_tpu/train/steps.py:make_eval_step``.
+
+    Reference protocol (``runners/diffpose_frame.py:330-391``): draw a GMM
+    kernel for the 2D input, lift with GCNPose, root-centre, concatenate to
+    uvxyz, replicate ``test_times`` hypotheses, run the (eta=0) DDIM
+    subsequence *starting from the lifted uvxyz* (the noising line is
+    disabled in the reference, ``:363``), average hypotheses, root-centre,
+    and return per-sample P1/P2 errors.
+
+    ``impl="fused"`` runs the lifter and the denoiser through the
+    whole-network CUDA kernels of ``ops/fused_denoiser.py`` (on a CPU device:
+    their plain versions); ``impl="module"`` through the ``nn.Module``
+    forwards.  ``use_ema`` evaluates the EMA shadow instead of the live
+    weights.  The GMM draw is keyed per sample by ``batch["seeds"]`` from a
+    fixed base seed, so results do not depend on batch grouping.
+
+    Returns ``eval_step(state, pose_model, batch, generator, prepared=None)
+    → (p1 [B], p2 [B], pred_xyz [B, J, 3])``, tensors on ``device``.
+    ``eval_step.prepare(state, pose_model)`` stacks the weights of the
+    models under evaluation once (``impl="fused"``); pass its result as
+    ``prepared`` to every batch of one evaluation, or leave it out and the
+    step prepares them itself.
+    """
+    if impl not in EVAL_IMPLS:
+        raise ValueError(f"impl must be one of {EVAL_IMPLS}, got {impl!r}")
+    device = resolve_device(device)
+    seq = tuple(int(s) for s in seq)
+
+    def ema_of(state):
+        return state.ema_params if use_ema and state.ema_params is not None else None
+
+    @torch.no_grad()
+    def prepare(state, pose):
+        if impl != "fused":
+            return None
+        with _swapped_in(state.model, ema_of(state)):
+            diff_w = prepare_weights(state.model, device=device)
+        return prepare_weights(pose, device=device), diff_w
+
+    @torch.no_grad()
+    def eval_step(state, pose, batch: dict, generator: Optional[torch.Generator] = None,
+                  prepared=None):
+        if state.model is not diff_model:
+            raise ValueError("the state holds another model than the step")
+        pose = pose_model if pose is None else pose
+        gmm = torch.as_tensor(batch["poses_2d_gmm"], device=device)
+        poses_3d = torch.as_tensor(batch["poses_3d"], device=device)
+        seeds = torch.as_tensor(batch["seeds"], device=device)
+        _, noise_scale, input_2d = sample_gmm_batch_per_sample(gmm_base_seed, seeds, gmm, poses_3d)
+        input_2d = input_2d.contiguous()      # a slice of the chosen kernels; the wrappers take no strides
+
+        if impl == "fused":
+            pose_w, diff_w = prepared if prepared is not None else prepare(state, pose)
+            lift = functools.partial(fused_lifter, pose_w)
+            denoise = functools.partial(fused_denoiser, diff_w)
+            swap = contextlib.nullcontext()
+        else:
+            diff_model.eval()
+            pose.eval()
+            lift, denoise = pose, diff_model
+            swap = _swapped_in(diff_model, ema_of(state))
+
+        xyz = lift(input_2d)
+        xyz = xyz - xyz[:, :1, :]
+        uvxyz = torch.cat([input_2d, xyz], dim=-1).repeat(test_times, 1, 1)
+        if add_start_noise:
+            e = torch.randn(uvxyz.shape, generator=generator, device=device,
+                            dtype=uvxyz.dtype) * noise_scale.repeat(test_times, 1, 1)
+            t0 = torch.full((uvxyz.shape[0],), seq[-1], dtype=torch.int64, device=device)
+            uvxyz = q_sample(uvxyz, t0, e, betas)
+        with swap:
+            out = ddim_sample(denoise, uvxyz, seq, betas, eta=eta, generator=generator)
+        out = out.reshape(test_times, -1, out.shape[1], out.shape[2]).mean(dim=0)
+
+        pred_xyz = out[..., 2:]
+        pred_xyz = pred_xyz - pred_xyz[:, :1, :]
+        target = poses_3d - poses_3d[:, :1, :]
+        return mpjpe_per_sample(pred_xyz, target), p_mpjpe_per_sample(pred_xyz, target), pred_xyz
+
+    eval_step.prepare = prepare
+    return eval_step

@@ -37,6 +37,26 @@ def test_port_imports_no_jax_and_no_jax_package():
             assert not name.startswith("."), f"{f.relative_to(ROOT)}: use absolute imports"
 
 
+def test_third_party_imports_are_torch_numpy_yaml_and_a_lazy_matplotlib():
+    import sys
+
+    allowed = {"torch", "numpy", "yaml", "matplotlib", "diffpose_tpu_torch", "__future__"}
+    files = sorted((ROOT / "diffpose_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for f in files:
+        tree = ast.parse(f.read_text(), filename=str(f))
+        for name in _imports(f):
+            top = name.split(".")[0]
+            assert top in allowed or top in sys.stdlib_module_names, \
+                f"{f.relative_to(ROOT)} imports {name}"
+        # matplotlib (and triton, where a kernel takes that route) only inside functions
+        for node in tree.body:
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = [a.name for a in node.names] if isinstance(node, ast.Import) \
+                    else [node.module or ""]
+                assert not any(n.split(".")[0] in ("matplotlib", "triton") for n in names), \
+                    f"{f.relative_to(ROOT)} imports {names} at module level"
+
+
 def test_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
