@@ -59,6 +59,40 @@ Phases (each fails loudly; none catches its own failure):
     ``throughput_stats()`` of an evaluation, and its layers one by one
     (loader gather, pinned copies, one eval step, the Procrustes metric).
 
+The implicit (IGCN) family, at the width of ``configs/human36m_ipose.yml``
+(hid 96, 5 layers, Anderson m=5, β=1, λ=0.1, 20/10 iterations, tolerance
+0.1, B=512, t=12) with a seeded init:
+
+12. hold the bare-stack kernel (kernel row 3, ``fused_backbone``) against
+    ``backbone_plain`` at B=512, 1024 and a ragged 1000; bound 5e-5;
+13. hold ``make_igcn_fn`` against its plain twin (``backbone_plain`` in
+    place of the kernel) at a fixed iteration count where the solve does not
+    amplify rounding (Anderson 5/5, its history not yet full; damped 20/20):
+    output and fixed point within 2e-4; then at the config's solver, print
+    both iteration counts, the difference, and the float32 plain solve's own
+    distance from a float64 solve of the module (full-history Anderson
+    amplifies rounding: see ``PERF.md``);
+14. hold the fused implicit train step (the seeded kernel pair once per
+    iteration) against the module step on the same draws, 3 steps each:
+    damped 20/10 and Anderson 2/2 (loss within 1e-3 relative every step,
+    BatchNorm buffers within 1e-5 after the first, every first-step
+    gradient |Δ| < 1e-5 or 1e-3 relative); Anderson 3/3 with m=3, its
+    history full (first-step gradients finite, float64 norms within a factor
+    5); Anderson 20/10, the config (finite gradients); 1 + iterations launches of
+    the seeded forward a step and as many of the backward as iterations
+    (Anderson's last f(z) reaches nothing the loss reads);
+15. run ``diffpose_tpu_torch.cli.main_implicit --use_implicit`` in process,
+    ``configs/human36m_ipose.yml``, 4096 synthetic frames, B=512,
+    ``--train_impl fused --dropout_impl prng --denoiser_impl fused``: train 2
+    epochs, resume for a third, evaluate the checkpoint: launch counts (1
+    lifter and 1 + iterations row-3 launches an eval batch, 21 seeded
+    forward and 20 seeded backward launches a step, none of the explicit
+    pair or the denoiser), files,
+    finite losses, moved BatchNorm buffers, eval-only P1/P2 equal to the
+    last epoch's;
+16. time row 3, the eval solve, the train step by parts and the implicit
+    runner (train epochs, ``throughput_stats()``).
+
 The line before the last holds the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -85,11 +119,17 @@ from diffpose_tpu_torch.data.synthetic import make_synthetic_dataset
 from diffpose_tpu_torch.diffusion import get_beta_schedule
 from diffpose_tpu_torch.graph import H36M_EDGES, cheb_basis_from_edges
 from diffpose_tpu_torch.metrics import p_mpjpe_per_sample
-from diffpose_tpu_torch.models import GCNDiff, GCNPose
+from diffpose_tpu_torch.models import IGCN, GCNDiff, GCNPose
+from diffpose_tpu_torch.models.igcn import bn_eval, bn_state
+from diffpose_tpu_torch.ops.fused_igcn import make_igcn_fn
+from diffpose_tpu_torch.ops.fused_igcn_train import make_igcn_train_fn
 from diffpose_tpu_torch.ops import _build
 from diffpose_tpu_torch.ops.fused_denoiser import (
     _launch,
+    _launch_backbone,
+    backbone_plain,
     denoiser_plain,
+    fused_backbone,
     fused_denoiser,
     fused_lifter,
     lifter_plain,
@@ -105,6 +145,7 @@ from diffpose_tpu_torch.ops.train_ref import layers_forward, make_dropout_masks
 from diffpose_tpu_torch.models.ema import ema_register, ema_update
 from diffpose_tpu_torch.train.optim import make_optimizer
 from diffpose_tpu_torch.train.state import TrainState
+from diffpose_tpu_torch.train.implicit_steps import make_implicit_train_step
 from diffpose_tpu_torch.train.steps import make_train_step, make_train_sweep_step
 
 SEED = 0
@@ -136,6 +177,28 @@ TOL_STEP_GRAD_NORM = 1e-4  # relative, step by step
 TOL_STEP_PARAMS = 1e-5
 TOL_STEP_SHARE = 1e-3
 TOL_STEP_PARAMS_MAX = 2 * TRAIN_LR * TRAIN_STEPS / 8
+# The implicit family (configs/human36m_ipose.yml)
+IMPLICIT_CONFIG = "configs/human36m_ipose.yml"
+IMPLICIT_BATCH = 512
+ROW3_BATCHES = (IMPLICIT_BATCH, 1024, 1000)   # the main path's, the eval's, a ragged tile
+IMPLICIT_T = 12               # testing.test_num_diffusion_timesteps
+IMPLICIT_FRAMES = 4096        # 8 steps an epoch, 2 eval batches
+IMPLICIT_STEPS = 3
+# Fixed iteration counts at which the eval solve does not amplify rounding:
+# Anderson before its history of 5 fills, the damped solver at full depth.
+STABLE_SOLVES = (("anderson", 5), ("damped", 20))
+# The train step, fused against module, as (solver, max, min iterations,
+# Anderson history m, what is held): the damped solver at the config's depth
+# and Anderson at 2 iterations (tests/test_pallas_igcn_train.py:54) are well
+# conditioned, their gradients held entry by entry ("entries"); from 3
+# iterations on the Gram solves amplify rounding, so at full history (m=3,
+# 3 iterations, as tests/test_pallas_igcn_train.py:122) the gradient norms are
+# held within a factor ("norms"), and at the config's 20 iterations, where the
+# forward itself drifts and the norms reach 1e25, only finite ("finite").
+TRAIN_SOLVES = (("damped", 20, 10, 5, "entries"), ("anderson", 2, 2, 5, "entries"),
+                ("anderson", 3, 3, 3, "norms"), ("anderson", 20, 10, 5, "finite"))
+GRAD_NORM_RATIO = 5.0
+TOL_BN = 1e-5
 # H100 SXM peaks (NVIDIA data sheet): FP32 on CUDA cores, HBM3.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -613,13 +676,14 @@ def prng_phases(dev, diff, g, ctx, card):
 
 
 def reset_launch_counts():
-    for fn in (fused_lifter, fused_denoiser, ft.stack_fwd, ft.stack_bwd, ft.stack_fwd_prng,
-               ft.stack_bwd_prng):
+    for fn in (fused_lifter, fused_denoiser, fused_backbone, ft.stack_fwd, ft.stack_bwd,
+               ft.stack_fwd_prng, ft.stack_bwd_prng):
         fn.launches = 0
 
 
 def launch_counts() -> dict:
     return {"lifter": fused_lifter.launches, "denoiser": fused_denoiser.launches,
+            "backbone": fused_backbone.launches,
             "fwd": ft.stack_fwd.launches, "bwd": ft.stack_bwd.launches,
             "fwd_prng": ft.stack_fwd_prng.launches, "bwd_prng": ft.stack_bwd_prng.launches}
 
@@ -651,8 +715,8 @@ def cli_phases(card):
     check(main_frame.main(train + ["--n_epochs", "2"]) == 0, "the CLI training run failed")
     torch.cuda.synchronize()
     counts = launch_counts()
-    want = {"lifter": 2 * eval_batches, "denoiser": 2 * len(SEQ) * eval_batches, "fwd": 0, "bwd": 0,
-            "fwd_prng": 2 * steps_per_epoch, "bwd_prng": 2 * steps_per_epoch}
+    want = {"lifter": 2 * eval_batches, "denoiser": 2 * len(SEQ) * eval_batches, "backbone": 0,
+            "fwd": 0, "bwd": 0, "fwd_prng": 2 * steps_per_epoch, "bwd_prng": 2 * steps_per_epoch}
     print(f"main path (CLI: 2 epochs of {steps_per_epoch} steps, {eval_batches} eval batches each) "
           f"launches: {counts}")
     check(counts == want, f"CLI training run launches {counts}, expected {want}")
@@ -727,6 +791,366 @@ def cli_phases(card):
     print(f"runner layers at B={BATCH}: loader gather {gather_ms:.4f} ms/batch on the host, with "
           f"pinned copies {copy_ms:.4f} ms/batch; eval step {step_ms:.4f} ms/batch of which "
           f"p_mpjpe_per_sample {p2_ms:.4f} ms  [{card}]")
+    logging.getLogger().handlers.clear()
+    shutil.rmtree(exp)
+    return counts
+
+# ---------------------------------------------------------------------------
+# The implicit family (phases 12-16)
+# ---------------------------------------------------------------------------
+
+
+def seeded_igcn(basis, dev, gen, **solver):
+    """An IGCN at the config's widths with a seeded init, every term live
+    (``randomize``) and running BatchNorm buffers off their init."""
+    model = IGCN(basis, **solver)
+    randomize(model, gen)
+    with torch.no_grad():
+        model.batch_norm.running_mean.add_(0.1 * torch.randn(96, generator=gen))
+        model.batch_norm.running_var.mul_(0.5 + torch.rand(96, generator=gen))
+    return model.to(dev)
+
+
+def with_solver(model, solver: str, max_iterations: int, min_iterations: int, m: int = 5):
+    out = copy.deepcopy(model)
+    out.solver, out.max_iterations, out.min_iterations = solver, max_iterations, min_iterations
+    out.anderson_m = m
+    return out
+
+
+def backbone_flops(w, batch: int) -> int:
+    """``net_flops`` less the two ChebConvs: the L layers alone."""
+    H, L, n, nnz = w["hid_dim"], w["num_layers"], w["n_pts"], w["cheb_nnz"]
+    io = n * (w["c_in"] * 3 * H + H * 3 * w["c_out"]) + nnz * (H + w["c_out"])
+    return net_flops(w, batch) - 2 * batch * io
+
+
+def backbone_bytes(w, batch: int) -> int:
+    """The stack's weights, z and tp read once, the output written once."""
+    skip = ("basis", "t0k", "t0b", "t1k", "t1b", "wtp", "btp", "win", "bin", "wout", "bout",
+            "chebt_ptr", "chebt_idx", "chebt_val")
+    weights = sum(v.numel() * v.element_size() for k, v in w.items()
+                  if isinstance(v, torch.Tensor) and k not in skip)
+    return weights + 4 * batch * w["hid_dim"] * (2 * w["n_pts"] + w["num_layers"])
+
+
+def implicit_grads(model, draws, impl: str):
+    """The first step's raw gradients (before the clip) of the fused or the
+    module training forward on ``draws``; the model is not moved (a copy
+    moves its BatchNorm buffers)."""
+    m = copy.deepcopy(model).train()
+    t = draws.t.to(torch.float32)
+    if impl == "fused":
+        out, _, _ = make_igcn_train_fn(m, dropout="prng")(draws.x_t, t, draws.seed)
+    else:
+        out, _ = m(draws.x_t, t, masks=draws.masks)
+    loss = ((draws.e - out) ** 2).sum(dim=(1, 2)).mean()
+    names = [k for k, _ in m.named_parameters()]
+    return dict(zip(names, torch.autograd.grad(loss, list(m.parameters()))))
+
+
+def implicit_kernel_phases(dev, basis, gen, g, card):
+    """Phases 12-14 and the times of 16 that need no runner; returns the
+    row-3 record without its launches, and the context of the times."""
+    model = seeded_igcn(basis, dev, gen).eval()
+    w = prepare_weights(model)
+    err = 0.0
+
+    # 12. row 3 against its plain version
+    inputs = {}
+    with torch.no_grad():
+        for bsz in ROW3_BATCHES:
+            z = torch.randn((bsz, 17, 96), generator=g, device=dev)
+            tp = timestep_projections(w, torch.full((bsz,), float(IMPLICIT_T), device=dev))
+            got = _launch_backbone(w, z, tp)
+            torch.cuda.synchronize()
+            e_plain = max_err(got, backbone_plain(w, z, tp))
+            print(f"backbone B={bsz:5d}: max|kernel-plain| {e_plain:.3e}  |out| max "
+                  f"{float(got.abs().max()):.3f}")
+            check(e_plain <= TOL_KERNEL and bool(torch.isfinite(got).all()), f"row 3 B={bsz}")
+            err = max(err, e_plain)
+            inputs[bsz] = (z, tp)
+
+    # 13. the eval solve against its plain twin
+    x = torch.randn((IMPLICIT_BATCH, 17, 5), generator=g, device=dev)
+    t = torch.full((IMPLICIT_BATCH,), float(IMPLICIT_T), device=dev)
+    bn = bn_state(model)
+    for solver, k in STABLE_SOLVES:
+        m = with_solver(model, solver, k, k)
+        fused_backbone.launches = 0
+        out, aux = make_igcn_fn(m)(w, bn, x, t)
+        torch.cuda.synchronize()
+        want_launches = k + (solver == "anderson")
+        check(fused_backbone.launches == want_launches,
+              f"{solver} {k}/{k}: {fused_backbone.launches} row-3 launches, expected {want_launches}")
+        out_p, aux_p = make_igcn_fn(m, backbone=backbone_plain)(w, bn, x, t)
+        e_out, e_fp = max_err(out, out_p), max_err(aux["fixed_point"], aux_p["fixed_point"])
+        print(f"eval solve {solver} {k}/{k} B={IMPLICIT_BATCH}: max|fused-plain| out {e_out:.3e} "
+              f"fixed point {e_fp:.3e}  iterations {aux['iterations']} / {aux_p['iterations']}")
+        check(e_out <= TOL_PIPELINE and e_fp <= TOL_PIPELINE and bool(torch.isfinite(out).all()),
+              f"eval solve {solver} {k}/{k} against its plain twin")
+    fn, plain = make_igcn_fn(model), make_igcn_fn(model, backbone=backbone_plain)
+    fused_backbone.launches = 0
+    out, aux = fn(w, bn, x, t)
+    torch.cuda.synchronize()
+    check(fused_backbone.launches == 1 + aux["iterations"], "row-3 launches of the config's solve")
+    out_p, aux_p = plain(w, bn, x, t)
+    # the same solve in float64 (the timestep MLP stays float32, as t is exact)
+    w64 = {k: (v.double() if isinstance(v, torch.Tensor) and v.is_floating_point() else v)
+           for k, v in w.items()}
+    bn64, tp64 = {k: v.double() for k, v in bn.items()}, timestep_projections(w, t).double()
+    z64, _, _ = model.solve(lambda zz: (bn_eval(backbone_plain(w64, zz, tp64), bn64), None),
+                            _cheb(x.double(), w64["win"], w64["bin"], w64["basis"]),
+                            model.tolerance, differentiable=False)
+    out64 = _cheb(z64, w64["wout"], w64["bout"], w64["basis"])
+    print(f"eval solve at the config (Anderson 20/10, tol 0.1): iterations fused {aux['iterations']} "
+          f"plain {aux_p['iterations']}, residuals {float(aux['residual']):.5f} / "
+          f"{float(aux_p['residual']):.5f}; max|fused-plain| {max_err(out, out_p):.3e}; the float32 "
+          f"plain solve against float64: {float((out_p.double() - out64).abs().max()):.3e} "
+          f"(|out| max {float(out64.abs().max()):.3f})")
+    if aux["iterations"] != aux_p["iterations"]:
+        print("  the iteration counts differ: full-history Anderson amplifies rounding, so the two "
+              "residuals cross the tolerance at different iterations")
+    check(tuple(out.shape) == (IMPLICIT_BATCH, 17, 5) and bool(torch.isfinite(out).all()),
+          "the config's eval solve: shape or non-finite values")
+
+    # 14. the fused implicit train step against the module step
+    from diffpose_tpu_torch.data.synthetic import make_synthetic_dataset as synth
+
+    data = synth(num_frames=IMPLICIT_STEPS * IMPLICIT_BATCH, seed=SEED + 2)
+    data = {"poses_3d": torch.as_tensor(data.poses_3d, device=dev),
+            "poses_2d_gmm": torch.as_tensor(data.poses_2d_gmm, device=dev)}
+    batches = [{k: v[i * IMPLICIT_BATCH:(i + 1) * IMPLICIT_BATCH] for k, v in data.items()}
+               for i in range(IMPLICIT_STEPS)]
+    train_ctx = {}
+    for solver, mx, mn, hist, held in TRAIN_SOLVES:
+        base = with_solver(model, solver, mx, mn, hist).train()
+        runs = {}
+        for impl in ("fused", "module"):
+            mm = copy.deepcopy(base)
+            opt = make_optimizer(mm.parameters(), lr=TRAIN_LR)
+            state = TrainState.create(mm, opt, ema_register(mm))
+            step = make_implicit_train_step(mm, opt, BETAS, impl=impl, dropout="prng")
+            gd = torch.Generator(device=dev).manual_seed(SEED + 3)
+            draws = [step.draw(b, gd) for b in batches]
+            ft.stack_fwd_prng.launches = ft.stack_bwd_prng.launches = 0
+            metrics, bns = [], []
+            for d in draws:
+                state, met = step.apply(state, d)
+                metrics.append({k: float(v) for k, v in met.items()})
+                bns.append({k: getattr(mm.batch_norm, k).clone() for k in ("running_mean", "running_var")})
+            torch.cuda.synchronize()
+            if impl == "fused":
+                # Anderson's last f(z) reaches nothing the loss reads: no backward
+                per_step = (mx + (solver == "anderson"), mx)
+                got = (ft.stack_fwd_prng.launches, ft.stack_bwd_prng.launches)
+                check(got == tuple(IMPLICIT_STEPS * c for c in per_step),
+                      f"{solver} {mx}/{mn}: seeded launches {got} over {IMPLICIT_STEPS} steps")
+                train_ctx.setdefault("draws", draws)
+            runs[impl] = (metrics, bns, draws[0])
+        (mf, bf, df), (mm_, bm, dm) = runs["fused"], runs["module"]
+        rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(mf, mm_)]
+        dbn = max(max_err(bf[0][k], bm[0][k]) for k in bf[0])
+        # the same first draw: the fused step's seed, the module's masks of that seed
+        gf = implicit_grads(base, df, "fused")
+        gm = implicit_grads(base, dm, "module")
+        finite = all(bool(torch.isfinite(v).all()) for v in (*gf.values(), *gm.values()))
+        nf = float(torch.sqrt(sum((v.double() ** 2).sum() for v in gf.values())))
+        nm = float(torch.sqrt(sum((v.double() ** 2).sum() for v in gm.values())))
+        print(f"implicit step {solver} {mx}/{mn} m={hist} fused vs module, {IMPLICIT_STEPS} steps: rel loss "
+              + " ".join(f"{v:.2e}" for v in rel) + f"  BN after step 1 {dbn:.2e}  iterations "
+              f"{[m['fp_iterations'] for m in mf]} / {[m['fp_iterations'] for m in mm_]}  first-step "
+              f"gradient norms (float64) {nf:.4e} / {nm:.4e}, finite {finite}")
+        check(finite, f"{solver} {mx}/{mn}: non-finite gradients")
+        if held == "norms":
+            check(1 / GRAD_NORM_RATIO < nf / nm < GRAD_NORM_RATIO,
+                  f"full-history Anderson {mx}/{mn} m={hist}: gradient norms {nf} / {nm}")
+        elif held == "entries":
+            # The key projection's bias has a gradient of 0 (softmax ignores a
+            # shift of every score of a row): what both give there is rounding
+            # noise, which at these gradient scales passes GRAD_ABS.
+            zero = [k for k in gf if k.endswith("self_attn.linears.1.bias")]
+            top = max(float(v.abs().max()) for v in gm.values())
+            noise = max(float(g[k].abs().max()) for g in (gf, gm) for k in zero) / top
+            worst = max((grad_close(gf[k], gm[k]), k) for k in gf if k not in zero)
+            print(f"  worst first-step gradient rel err {worst[0]:.1e} ({worst[1]}); the key "
+                  f"biases' (0 in exact arithmetic) up to {noise:.1e} of the largest entry")
+            check(noise < GRAD_REL, f"{solver} {mx}/{mn}: the key biases' gradients are not noise")
+            check(max(rel) <= TOL_STEP_LOSS and dbn <= TOL_BN and worst[0] < GRAD_REL,
+                  f"{solver} {mx}/{mn}: fused step against the module step")
+
+    # 16 (kernel part). times
+    times = {}
+    with torch.no_grad():
+        for bsz in ROW3_BATCHES[:2]:
+            z, tp = inputs[bsz]
+            ms = time_ms(lambda: _launch_backbone(w, z, tp))
+            plain_ms = time_ms(lambda: backbone_plain(w, z, tp), reps=3)
+            fl, by = backbone_flops(w, bsz), backbone_bytes(w, bsz)
+            bms, bwhat = bound_of(fl, by)
+            times[bsz] = (ms, plain_ms, bms, bwhat)
+            print(f"backbone B={bsz}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bms:.4f} ms "
+                  f"({bwhat}; {fl / 1e9:.2f} GFLOP, {by / 1e6:.1f} MB)  {fl / ms / 1e9:.1f} TFLOP/s  [{card}]")
+        iters = []
+        def solve_once():
+            iters.append(fn(w, bn, x, t)[1]["iterations"])
+        solve_ms = time_ms(solve_once, reps=3, runs=5)
+        print(f"eval solve (make_igcn_fn) B={IMPLICIT_BATCH}: {solve_ms:.4f} ms a batch, mean "
+              f"iterations {statistics.mean(iters):.2f} ({1 + statistics.mean(iters):.2f} launches), "
+              f"{IMPLICIT_BATCH / solve_ms * 1e3:.1f} frames/s  [{card}]")
+
+    # the train step by parts (Anderson 20/10, prng, B=512)
+    mm = copy.deepcopy(model).train()
+    opt = make_optimizer(mm.parameters(), lr=TRAIN_LR)
+    state = TrainState.create(mm, opt, ema_register(mm))
+    step = make_implicit_train_step(mm, opt, BETAS, impl="fused", dropout="prng")
+    d = train_ctx["draws"][0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: step.apply(state, d), reps=2, runs=3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wt = prepare_weights(mm)
+    z, tp = inputs[IMPLICIT_BATCH]
+    seed = d.seed
+    ikeep = ft._inv_keep(None)
+    drop = ft._seeded(seed, None)
+    st = ft._launch_fwd(wt, z, tp, drop, ikeep)[1]
+    dd5 = torch.randn_like(z)
+    ds = ft._launch_bwd(wt, drop, st, dd5, ikeep)[2]
+    fwd_ms = time_ms(lambda: ft._launch_fwd(wt, z, tp, drop, ikeep))
+    bwd_ms = time_ms(lambda: ft._launch_bwd(wt, drop, st, dd5, ikeep))
+    wg_ms = time_ms(lambda: ft.weight_grads(wt, st, ds))
+    n = model.max_iterations           # 1 + n forward launches, n backward and weight_grads
+    rest = step_ms - (n + 1) * fwd_ms - n * (bwd_ms + wg_ms)
+    print(f"implicit train step B={IMPLICIT_BATCH} (Anderson 20/10, prng, draws given): "
+          f"{step_ms:.4f} ms, {IMPLICIT_BATCH / step_ms * 1e3:.1f} frames/s, peak memory "
+          f"{peak_gb:.2f} GB  [{card}]")
+    print(f"  parts: {n + 1} forward kernels {(n + 1) * fwd_ms:.4f} ({fwd_ms:.4f} each)  {n} backward kernels "
+          f"{n * bwd_ms:.4f} ({bwd_ms:.4f})  {n} weight_grads {n * wg_ms:.4f} ({wg_ms:.4f})  "
+          f"rest {rest:.4f} ms")
+    if "--profile" in sys.argv[1:]:
+        profile_fused_step((state, step), d, steps=2)
+    ms, plain_ms, bms, bwhat = times[IMPLICIT_BATCH]
+    record = dict(name="net_kernel[backbone]", route="cuda",
+                  source="diffpose_tpu_torch/csrc/net_kernel.cu",
+                  replaces="diffpose_tpu/ops/pallas_denoiser.py:276", max_abs_err=err, ms=ms,
+                  plain_ms=plain_ms, bound_ms=bms, bound_by=bwhat, library_ms=None,
+                  batch=IMPLICIT_BATCH, ms_b1024=times[ROW3_BATCHES[1]][0],
+                  bound_ms_b1024=times[ROW3_BATCHES[1]][2])
+    return record
+
+
+def implicit_cli_phases(card):
+    """Phases 15-16: ``cli.main_implicit`` in process at the config's widths:
+    train 2 epochs, resume for a third, evaluate the checkpoint; then the
+    implicit runner's times.  Returns the launch counts of the training run."""
+    from diffpose_tpu_torch.cli import main_implicit
+    from diffpose_tpu_torch.models.convert import load_torch_states
+    from diffpose_tpu_torch.train.implicit_runner import ImplicitRunner
+
+    exp = Path(tempfile.mkdtemp(prefix="chip_smoke_implicit_"))
+    b = IMPLICIT_BATCH
+    steps_per_epoch = -(-IMPLICIT_FRAMES // b)
+    eval_batches = -(-(IMPLICIT_FRAMES // 4) // b)
+    common = ["--config", IMPLICIT_CONFIG, "--exp", str(exp), "--ni", "--use_implicit",
+              "--synthetic_frames", str(IMPLICIT_FRAMES), "--batch_size", str(b),
+              "--denoiser_impl", "fused"]
+    train = common + ["--doc", "run", "--train", "--train_impl", "fused", "--dropout_impl", "prng"]
+    run = exp / "run"
+    per_step = (1 + 20, 20)       # forward, backward launches of an Anderson 20 step
+
+    def eval_iterations(path: Path):
+        """The mean iterations of every evaluation the runner logged."""
+        return [float(v) for v in re.findall(r"mean fp iterations: ([0-9.]+)", path.read_text())]
+
+    # 15. train, resume, eval-only
+    reset_launch_counts()
+    check(main_implicit.main(train + ["--n_epochs", "2"]) == 0, "the implicit CLI training run failed")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    means = eval_iterations(run / "stdout.txt")
+    want = {"lifter": 2 * eval_batches, "denoiser": 0,
+            "backbone": round(sum(eval_batches * (1 + v) for v in means)),
+            "fwd": 0, "bwd": 0, "fwd_prng": 2 * steps_per_epoch * per_step[0],
+            "bwd_prng": 2 * steps_per_epoch * per_step[1]}
+    print(f"main path (implicit CLI: 2 epochs of {steps_per_epoch} steps, {eval_batches} eval "
+          f"batches each, mean iterations {means}) launches: {counts}")
+    check(len(means) == 2 and counts == want, f"implicit CLI launches {counts}, expected {want}")
+    check(main_implicit.main(train + ["--n_epochs", "3", "--resume"]) == 0,
+          "the implicit CLI resume failed")
+    log = (run / "stdout.txt").read_text()
+    check(f"resumed from step {2 * steps_per_epoch} (epoch 2)" in log, "the resume was not logged")
+    check(log.count("| Epoch 00") == 3, "the resumed run did not train exactly one more epoch")
+    rows = [line.split("\t") for line in (run / "log.tsv").read_text().splitlines()[1:]]
+    losses = [float(r[2]) for r in rows]
+    print(f"implicit CLI log.tsv: {len(rows)} rows, epoch losses {losses}, P1 "
+          f"{[float(r[3]) for r in rows]}")
+    check(len(rows) == 3 and all(v == v and abs(v) != float("inf") for v in losses),
+          f"implicit log.tsv rows or losses: {rows}")
+    last = 3 * steps_per_epoch
+    files = sorted(f.name for f in run.iterdir())
+    for name in ("config.yml", "stdout.txt", "log.tsv", f"ckpt_{last:08d}.pth",
+                 f"ckpt_{last:08d}.pose.pth"):
+        check(name in files, f"{name} missing from the implicit run's folder: {files}")
+    saved = load_torch_states(str(run / f"ckpt_{last:08d}.pth"))[0]
+    moved = float((saved["batch_norm.running_var"] - 1).abs().max())
+    print(f"checkpoint: batch_norm.running_var moved by up to {moved:.4f} from its init")
+    check(moved > 0, "the checkpoint's BatchNorm buffers did not move")
+
+    reset_launch_counts()
+    check(main_implicit.main(common + [
+        "--doc", "evalonly", "--track_metrics",
+        "--model_diff_path", str(run / f"ckpt_{last:08d}.pth"),
+        "--model_pose_path", str(run / f"ckpt_{last:08d}.pose.pth")]) == 0,
+        "the implicit CLI eval run failed")
+    e_counts = launch_counts()
+    e_means = eval_iterations(exp / "evalonly" / "stdout.txt")
+    check(e_counts == dict(want, lifter=eval_batches,
+                           backbone=round(eval_batches * (1 + e_means[0])), fwd_prng=0, bwd_prng=0),
+          f"implicit CLI eval-only launches {e_counts}")
+    trained = logged_errors(run / "stdout.txt")[-1]
+    alone = logged_errors(exp / "evalonly" / "stdout.txt")[-1]
+    print(f"implicit eval-only from the checkpoint: P1/P2 {alone} mm, the training run's last "
+          f"epoch {trained} mm")
+    check(max(abs(a - c) for a, c in zip(trained, alone)) <= 1e-3,
+          "implicit eval-only from the checkpoint disagrees with the training run's last eval")
+
+    # 16. the implicit runner's times
+    args = main_implicit.parse_args(train + ["--doc", "times", "--n_epochs", "3"])
+    from diffpose_tpu_torch.cli.common import setup_experiment
+
+    config = setup_experiment(args)
+    runner = ImplicitRunner(config, seed=args.seed, log_dir=None, denoiser_impl="fused",
+                            train_impl="fused", dropout_impl="prng")
+    runner.create_diffusion_model()
+    runner.create_pose_model()
+    runner.set_data(make_synthetic_dataset(IMPLICIT_FRAMES, seed=args.seed),
+                    make_synthetic_dataset(IMPLICIT_FRAMES // 4, seed=args.seed + 1))
+    runner.train()
+    secs = runner.train_seconds
+    for turn in (1, 2):              # train() has evaluated after each epoch already
+        runner.evaluate(is_train=True)
+        print(f"implicit runner eval after training, call {turn} (fused, tt={config.testing.test_times}, "
+              f"iterations {runner.fp_iterations}, seconds a batch "
+              f"{[round(v, 4) for v in runner.inference_times]}): {runner.throughput_stats()}  "
+              f"[{card}]")
+    print(f"implicit runner train epochs of {IMPLICIT_FRAMES} frames at B={b} (fused, prng): "
+          + " ".join(f"{v:.4f}" for v in secs)
+          + f" s; last epoch {IMPLICIT_FRAMES / secs[-1]:.1f} frames/s  [{card}]")
+
+    # one eval batch by parts: the step on a batch on the card, its lift and
+    # GMM draw, its solve, its Procrustes metric
+    dev = runner.device
+    eval_fn = runner._get_implicit_eval_fn(False)
+    prepared = eval_fn.prepare(runner.state, runner.pose_params)
+    batch = next(iter(prefetch_to_device(runner._make_loader(runner.test_data, shuffle=False)
+                                         .epoch(0), size=1, device=dev)))
+    step_ms = time_ms(lambda: eval_fn(runner.state, runner.pose_params, batch, None,
+                                      prepared=prepared), reps=3, runs=5)
+    pred, target = torch.randn(2, b, 17, 3, device=dev).unbind(0)
+    p2_ms = time_ms(lambda: p_mpjpe_per_sample(pred, target), reps=5)
+    print(f"implicit runner layers at B={b}: eval step {step_ms:.4f} ms/batch (solve, lift, GMM "
+          f"draw, metrics) of which p_mpjpe_per_sample {p2_ms:.4f} ms  [{card}]")
     logging.getLogger().handlers.clear()
     shutil.rmtree(exp)
     return counts
@@ -857,8 +1281,12 @@ def main() -> int:
     card = card_line()
     prng_records = prng_phases(dev, diff, g, ctx, card)
     cli_counts = cli_phases(card)
+
+    backbone_record = implicit_kernel_phases(dev, basis, gen, g, card)
+    implicit_counts = implicit_cli_phases(card)
     for rec, key in zip(prng_records, ("fwd_prng", "bwd_prng")):
-        kernels.append(dict(rec, launches=cli_counts[key]))
+        kernels.append(dict(rec, launches=cli_counts[key], implicit_launches=implicit_counts[key]))
+    kernels.insert(2, dict(backbone_record, launches=implicit_counts["backbone"]))
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,10 @@
 // Whole-network eval forward of GCNDiff / GCNPose: in-Cheb -> L x (attention
-// layer + residual Chebyshev block) -> out-Cheb, one launch per forward.
+// layer + residual Chebyshev block) -> out-Cheb, one launch per forward; and,
+// with HAS_IO false, the bare L-layer stack [B, 17, HID] -> [B, 17, HID] of
+// the implicit model's fixed-point function (no in/out ChebConv).
 //
-// Counterpart of diffpose_tpu/ops/pallas_denoiser.py:_net_kernel.  One CTA
+// Counterpart of diffpose_tpu/ops/pallas_denoiser.py:_net_kernel (its
+// has_io=False build is make_pallas_backbone_fn).  One CTA
 // owns a tile of TB samples (ROWS = TB * 17 joint rows, sample-major) and
 // keeps its activations in shared memory for every layer:
 //
@@ -296,8 +299,12 @@ __device__ __forceinline__ void out_mix(const float* big, float* __restrict__ ou
   }
 }
 
-template <bool HAS_TEMB, int C_IN, int C_OUT>
+// HAS_IO false: x and out are [B, 17, HID] (C_IN = C_OUT = HID); x goes
+// straight into the residual stream and the stream is stored after the last
+// layer; win, bin, wout and bout are not read.
+template <bool HAS_TEMB, bool HAS_IO, int C_IN, int C_OUT>
 __global__ void __launch_bounds__(THREADS, 1) net_forward_kernel(const NetArgs a) {
+  static_assert(HAS_IO || (C_IN == HID && C_OUT == HID), "the bare stack is HID wide");
   extern __shared__ float4 smem4[];
   float* h = reinterpret_cast<float*>(smem4);
   float* y = h + ROWS_PAD * LDH;
@@ -320,12 +327,20 @@ __global__ void __launch_bounds__(THREADS, 1) net_forward_kernel(const NetArgs a
   for (int i = tid; i <= N_PTS; i += THREADS) cptr[i] = a.cheb_ptr[i];
   __syncthreads();
   const float* x = a.x + static_cast<size_t>(b0) * N_PTS * C_IN;
-  for (int i = tid; i < nb * N_PTS * C_IN; i += THREADS) y[(i / C_IN) * LDH + i % C_IN] = x[i];
-  __syncthreads();
-
-  gemm<C_IN, 3 * HID, LDH, LDB, kStore>(y, a.win, nullptr, big, tid);
-  __syncthreads();
-  mix<HID, LDB, LDH, kMixStoreBias, false>(big, h, cptr, cidx, cval, lap, a.bin, nullptr, nb, tid);
+  if constexpr (HAS_IO) {
+    for (int i = tid; i < nb * N_PTS * C_IN; i += THREADS) y[(i / C_IN) * LDH + i % C_IN] = x[i];
+    __syncthreads();
+    gemm<C_IN, 3 * HID, LDH, LDB, kStore>(y, a.win, nullptr, big, tid);
+    __syncthreads();
+    mix<HID, LDB, LDH, kMixStoreBias, false>(big, h, cptr, cidx, cval, lap, a.bin, nullptr, nb,
+                                             tid);
+  } else {
+    for (int i = tid; i < nb * N_PTS * (HID / 4); i += THREADS) {
+      const int r = i / (HID / 4);
+      const int c = 4 * (i % (HID / 4));
+      st4(h + r * LDH + c, ldg4(x + r * HID + c));
+    }
+  }
   __syncthreads();
 
   for (int l = 0; l < a.num_layers; ++l) {
@@ -374,10 +389,18 @@ __global__ void __launch_bounds__(THREADS, 1) net_forward_kernel(const NetArgs a
     __syncthreads();
   }
 
-  out_gemm<C_OUT>(h, a.wout, big, tid);
-  __syncthreads();
-  out_mix<C_OUT>(big, a.out + static_cast<size_t>(b0) * N_PTS * C_OUT, cptr, cidx, cval, a.bout,
-                 nb, tid);
+  float* out = a.out + static_cast<size_t>(b0) * N_PTS * C_OUT;
+  if constexpr (HAS_IO) {
+    out_gemm<C_OUT>(h, a.wout, big, tid);
+    __syncthreads();
+    out_mix<C_OUT>(big, out, cptr, cidx, cval, a.bout, nb, tid);
+  } else {
+    for (int i = tid; i < nb * N_PTS * (HID / 4); i += THREADS) {
+      const int r = i / (HID / 4);
+      const int c = 4 * (i % (HID / 4));
+      st4(out + r * HID + c, ld4(h + r * LDH + c));
+    }
+  }
 }
 
 }  // namespace netk

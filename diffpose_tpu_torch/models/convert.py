@@ -8,7 +8,10 @@ names, so reference checkpoints load into them unchanged.  This module
   arrays) into such a ``state_dict`` (:func:`state_dict_from_flax`), and
 * turns tensors named like that ``state_dict`` back into the Flax tree
   (:func:`flax_from_state_dict`), so that gradients and updated parameters
-  can be compared leaf by leaf, and
+  can be compared leaf by leaf,
+* does both for the implicit model's variables, parameters and BatchNorm
+  statistics (:func:`state_dict_from_flax_igcn`,
+  :func:`flax_igcn_from_state_dict`), and
 * reads and writes the reference 5-element checkpoint list
   ``[model, optim, epoch, step, ema]`` (``runners/diffpose_frame.py:248-255``),
   whose names carry ``DataParallel``'s ``module.`` prefix.
@@ -124,6 +127,40 @@ def flax_from_state_dict(
             res["temb_proj"] = linear(f"{g}.temb_proj")
         tree[f"res_{i}"] = res
     return tree
+
+
+def state_dict_from_flax_igcn(variables: Mapping, *, num_layers: int,
+                              hid_dim: int) -> Dict[str, torch.Tensor]:
+    """Flax IGCN variables ``{"params", "batch_stats"}`` → the reference IGCN
+    ``state_dict`` (no ``module.`` prefix): the GCNDiff names plus
+    ``batch_norm.{weight, bias}`` from ``bn_scale`` / ``bn_bias`` and
+    ``batch_norm.{running_mean, running_var}`` from the batch statistics
+    (reference ``models/igcn.py:95``; ``diffpose_tpu/models/convert.py:204-221``)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = state_dict_from_flax(params, with_temb=True, num_layers=num_layers, hid_dim=hid_dim)
+    for name, src in (("weight", params["bn_scale"]), ("bias", params["bn_bias"]),
+                      ("running_mean", stats["bn_mean"]), ("running_var", stats["bn_var"])):
+        sd[f"batch_norm.{name}"] = torch.as_tensor(np.ascontiguousarray(src, np.float32))
+    sd["batch_norm.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+    return sd
+
+
+def flax_igcn_from_state_dict(state: Mapping[str, torch.Tensor], *,
+                              num_layers: int) -> Dict[str, dict]:
+    """The inverse of :func:`state_dict_from_flax_igcn` (a ``module.`` prefix
+    is stripped): ``{"params", "batch_stats"}`` of numpy arrays.  Works on
+    any tensors named like the ``state_dict``, gradients included (then
+    without the running buffers, which have none)."""
+    sd = _strip_prefix(state)
+    params = flax_from_state_dict(sd, with_temb=True, num_layers=num_layers)
+
+    def arr(name):
+        return np.asarray(torch.as_tensor(sd[name]).detach().cpu().numpy())
+
+    params["bn_scale"], params["bn_bias"] = arr("batch_norm.weight"), arr("batch_norm.bias")
+    stats = ({"bn_mean": arr("batch_norm.running_mean"), "bn_var": arr("batch_norm.running_var")}
+             if "batch_norm.running_mean" in sd else None)
+    return {"params": params, "batch_stats": stats}
 
 
 def _strip_prefix(state: Optional[Mapping]) -> Optional[Dict[str, torch.Tensor]]:

@@ -2,7 +2,9 @@
 
 Replaces the TPU kernel ``diffpose_tpu/ops/pallas_denoiser.py:276
 _net_kernel``, as built by ``make_pallas_denoiser_fn`` (GCNDiff, with the
-per-layer timestep projections) and ``make_pallas_lifter_fn`` (GCNPose).
+per-layer timestep projections), ``make_pallas_lifter_fn`` (GCNPose) and
+``make_pallas_backbone_fn`` (``has_io=False``: the bare layer stack of the
+implicit model's fixed-point function, :func:`fused_backbone`).
 The CUDA source is ``csrc/net_kernel.cuh`` (device code) and
 ``csrc/net_kernel.cu`` (launch).
 
@@ -28,11 +30,17 @@ Outside the kernel, as in the JAX wrapper: the weight prep
 1/√d_k folded into q's weights and bias) and the timestep MLP with its
 per-layer projections ``tp [L, B, H]`` (:func:`timestep_projections`).
 
-Each wrapper (:func:`fused_denoiser`, :func:`fused_lifter`) launches the
-kernel for CUDA tensors and raises on what the kernel does not take; for
-CPU tensors it runs the plain PyTorch version of the same function
-(:func:`net_plain`), which shares the weight prep and the folded-q
-arithmetic.  ``wrapper.launches`` counts the kernel launches.
+Each wrapper (:func:`fused_denoiser`, :func:`fused_lifter`,
+:func:`fused_backbone`) launches the kernel for CUDA tensors and raises on
+what the kernel does not take; for CPU tensors it runs the plain PyTorch
+version of the same function (:func:`net_plain`, :func:`backbone_plain`),
+which shares the weight prep and the folded-q arithmetic.
+``wrapper.launches`` counts the kernel launches.
+
+The bare stack does the same work as the whole network less the two
+ChebConvs: at B=1024 about 23.5 GFLOP, again bound by the operations; its
+input and output are 96 wide, 13 MB in all at B=1024, microseconds of
+bandwidth.
 """
 
 from __future__ import annotations
@@ -62,6 +70,8 @@ _KERNEL_WEIGHTS = (
     "wfc1", "bfc1", "wfc2", "bfc2", "wg1", "bg1", "wg2", "bg2", "wout", "bout",
     "cheb_ptr", "cheb_idx", "cheb_val",
 )
+# Those of net_backbone's arguments: no input or output ChebConv.
+_BACKBONE_WEIGHTS = tuple(k for k in _KERNEL_WEIGHTS if k not in ("win", "bin", "wout", "bout"))
 
 
 def resolve_device(device) -> torch.device:
@@ -257,10 +267,21 @@ def _layer_norm(z, scale, shift):
 def net_plain(w: Weights, x: torch.Tensor, tp: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: ``x [B, N, C_in]`` (and
     ``tp [L, B, H]`` for the denoiser) → ``[B, N, C_out]``."""
-    hid, heads = w["hid_dim"], w["num_heads"]
-    bsz, n = x.shape[:2]
     basis = w["basis"]
-    h = _cheb(x, w["win"], w["bin"], basis)
+    h = _layers_plain(w, _cheb(x, w["win"], w["bin"], basis), tp)
+    return _cheb(h, w["wout"], w["bout"], basis)
+
+
+def backbone_plain(w: Weights, z: torch.Tensor, tp: torch.Tensor) -> torch.Tensor:
+    """The bare layer stack in plain PyTorch: ``z [B, N, H]``, ``tp [L, B, H]``
+    → ``[B, N, H]`` (:func:`net_plain` without its two ChebConvs)."""
+    return _layers_plain(w, z, tp)
+
+
+def _layers_plain(w: Weights, h: torch.Tensor, tp: Optional[torch.Tensor]) -> torch.Tensor:
+    hid, heads = w["hid_dim"], w["num_heads"]
+    bsz, n = h.shape[:2]
+    basis = w["basis"]
     for l in range(w["num_layers"]):
         y = _layer_norm(h, w["ln1s"][l], w["ln1b"][l])
         qkv = y @ w["wqkv"][l] + w["bqkv"][l]
@@ -278,7 +299,7 @@ def net_plain(w: Weights, x: torch.Tensor, tp: Optional[torch.Tensor] = None) ->
         if tp is not None:
             u = u + tp[l][:, None, :]
         h = h + F.relu(_cheb(u, w["wg2"][l], w["bg2"][l], basis))
-    return _cheb(h, w["wout"], w["bout"], basis)
+    return h
 
 
 def denoiser_plain(w: Weights, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -300,6 +321,8 @@ def _library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.net_forward.argtypes = [i32] * 9 + [ptr] * (3 + len(_KERNEL_WEIGHTS)) + [i32, ptr]
     lib.net_forward.restype = i32
+    lib.net_backbone.argtypes = [i32] * 6 + [ptr] * (3 + len(_BACKBONE_WEIGHTS)) + [i32, ptr]
+    lib.net_backbone.restype = i32
     lib.net_error_string.argtypes = [i32]
     lib.net_error_string.restype = ctypes.c_char_p
     return lib
@@ -326,40 +349,71 @@ def _check_tensor(name: str, t: torch.Tensor, shape: tuple, dtype, device):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _launch(w: Weights, x: torch.Tensor, tp: Optional[torch.Tensor]) -> torch.Tensor:
-    """One launch of the CUDA kernel; every input is checked first."""
+def _check_launch(w: Weights, x: torch.Tensor, tp: Optional[torch.Tensor], c_in: int,
+                  names) -> None:
+    """The checks shared by both entries of the kernel."""
     cfg = (w["hid_dim"], w["num_heads"], w["n_pts"])
     if cfg != (KERNEL_HID, KERNEL_HEADS, KERNEL_PTS):
         raise ValueError(f"the kernel is built for hid/heads/joints "
                          f"{(KERNEL_HID, KERNEL_HEADS, KERNEL_PTS)}, got {cfg}")
-    if (w["c_in"], w["c_out"]) != KERNEL_IO[w["has_temb"]]:
-        raise ValueError(f"the kernel takes (c_in, c_out) {KERNEL_IO[w['has_temb']]} "
-                         f"for has_temb={w['has_temb']}, got {(w['c_in'], w['c_out'])}")
     if w["basis"].shape[0] != KERNEL_CHEB_TERMS:
         raise ValueError(f"the kernel takes a Chebyshev basis of {KERNEL_CHEB_TERMS} terms")
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {x.device}")
     bsz, L, H, n = x.shape[0], w["num_layers"], w["hid_dim"], w["n_pts"]
     dev = x.device
-    _check_tensor("x", x, (bsz, n, w["c_in"]), torch.float32, dev)
-    if w["has_temb"]:
+    _check_tensor("x", x, (bsz, n, c_in), torch.float32, dev)
+    if tp is not None:
         _check_tensor("tp", tp, (L, bsz, H), torch.float32, dev)
-    for name, shape in _expected_shapes(w).items():
+    shapes = _expected_shapes(w)
+    for name in names:
         dtype = torch.int32 if name in ("cheb_ptr", "cheb_idx") else torch.float32
-        _check_tensor(name, w[name], shape, dtype, dev)
+        _check_tensor(name, w[name], shapes[name], dtype, dev)
 
-    out = torch.empty((bsz, n, w["c_out"]), dtype=torch.float32, device=dev)
+
+def _raise_on(code: int, what: str):
+    if code != 0:
+        raise RuntimeError(f"{what} kernel: {_library().net_error_string(code).decode()} "
+                           f"(cudaError {code})")
+
+
+def _launch(w: Weights, x: torch.Tensor, tp: Optional[torch.Tensor]) -> torch.Tensor:
+    """One launch of the CUDA kernel; every input is checked first."""
+    if (w["c_in"], w["c_out"]) != KERNEL_IO[w["has_temb"]]:
+        raise ValueError(f"the kernel takes (c_in, c_out) {KERNEL_IO[w['has_temb']]} "
+                         f"for has_temb={w['has_temb']}, got {(w['c_in'], w['c_out'])}")
+    if w["has_temb"] and tp is None:
+        raise ValueError("the denoiser's kernel takes the timestep projections tp")
+    _check_launch(w, x, tp if w["has_temb"] else None, w["c_in"], _KERNEL_WEIGHTS)
+    bsz, dev = x.shape[0], x.device
+    out = torch.empty((bsz, w["n_pts"], w["c_out"]), dtype=torch.float32, device=dev)
     if bsz == 0:
         return out
-    lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.net_forward(
-        dev.index, int(w["has_temb"]), w["c_in"], w["c_out"], H, w["num_heads"], n, bsz, L,
+    code = _library().net_forward(
+        dev.index, int(w["has_temb"]), w["c_in"], w["c_out"], w["hid_dim"], w["num_heads"],
+        w["n_pts"], bsz, w["num_layers"],
         x.data_ptr(), tp.data_ptr() if tp is not None else None, out.data_ptr(),
-        *[w[k].data_ptr() for k in _KERNEL_WEIGHTS], w["cheb_nnz"], stream)
-    if code != 0:
-        raise RuntimeError(f"net_forward kernel: {lib.net_error_string(code).decode()} "
-                           f"(cudaError {code})")
+        *[w[k].data_ptr() for k in _KERNEL_WEIGHTS], w["cheb_nnz"],
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(code, "net_forward")
+    return out
+
+
+def _launch_backbone(w: Weights, z: torch.Tensor, tp: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel's bare-stack build; every input is checked first."""
+    if tp is None:
+        raise ValueError("the bare stack takes the timestep projections tp")
+    _check_launch(w, z, tp, w["hid_dim"], _BACKBONE_WEIGHTS)
+    bsz, dev = z.shape[0], z.device
+    out = torch.empty_like(z)
+    if bsz == 0:
+        return out
+    code = _library().net_backbone(
+        dev.index, w["hid_dim"], w["num_heads"], w["n_pts"], bsz, w["num_layers"],
+        z.data_ptr(), tp.data_ptr(), out.data_ptr(),
+        *[w[k].data_ptr() for k in _BACKBONE_WEIGHTS], w["cheb_nnz"],
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(code, "net_backbone")
     return out
 
 
@@ -387,5 +441,19 @@ def fused_lifter(w: Weights, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def fused_backbone(w: Weights, z: torch.Tensor, tp: torch.Tensor) -> torch.Tensor:
+    """The bare layer stack ``z [B, 17, 96], tp [L, B, 96] → [B, 17, 96]``
+    (the implicit model's fixed-point body; GCNDiff or IGCN weights): one
+    kernel launch for CUDA tensors, the plain version for CPU tensors."""
+    if not w["has_temb"]:
+        raise ValueError("fused_backbone takes weights with timestep projections")
+    if z.device.type == "cpu":
+        return backbone_plain(w, z, tp)
+    out = _launch_backbone(w, z, tp)
+    fused_backbone.launches += 1
+    return out
+
+
 fused_denoiser.launches = 0
 fused_lifter.launches = 0
+fused_backbone.launches = 0

@@ -502,17 +502,21 @@ class _TrainStack(torch.autograd.Function):
         w = dict(cfg, **dict(zip(STACK_KEYS, stack)))
         fwd = stack_fwd_prng if isinstance(km, torch.Tensor) else stack_fwd
         d5, st = fwd(w, h0.contiguous(), tp.contiguous(), km, rates=cfg["rates"])
-        ctx.cfg, ctx.km, ctx.st = cfg, km, st
-        ctx.save_for_backward(*stack)
+        ctx.cfg, ctx.km = cfg, km
+        # the stashes as saved tensors, so that torch.utils.checkpoint can
+        # drop them and replay this forward in the backward
+        ctx.save_for_backward(*stack, *[st[k] for k in STASH_KEYS])
         return d5
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dd5):
-        w = dict(ctx.cfg, **dict(zip(STACK_KEYS, ctx.saved_tensors)))
+        saved = ctx.saved_tensors
+        w = dict(ctx.cfg, **dict(zip(STACK_KEYS, saved)))
+        st = dict(zip(STASH_KEYS, saved[len(STACK_KEYS):]))
         bwd = stack_bwd_prng if isinstance(ctx.km, torch.Tensor) else stack_bwd
-        da0, dtp, ds = bwd(w, ctx.km, ctx.st, dd5.contiguous(), rates=ctx.cfg["rates"])
-        grads = weight_grads(w, ctx.st, ds)
+        da0, dtp, ds = bwd(w, ctx.km, st, dd5.contiguous(), rates=ctx.cfg["rates"])
+        grads = weight_grads(w, st, ds)
         return (None, None, da0, dtp, *[grads[k] for k in STACK_KEYS])
 
 

@@ -61,6 +61,41 @@ def diffusion_loss(eps: torch.Tensor, target_noise: torch.Tensor) -> torch.Tenso
     return ((target_noise - eps) ** 2).sum(dim=(1, 2)).mean()
 
 
+def make_draw(betas, device: torch.device, *, num_layers: int, num_heads: int, hid_dim: int,
+              dropout: str, masks_dtype):
+    """Build ``draw(batch, generator) → StepDraws``: GMM kernel, antithetic
+    timesteps, scaled noise, q-sample, then the dropout's draw.  ``dropout
+    ="masks"``: ``DropoutMasks`` of ``masks_dtype`` (``None``: no masks, the
+    module's ``nn.Dropout`` draws its own); ``"prng"``: an int32 seed, and
+    where the consumer takes explicit float masks (``masks_dtype`` float32)
+    also the Philox masks of that seed (``ops/philox.py``, the kernels' bits)."""
+    num_timesteps = len(betas)
+    tables = q_sample_tables(betas, torch.float32, device)
+    cfg = dict(num_layers=num_layers, num_heads=num_heads, hid_dim=hid_dim)
+
+    def draw(batch: dict, generator: torch.Generator) -> StepDraws:
+        gmm = torch.as_tensor(batch["poses_2d_gmm"], device=device)
+        uvxyz, noise_scale, _ = sample_gmm_batch(
+            generator, gmm, torch.as_tensor(batch["poses_3d"], device=device))
+        n, n_pts = uvxyz.shape[:2]
+        t = antithetic_timesteps(generator, n, num_timesteps)
+        e = torch.randn(uvxyz.shape, generator=generator, device=device,
+                        dtype=uvxyz.dtype) * noise_scale
+        x_t = q_sample(uvxyz, t, e, betas, tables)
+        masks = seed = None
+        if dropout == "prng":
+            seed = torch.randint(_INT32_MIN, _INT32_MAX, (1,), generator=generator, device=device,
+                                 dtype=torch.int32)
+            if masks_dtype == torch.float32:
+                masks = philox_masks(seed, n_pts=n_pts, batch=n, **cfg, device=device,
+                                     dtype=torch.float32)
+        elif masks_dtype is not None:
+            masks = make_dropout_masks(generator, n_pts=n_pts, batch=n, **cfg, dtype=masks_dtype)
+        return StepDraws(x_t, t, e, masks, seed)
+
+    return draw
+
+
 def make_train_step(model, optimizer, betas, *, impl: str = "fused",
                     ema_mu: Optional[float] = 0.999, device="cuda", dropout: str = "masks"):
     """Build ``train_step(state, batch, generator) → (state, metrics)``.
@@ -91,33 +126,11 @@ def make_train_step(model, optimizer, betas, *, impl: str = "fused",
     device = resolve_device(device)
     if next(model.parameters()).device.type != device.type:
         raise ValueError(f"the model lies on {next(model.parameters()).device}, not on {device}")
-    num_timesteps = len(betas)
-    tables = q_sample_tables(betas, torch.float32, device)
     cfg = dict(num_layers=model.num_layers, num_heads=model.num_heads, hid_dim=model.hid_dim)
     basis = model.gconv_input.basis.detach().cpu().numpy()
     stack_fn = build_train_stack(basis, **cfg, dropout=dropout) if impl == "fused" else None
-
-    def draw(batch: dict, generator: torch.Generator) -> StepDraws:
-        gmm = torch.as_tensor(batch["poses_2d_gmm"], device=device)
-        uvxyz, noise_scale, _ = sample_gmm_batch(
-            generator, gmm, torch.as_tensor(batch["poses_3d"], device=device))
-        n, n_pts = uvxyz.shape[:2]
-        t = antithetic_timesteps(generator, n, num_timesteps)
-        e = torch.randn(uvxyz.shape, generator=generator, device=device,
-                        dtype=uvxyz.dtype) * noise_scale
-        x_t = q_sample(uvxyz, t, e, betas, tables)
-        masks = seed = None
-        if prng:
-            seed = torch.randint(_INT32_MIN, _INT32_MAX, (1,), generator=generator, device=device,
-                                 dtype=torch.int32)
-            if impl == "plain":
-                masks = philox_masks(seed, n_pts=n_pts, batch=n, **cfg, device=device,
-                                     dtype=torch.float32)
-        elif impl != "module":
-            masks = make_dropout_masks(
-                generator, n_pts=n_pts, batch=n, **cfg,
-                dtype=torch.uint8 if impl == "fused" else torch.float32)
-        return StepDraws(x_t, t, e, masks, seed)
+    draw = make_draw(betas, device, **cfg, dropout=dropout,
+                     masks_dtype={"fused": torch.uint8, "plain": torch.float32}.get(impl))
 
     def apply(state: TrainState, draws: StepDraws):
         if state.model is not model or state.optimizer is not optimizer:

@@ -175,7 +175,7 @@ class DiffposeRunner:
     # ------------------------------------------------------------------
 
     def _init_module(self, cls, coords_in: int, coords_out: int, model_path: Optional[str],
-                     what: str):
+                     what: str, **extra):
         m = self.config.model
         # nn.init draws from torch's default generator: seed it from the
         # runner's stream so that equal seeds give equal weights.
@@ -184,7 +184,7 @@ class DiffposeRunner:
             torch.manual_seed(init_seed)
             model = cls(self.basis, hid_dim=m.hid_dim, coords_in=coords_in,
                         coords_out=coords_out, num_layers=m.num_layer, num_heads=m.n_head,
-                        dropout_rate=m.dropout, n_pts=m.n_pts)
+                        dropout_rate=m.dropout, n_pts=m.n_pts, **extra)
         if model_path:
             logger.info("initialize %s model from %s", what, model_path)
             if not model_path.endswith(".pth"):
@@ -246,23 +246,26 @@ class DiffposeRunner:
         return BatchLoader(data, batch_size=self.config.training.batch_size, shuffle=shuffle,
                            seed=self.seed, process_count=1, process_index=0)
 
+    def _optimizer(self, steps_per_epoch: int):
+        """The state's own optimizer, where a state with one exists, else a new one."""
+        if self.state is not None and self.state.optimizer is not None:
+            return self.state.optimizer
+        o = self.config.optim
+        return make_optimizer(
+            self.model_diff.parameters(),
+            optimizer=o.optimizer,
+            lr=o.lr,
+            lr_gamma=o.lr_gamma,
+            decay_epochs=o.decay,
+            steps_per_epoch=steps_per_epoch,
+            grad_clip=o.grad_clip,
+            eps=o.eps,
+        )
+
     def _build_train_step(self, steps_per_epoch: int):
         """The optimizer (the state's own, where a state with one exists) and
         the train step over it."""
-        o = self.config.optim
-        if self.state is not None and self.state.optimizer is not None:
-            optimizer = self.state.optimizer
-        else:
-            optimizer = make_optimizer(
-                self.model_diff.parameters(),
-                optimizer=o.optimizer,
-                lr=o.lr,
-                lr_gamma=o.lr_gamma,
-                decay_epochs=o.decay,
-                steps_per_epoch=steps_per_epoch,
-                grad_clip=o.grad_clip,
-                eps=o.eps,
-            )
+        optimizer = self._optimizer(steps_per_epoch)
         ema_mu = self.config.model.ema_rate if self.config.model.ema else None
         dropout = self.dropout_impl if self.train_impl != "module" else "masks"
         step_fn = make_train_step(self.model_diff, optimizer, self.betas, impl=self.train_impl,
@@ -333,6 +336,10 @@ class DiffposeRunner:
         self.train_seconds = []
         for epoch in range(start_epoch, self.config.training.n_epochs):
             t0 = time.time()
+            # per-epoch reset of a step's carry (the implicit warm start; the
+            # reference's reset_history, implicit_pose.py:319-320)
+            for fn in (step_fn, *((sweep_fn, tail_fn) if use_sweep else ())):
+                getattr(fn, "reset", lambda: None)()
             # Every step's loss counts (the reference averages every step,
             # runners/diffpose_frame.py:233), but the device scalars are
             # collected and read once at epoch end: no per-step sync.

@@ -8,8 +8,16 @@ import torch
 
 from diffpose_tpu_torch.diffusion import get_beta_schedule
 from diffpose_tpu_torch.graph import H36M_EDGES, cheb_basis_from_edges
-from diffpose_tpu_torch.models import GCNDiff, GCNPose
-from diffpose_tpu_torch.ops.fused_denoiser import fused_denoiser, fused_lifter, prepare_weights
+from diffpose_tpu_torch.models import IGCN, GCNDiff, GCNPose
+from diffpose_tpu_torch.models.igcn import bn_state
+from diffpose_tpu_torch.ops.fused_denoiser import (
+    fused_backbone,
+    fused_denoiser,
+    fused_lifter,
+    prepare_weights,
+    timestep_projections,
+)
+from diffpose_tpu_torch.ops.fused_igcn import make_igcn_fn
 from diffpose_tpu_torch.ops.fused_pipeline import make_eval_fn
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -63,17 +71,28 @@ def test_default_device_raises_without_cuda(monkeypatch):
         make_eval_fn(BASIS, seq=(0, 12), betas=BETAS)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         prepare_weights(GCNPose(BASIS, **CFG))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_igcn_fn(IGCN(BASIS, **CFG))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prepare_weights(IGCN(BASIS, **CFG))          # fused_backbone's weights
 
 
 def test_cpu_calls_launch_nothing():
     torch.manual_seed(0)
     wp = prepare_weights(GCNPose(BASIS, **CFG).eval(), device="cpu")
     wd = prepare_weights(GCNDiff(BASIS, **CFG).eval(), device="cpu")
-    fused_lifter.launches = fused_denoiser.launches = 0
+    igcn = IGCN(BASIS, **CFG, max_iterations=3, min_iterations=2).eval()
+    wi = prepare_weights(igcn, device="cpu")
+    fused_lifter.launches = fused_denoiser.launches = fused_backbone.launches = 0
     x2d = torch.randn(3, 17, 2)
     with torch.no_grad():
         fused_lifter(wp, x2d)
         fused_denoiser(wd, torch.randn(3, 17, 5), torch.zeros(3))
         out = make_eval_fn(BASIS, seq=(0, 12), betas=BETAS, test_times=2, device="cpu")(wp, wd, x2d)
+        t = torch.full((3,), 12.0)
+        z = fused_backbone(wi, torch.randn(3, 17, CFG["hid_dim"]), timestep_projections(wi, t))
+        solved, aux = make_igcn_fn(igcn, device="cpu")(wi, bn_state(igcn), torch.randn(3, 17, 5), t)
     assert out.shape == (3, 17, 3) and bool(torch.isfinite(out).all())
-    assert (fused_lifter.launches, fused_denoiser.launches) == (0, 0)
+    assert z.shape == (3, 17, CFG["hid_dim"]) and solved.shape == (3, 17, 5)
+    assert aux["iterations"] >= 2
+    assert (fused_lifter.launches, fused_denoiser.launches, fused_backbone.launches) == (0, 0, 0)
