@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's frame family on one GPU and check it: the eval
-and training functions, every kernel, and the command line over the runner.
+"""Drive the PyTorch/CUDA port on one GPU and check it: for the frame, implicit
+and video families the eval and training functions, every kernel, and the
+command line over the runner.
 
 Run from the root of a checkout, on a host with one NVIDIA H100:
 
@@ -93,6 +94,42 @@ The implicit (IGCN) family, at the width of ``configs/human36m_ipose.yml``
 16. time row 3, the eval solve, the train step by parts and the implicit
     runner (train epochs, ``throughput_stats()``).
 
+The video (spatio-temporal) family, at the width of
+``configs/human36m_video.yml`` (hid 96, 4 heads, 17 joints, 81-frame
+windows, 4 layers, video dropout 0.1, 16 windows a batch, 2-step DDIM) with a
+seeded init:
+
+17. hold kernel row 10 (``fused_temporal_layer``, one TemporalBlock) against
+    ``temporal_layer_plain`` and row 9 (``fused_st_layer``, one whole video
+    layer in a cooperative launch) against ``st_layer_plain`` at 16 windows of
+    81 frames, a ragged 5 windows and 2 windows of 243 frames; bound 5e-5;
+    print row 9's co-resident grid;
+18. hold the three fused eval forwards (``make_video_denoiser_fn`` with torch
+    and with kernel temporal blocks, ``make_video_full_fn``) against the
+    module at B=16, with their launches (4 row-3; 4 row-3 + 4 row-10; 4
+    row-9 a call), and the eval step with each against the module's step;
+    bound 2e-4;
+19. hold the fused video train function at rates 0 against the module's
+    autograd (output 5e-5, gradients entry by entry, the key biases' noise
+    apart), then 3 fused steps against 3 plain steps on the same draws, with
+    explicit masks and with seeded dropout (loss within 1e-3 relative; 4
+    forward + 4 backward launches a step);
+20. run ``diffpose_tpu_torch.cli.main_video`` in process with
+    ``configs/human36m_video.yml``, 128 synthetic windows (8 steps an epoch,
+    32 test windows, 2 eval batches), ``--train_impl fused --dropout_impl
+    prng --denoiser_impl fused``: train 2 epochs (4 seeded forward + 4 seeded
+    backward launches a step, 8 row-3 launches an eval batch), resume for a
+    third, evaluate the checkpoint alone with ``fused``, ``fused_st`` and
+    ``fused_full`` (8 row-3; 8 row-3 + 8 row-10; 8 row-9 launches an eval
+    batch): files, finite losses, the three eval-only P1/P2 equal to each
+    other and to the last epoch's to 1e-3 mm;
+21. time rows 9 and 10 at the three shapes beside their bounds, plain
+    versions and, for row 10, ``scaled_dot_product_attention`` on its q/k/v
+    and the block from library calls; the inner eval call and the eval step
+    of each impl; the fused train step by parts; the video runner (train
+    epochs, ``throughput_stats()`` per impl).  Each family's wall seconds are
+    printed.
+
 The line before the last holds the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -112,15 +149,18 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from diffpose_tpu_torch.data.loader import prefetch_to_device
 from diffpose_tpu_torch.data.synthetic import make_synthetic_dataset
+from diffpose_tpu_torch.data.video import synthetic_video_dataset
 from diffpose_tpu_torch.diffusion import get_beta_schedule
 from diffpose_tpu_torch.graph import H36M_EDGES, cheb_basis_from_edges
 from diffpose_tpu_torch.metrics import p_mpjpe_per_sample
 from diffpose_tpu_torch.models import IGCN, GCNDiff, GCNPose
 from diffpose_tpu_torch.models.igcn import bn_eval, bn_state
+from diffpose_tpu_torch.models.video import SpatioTemporalDiff
 from diffpose_tpu_torch.ops.fused_igcn import make_igcn_fn
 from diffpose_tpu_torch.ops.fused_igcn_train import make_igcn_train_fn
 from diffpose_tpu_torch.ops import _build
@@ -138,7 +178,8 @@ from diffpose_tpu_torch.ops.fused_denoiser import (
     timestep_projections,
 )
 from diffpose_tpu_torch.ops import fused_train as ft
-from diffpose_tpu_torch.ops.fused_denoiser import _cheb
+from diffpose_tpu_torch.ops.fused_denoiser import _cheb, _layer_norm
+from diffpose_tpu_torch.ops.fused_video_full import fused_st_layer, fused_temporal_layer
 from diffpose_tpu_torch.ops.fused_pipeline import lift_and_denoise, make_eval_fn
 from diffpose_tpu_torch.ops.philox import philox_masks
 from diffpose_tpu_torch.ops.train_ref import layers_forward, make_dropout_masks
@@ -199,6 +240,13 @@ TRAIN_SOLVES = (("damped", 20, 10, 5, "entries"), ("anderson", 2, 2, 5, "entries
                 ("anderson", 3, 3, 3, "norms"), ("anderson", 20, 10, 5, "finite"))
 GRAD_NORM_RATIO = 5.0
 TOL_BN = 1e-5
+# The video family (configs/human36m_video.yml): 16 windows of 81 frames;
+# rows 9 and 10 also at a ragged 5 windows and at the published long window.
+VIDEO_CONFIG = "configs/human36m_video.yml"
+VIDEO_BATCH, VIDEO_FRAMES = 16, 81
+VIDEO_SHAPES = ((VIDEO_FRAMES, VIDEO_BATCH), (VIDEO_FRAMES, 5), (243, 2))
+VIDEO_WINDOWS = 128          # 8 steps an epoch; the CLI cuts 32 test windows, 2 eval batches
+VIDEO_STEPS = 3
 # H100 SXM peaks (NVIDIA data sheet): FP32 on CUDA cores, HBM3.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -677,7 +725,7 @@ def prng_phases(dev, diff, g, ctx, card):
 
 def reset_launch_counts():
     for fn in (fused_lifter, fused_denoiser, fused_backbone, ft.stack_fwd, ft.stack_bwd,
-               ft.stack_fwd_prng, ft.stack_bwd_prng):
+               ft.stack_fwd_prng, ft.stack_bwd_prng, fused_temporal_layer, fused_st_layer):
         fn.launches = 0
 
 
@@ -685,7 +733,8 @@ def launch_counts() -> dict:
     return {"lifter": fused_lifter.launches, "denoiser": fused_denoiser.launches,
             "backbone": fused_backbone.launches,
             "fwd": ft.stack_fwd.launches, "bwd": ft.stack_bwd.launches,
-            "fwd_prng": ft.stack_fwd_prng.launches, "bwd_prng": ft.stack_bwd_prng.launches}
+            "fwd_prng": ft.stack_fwd_prng.launches, "bwd_prng": ft.stack_bwd_prng.launches,
+            "temporal": fused_temporal_layer.launches, "st": fused_st_layer.launches}
 
 
 def logged_errors(stdout_txt: Path):
@@ -716,7 +765,8 @@ def cli_phases(card):
     torch.cuda.synchronize()
     counts = launch_counts()
     want = {"lifter": 2 * eval_batches, "denoiser": 2 * len(SEQ) * eval_batches, "backbone": 0,
-            "fwd": 0, "bwd": 0, "fwd_prng": 2 * steps_per_epoch, "bwd_prng": 2 * steps_per_epoch}
+            "fwd": 0, "bwd": 0, "fwd_prng": 2 * steps_per_epoch, "bwd_prng": 2 * steps_per_epoch,
+            "temporal": 0, "st": 0}
     print(f"main path (CLI: 2 epochs of {steps_per_epoch} steps, {eval_batches} eval batches each) "
           f"launches: {counts}")
     check(counts == want, f"CLI training run launches {counts}, expected {want}")
@@ -1072,7 +1122,7 @@ def implicit_cli_phases(card):
     want = {"lifter": 2 * eval_batches, "denoiser": 0,
             "backbone": round(sum(eval_batches * (1 + v) for v in means)),
             "fwd": 0, "bwd": 0, "fwd_prng": 2 * steps_per_epoch * per_step[0],
-            "bwd_prng": 2 * steps_per_epoch * per_step[1]}
+            "bwd_prng": 2 * steps_per_epoch * per_step[1], "temporal": 0, "st": 0}
     print(f"main path (implicit CLI: 2 epochs of {steps_per_epoch} steps, {eval_batches} eval "
           f"batches each, mean iterations {means}) launches: {counts}")
     check(len(means) == 2 and counts == want, f"implicit CLI launches {counts}, expected {want}")
@@ -1156,6 +1206,366 @@ def implicit_cli_phases(card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The video family (phases 17-21)
+# ---------------------------------------------------------------------------
+
+
+def seeded_video(basis, dev, gen, frames: int, **kw):
+    """A SpatioTemporalDiff at the config's widths with a seeded init, every
+    term live (``randomize``), in eval mode."""
+    model = SpatioTemporalDiff(basis, frames, **kw)
+    randomize(model, gen)
+    return model.to(dev).eval()
+
+
+def temporal_flops(rows: int, frames: int, hid: int = 96) -> int:
+    """Multiply-adds (×2) of one TemporalBlock launch: QKV, out-projection and
+    the two feed-forward products per frame, scores and value sums over the
+    window per head."""
+    return 2 * rows * (frames * (3 * hid * hid + hid * hid + 4 * hid * hid)
+                       + 2 * frames * frames * hid)
+
+
+def temporal_bytes(rows: int, frames: int, hid: int = 96) -> int:
+    """The block's weights, its input read once and its output written once."""
+    weights = 4 * (3 * hid * hid + 3 * hid + hid * hid + 5 * hid + 4 * hid * hid + 3 * hid)
+    return weights + 2 * 4 * rows * frames * hid
+
+
+def st_bound(w, windows: int, frames: int):
+    """Row 9's bound: row 3's layer at B·F frames plus row 10 at B·17 rows."""
+    fl = backbone_flops(w, windows * frames) + temporal_flops(windows * 17, frames)
+    by = backbone_bytes(w, windows * frames) + temporal_bytes(windows * 17, frames)
+    return bound_of(fl, by), fl, by
+
+
+def video_windows(n: int, frames: int, seed: int) -> dict:
+    data = synthetic_video_dataset(n, frames, seed=seed)
+    return {"poses_3d": data.poses_3d, "poses_2d_gmm": data.poses_2d_gmm,
+            "seeds": np.arange(n, dtype=np.int32) * 7919 - 5}
+
+
+def video_kernel_phases(dev, basis, gen, g, card):
+    """Phases 17-19 and the kernel times of 21; returns the records of rows 9
+    and 10 without their main-path launches, the launches of the
+    explicit-mask train pair in phase 19, and row 3's time at the video
+    shape."""
+    from diffpose_tpu_torch.ops import fused_video_full as fv
+    from diffpose_tpu_torch.ops import fused_video_train as fvt
+    from diffpose_tpu_torch.ops.fused_video import make_video_denoiser_fn
+    from diffpose_tpu_torch.train.video_steps import make_video_eval_step, make_video_train_step
+
+    # 17. rows 9 and 10 against their plain versions at every shape
+    kept, errs = {}, {"row9": 0.0, "row10": 0.0}
+    with torch.no_grad():
+        for frames, windows in VIDEO_SHAPES:
+            m = seeded_video(basis, dev, gen, frames)
+            vw = fv.prepare_video_weights(m, dev)
+            lw, tw = vw["layers"], vw["temporal"]
+            x = torch.randn((windows, frames, 17, 5), generator=g, device=dev)
+            t = torch.randint(0, len(BETAS), (windows,), generator=g, device=dev).float()
+            h = fv.embed(vw, x)
+            tp = fv.spatial_projections(vw["spatial"], t, frames)[1]
+            ht = fv.to_rows(h).contiguous()
+            o10 = fv._launch_temporal(tw, ht, 1)
+            o9 = fv._launch_st(lw, tw, h, tp, 1)
+            torch.cuda.synchronize()
+            e10 = max_err(o10, fv.temporal_layer_plain(tw, ht, 1))
+            e9 = max_err(o9, fv.st_layer_plain(lw, tw, h, tp, 1))
+            print(f"video F={frames} windows={windows}: row 10 max|kernel-plain| {e10:.3e}  row 9 "
+                  f"{e9:.3e}  |out| max {float(o9.abs().max()):.3f}")
+            check(e10 <= TOL_KERNEL and e9 <= TOL_KERNEL and bool(torch.isfinite(o9).all()),
+                  f"rows 9/10 at F={frames}, {windows} windows")
+            errs = {"row9": max(errs["row9"], e9), "row10": max(errs["row10"], e10)}
+            kept[(frames, windows)] = (vw, h, tp, ht)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    occupancy = {k: fv.kernel_occupancy(dev, k) for k in ("temporal", "st")}
+    for name, row in (("temporal", 10), ("st", 9)):
+        occ = occupancy[name]
+        print(f"row {row} occupancy: {occ['ctas_per_sm']} CTA an SM x {sms} SMs, "
+              f"{occ['regs']} registers a thread, {occ['smem_bytes']} bytes of shared memory")
+    resident = occupancy["temporal"]["ctas_per_sm"] * sms
+    print(f"row 10 at {VIDEO_BATCH} windows: {VIDEO_BATCH * 17} rows over {resident} co-resident "
+          f"CTAs, {VIDEO_BATCH * 17 / resident:.2f} waves")
+
+    # 18. the three eval forwards and the eval step with each, at B=16
+    frames, windows = VIDEO_FRAMES, VIDEO_BATCH
+    model = seeded_video(basis, dev, gen, frames)
+    vw = fv.prepare_video_weights(model, dev)
+    x = torch.randn((windows, frames, 17, 5), generator=g, device=dev)
+    t = torch.full((windows,), float(SEQ[-1]), device=dev)
+    fns = {"fused": make_video_denoiser_fn(model),
+           "fused_st": make_video_denoiser_fn(model, temporal_impl="kernel"),
+           "fused_full": fv.make_video_full_fn(model)}
+    per_call = {"fused": {"backbone": 4}, "fused_st": {"backbone": 4, "temporal": 4},
+                "fused_full": {"st": 4}}
+    with torch.no_grad():
+        ref = model(x, t)
+        for name, fn in fns.items():
+            reset_launch_counts()
+            out = fn(vw, x, t)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in launch_counts().items() if v}
+            e = max_err(out, ref)
+            print(f"video denoiser {name} B={windows}: max|fn-module| {e:.3e}  launches {got}")
+            check(e <= TOL_PIPELINE and got == per_call[name], f"video denoiser {name}: {e}, {got}")
+        batch = video_windows(windows, frames, seed=SEED + 4)
+        state = TrainState.create(model, None)
+        steps = {impl: make_video_eval_step(model, BETAS, SEQ, device=dev, mask=torch.ones(1, 1, 17, device=dev),
+                                            denoise_override=fn)
+                 for impl, fn in (("module", None), *fns.items())}
+        res = {impl: st(state, batch, prepared=st.prepare(state)) for impl, st in steps.items()}
+        for impl in fns:
+            e = max(max_err(a, b) for a, b in zip(res[impl], res["module"]))
+            print(f"video eval step {impl}: max|step-module step| {e:.3e} (p1, p2, pred)  mean P1 "
+                  f"{1e3 * float(res[impl][0].mean()):.4f} mm")
+            check(e <= TOL_PIPELINE, f"video eval step {impl}")
+
+    # 19. the fused train step against the module forward (rates 0, entry by
+    # entry) and against the plain step over the same draws (3 steps)
+    quiet = copy.deepcopy(model).train()
+    quiet.dropout_rate = 0.0
+    for mod in quiet.modules():
+        if isinstance(mod, torch.nn.Dropout):
+            mod.p = 0.0
+    e = torch.randn(x.shape, generator=g, device=dev)
+    ones = make_dropout_masks(g, num_layers=4, n_pts=17, batch=windows * frames, num_heads=4,
+                              hid_dim=96, dtype=torch.uint8, rates=(0.0, 0.0, 0.0))
+    params = list(quiet.parameters())
+    out_f = fvt.make_video_train_fn(quiet, rates=(0.0, 0.0, 0.0))(x, t, ones, None)
+    g_f = torch.autograd.grad(((e - out_f) ** 2).sum(dim=(1, 2, 3)).mean(), params)
+    out_m = quiet(x, t)
+    g_m = torch.autograd.grad(((e - out_m) ** 2).sum(dim=(1, 2, 3)).mean(), params)
+    # The key projections' biases have a gradient of 0 (softmax ignores a
+    # shift of every score of a row): both give rounding noise there.
+    names = [n for n, _ in quiet.named_parameters()]
+    zero = [i for i, n in enumerate(names) if n.endswith(("attn.k.bias", "self_attn.linears.1.bias"))]
+    top = max(float(v.abs().max()) for v in g_m)
+    noise = max(float(gg[i].abs().max()) for gg in (g_f, g_m) for i in zero) / top
+    worst = max((grad_close(g_f[i], g_m[i]), names[i]) for i in range(len(names)) if i not in zero)
+    e_out = max_err(out_f, out_m)
+    print(f"video train fn rates 0 vs the module: max|out| {e_out:.3e}  worst grad rel "
+          f"{worst[0]:.1e} ({worst[1]}); the key biases' (0 in exact arithmetic) up to {noise:.1e} "
+          f"of the largest entry")
+    check(e_out <= TOL_KERNEL and worst[0] < GRAD_REL and noise < GRAD_REL, "video train fn at rates 0")
+    del out_f, out_m, g_f, g_m
+
+    train_batches = [video_windows(windows, frames, seed=SEED + 5 + i) for i in range(VIDEO_STEPS)]
+    masks_launches, ctx = {}, {}
+    for dropout in ("masks", "prng"):
+        runs = {}
+        for impl in ("fused", "plain"):
+            mm = copy.deepcopy(model).train()
+            opt = make_optimizer(mm.parameters(), lr=TRAIN_LR)
+            st = TrainState.create(mm, opt, ema_register(mm))
+            step = make_video_train_step(mm, opt, BETAS, impl=impl, device=dev, dropout=dropout)
+            gd = torch.Generator(device=dev).manual_seed(SEED + 6)
+            draws = [step.draw(b, gd) for b in train_batches]
+            reset_launch_counts()
+            losses = [float(step.apply(st, d)[1]["loss"]) for d in draws]
+            counts = launch_counts()
+            runs[impl] = losses
+            if impl == "fused":
+                keys = ("fwd", "bwd") if dropout == "masks" else ("fwd_prng", "bwd_prng")
+                check(tuple(counts[k] for k in keys) == (4 * VIDEO_STEPS, 4 * VIDEO_STEPS),
+                      f"video {dropout} step launches {counts}")
+                if dropout == "masks":
+                    masks_launches = {k: counts[k] for k in keys}
+                else:
+                    ctx = dict(state=st, step=step, draws=draws[0])
+        rel = [abs(a - b) / abs(b) for a, b in zip(runs["fused"], runs["plain"])]
+        print(f"video train step {dropout} fused vs plain, {VIDEO_STEPS} steps: losses "
+              f"{[round(v, 4) for v in runs['fused']]}  rel diff " + " ".join(f"{v:.2e}" for v in rel))
+        check(max(rel) <= TOL_STEP_LOSS and all(v == v for v in runs["fused"]),
+              f"video {dropout} step: fused against plain")
+
+    # 21 (kernel part). times, turn by turn where two versions are compared
+    records = {}
+    with torch.no_grad():
+        for (frames_k, windows_k), (vw_k, h, tp, ht) in kept.items():
+            lw, tw = vw_k["layers"], vw_k["temporal"]
+            rows = windows_k * 17
+            k10 = time_ms(lambda: fv._launch_temporal(tw, ht, 1))
+            p10 = time_ms(lambda: fv.temporal_layer_plain(tw, ht, 1), reps=3)
+            fl10 = temporal_flops(rows, frames_k)
+            b10, by10 = bound_of(fl10, temporal_bytes(rows, frames_k))
+            y = _layer_norm(ht, tw["tln1s"][1], tw["tln1b"][1])
+            q, k, v = (y @ tw["twqkv"][1] + tw["tbqkv"][1]).split(96, dim=-1)
+            q, k, v = (z.reshape(rows, frames_k, 4, 24).transpose(1, 2).contiguous() for z in (q, k, v))
+            sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=1.0))
+            lib_block = time_ms(lambda: library_temporal_block(tw, ht, 1), reps=3)
+            k9 = time_ms(lambda: fv._launch_st(lw, tw, h, tp, 1))
+            p9 = time_ms(lambda: fv.st_layer_plain(lw, tw, h, tp, 1), reps=3)
+            (b9, by9), fl9, _ = st_bound(lw[1], windows_k, frames_k)
+            print(f"row 10 F={frames_k} rows={rows}: kernel {k10:.4f} ms  plain {p10:.4f} ms  bound "
+                  f"{b10:.4f} ms ({by10}; {fl10 / 1e9:.3f} GFLOP)  {fl10 / k10 / 1e9:.2f} TFLOP/s  "
+                  f"library: SDPA on its q/k/v {sdpa:.4f} ms, the block from library calls "
+                  f"{lib_block:.4f} ms  [{card}]")
+            print(f"row 9 F={frames_k} windows={windows_k}: kernel {k9:.4f} ms  plain {p9:.4f} ms  bound "
+                  f"{b9:.4f} ms ({by9}; {fl9 / 1e9:.3f} GFLOP)  {fl9 / k9 / 1e9:.2f} TFLOP/s  [{card}]")
+            records[(frames_k, windows_k)] = dict(k10=k10, p10=p10, b10=b10, by10=by10, sdpa=sdpa,
+                                                  lib_block=lib_block, k9=k9, p9=p9, b9=b9, by9=by9)
+            if (frames_k, windows_k) == (VIDEO_FRAMES, VIDEO_BATCH):
+                z = h.reshape(-1, 17, 96)
+                k3 = time_ms(lambda: _launch_backbone(lw[1], z, tp))
+                b3, _ = bound_of(backbone_flops(lw[1], z.shape[0]), backbone_bytes(lw[1], z.shape[0]))
+                print(f"row 3 at B·F={z.shape[0]} frames (one video spatial block): {k3:.4f} ms  "
+                      f"bound {b3:.4f} ms  [{card}]")
+                row3_video = dict(ms_video=k3, bound_ms_video=b3, video_rows=z.shape[0])
+        for name, fn in fns.items():
+            ms = time_ms(lambda: fn(vw, x, t), reps=5)
+            print(f"video denoiser {name} B={windows}: {ms:.4f} ms a call  [{card}]")
+        mod_ms = time_ms(lambda: model(x, t), reps=3)
+        print(f"video denoiser module B={windows}: {mod_ms:.4f} ms a call  [{card}]")
+        for impl, st_fn in steps.items():
+            prepared = st_fn.prepare(state)
+            ms = time_ms(lambda: st_fn(state, batch, prepared=prepared), reps=2, runs=5)
+            print(f"video eval step {impl} B={windows}: {ms:.4f} ms, "
+                  f"{windows * frames / ms * 1e3:.1f} frames/s  [{card}]")
+
+    # the fused train step (prng) by parts
+    st, step, d = ctx["state"], ctx["step"], ctx["draws"]
+    step_ms = time_ms(lambda: step.apply(st, d), reps=2, runs=5)
+    w1 = fv.layer_weights(prepare_weights(fv.SpatialBlocks(st.model), dev))[0]
+    (vw0, h0, tp0, _) = kept[(VIDEO_FRAMES, VIDEO_BATCH)]
+    z = h0.reshape(-1, 17, 96)
+    seed = d.seed
+    ikeep = ft._inv_keep(fvt.video_dropout_rates(st.model))
+    drop = ft._seeded(seed, fvt.video_dropout_rates(st.model))
+    stf = ft._launch_fwd(w1, z, tp0, drop, ikeep)[1]
+    dd5 = torch.randn_like(z)
+    ds = ft._launch_bwd(w1, drop, stf, dd5, ikeep)[2]
+    fwd_ms = time_ms(lambda: ft._launch_fwd(w1, z, tp0, drop, ikeep))
+    bwd_ms = time_ms(lambda: ft._launch_bwd(w1, drop, stf, dd5, ikeep))
+    wg_ms = time_ms(lambda: ft.weight_grads(w1, stf, ds))
+    rest = step_ms - 4 * (fwd_ms + bwd_ms + wg_ms)
+    print(f"video train step B={windows}x{frames} (prng, draws given): {step_ms:.4f} ms, "
+          f"{windows * frames / step_ms * 1e3:.1f} frames/s; parts: 4 seeded forward kernels "
+          f"{4 * fwd_ms:.4f} ({fwd_ms:.4f} each), 4 backward {4 * bwd_ms:.4f} ({bwd_ms:.4f}), 4 "
+          f"weight_grads {4 * wg_ms:.4f} ({wg_ms:.4f}), rest (temporal blocks under autograd, "
+          f"ChebConvs, weight prep, clip, Adam, EMA) {rest:.4f} ms  [{card}]")
+
+    r = records[(VIDEO_FRAMES, VIDEO_BATCH)]
+    extra = {f"F{f}_B{b}": {k: v for k, v in rec.items() if k in ("k10", "k9", "b10", "b9", "p10", "p9")}
+             for (f, b), rec in records.items() if (f, b) != (VIDEO_FRAMES, VIDEO_BATCH)}
+    common = dict(route="cuda", source="diffpose_tpu_torch/csrc/video_kernel.cu", batch=VIDEO_BATCH,
+                  frames=VIDEO_FRAMES)
+    row10 = dict(name="video_kernel[temporal]", replaces="diffpose_tpu/ops/pallas_video_full.py:329",
+                 max_abs_err=errs["row10"], ms=r["k10"], plain_ms=r["p10"], bound_ms=r["b10"],
+                 bound_by=r["by10"], library_ms=r["sdpa"],
+                 library_what="scaled_dot_product_attention on the block's q/k/v [272, 4, 81, 24]",
+                 library_block_ms=r["lib_block"], other_shapes=extra,
+                 occupancy=occupancy["temporal"], **common)
+    row9 = dict(name="video_kernel[st_layer]", replaces="diffpose_tpu/ops/pallas_video_full.py:148",
+                max_abs_err=errs["row9"], ms=r["k9"], plain_ms=r["p9"], bound_ms=r["b9"],
+                bound_by=r["by9"], library_ms=None, occupancy=occupancy["st"], **common)
+    return row9, row10, masks_launches, row3_video
+
+
+def library_temporal_block(tw, ht, layer):
+    """The TemporalBlock from library calls (``F.linear`` products,
+    ``scaled_dot_product_attention``, the Bessel LayerNorm by hand): a
+    yardstick for row 10, used nowhere in the port."""
+    fn = torch.nn.functional
+    n, f, hid = ht.shape
+    y = _layer_norm(ht, tw["tln1s"][layer], tw["tln1b"][layer])
+    qkv = fn.linear(y, tw["twqkv"][layer].t(), tw["tbqkv"][layer])
+    q, k, v = (z.reshape(n, f, 4, -1).transpose(1, 2) for z in qkv.split(hid, dim=-1))
+    att = fn.scaled_dot_product_attention(q, k, v, scale=1.0).transpose(1, 2).reshape(n, f, hid)
+    x = ht + fn.linear(att, tw["twao"][layer].t(), tw["tbao"][layer])
+    y = fn.relu(fn.linear(_layer_norm(x, tw["tln2s"][layer], tw["tln2b"][layer]),
+                          tw["tff1"][layer].t(), tw["tbff1"][layer]))
+    return x + fn.linear(y, tw["tff2"][layer].t(), tw["tbff2"][layer])
+
+
+def video_cli_phases(card):
+    """Phases 20-21: ``cli.main_video`` in process at the config's widths:
+    train 2 epochs, resume for a third, evaluate the checkpoint with each
+    fused eval forward; then the video runner's times.  Returns the launch
+    counts of the training run."""
+    from diffpose_tpu_torch.cli import main_video
+    from diffpose_tpu_torch.cli.common import setup_experiment
+    from diffpose_tpu_torch.train.video_runner import VideoRunner
+
+    exp = Path(tempfile.mkdtemp(prefix="chip_smoke_video_"))
+    b, layers = VIDEO_BATCH, 4
+    steps_per_epoch = -(-VIDEO_WINDOWS // b)
+    eval_batches = -(-(VIDEO_WINDOWS // 4) // b)
+    per_batch = len(SEQ) * layers           # launches of one kernel an eval batch
+    common = ["--config", VIDEO_CONFIG, "--exp", str(exp), "--ni", "--synthetic_windows",
+              str(VIDEO_WINDOWS)]
+    train = common + ["--doc", "run", "--train", "--train_impl", "fused", "--dropout_impl", "prng",
+                      "--denoiser_impl", "fused"]
+    run = exp / "run"
+
+    # 20. train, resume, eval-only with each fused forward
+    reset_launch_counts()
+    check(main_video.main(train + ["--n_epochs", "2"]) == 0, "the video CLI training run failed")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    zero = {k: 0 for k in counts}
+    want = dict(zero, backbone=2 * eval_batches * per_batch,
+                fwd_prng=2 * steps_per_epoch * layers, bwd_prng=2 * steps_per_epoch * layers)
+    print(f"main path (video CLI: 2 epochs of {steps_per_epoch} steps, {eval_batches} eval batches "
+          f"each) launches: {counts}")
+    check(counts == want, f"video CLI training run launches {counts}, expected {want}")
+    check(main_video.main(train + ["--n_epochs", "3", "--resume"]) == 0, "the video CLI resume failed")
+    log = (run / "stdout.txt").read_text()
+    check(f"resumed from step {2 * steps_per_epoch} (epoch 2)" in log, "the video resume was not logged")
+    check(log.count("| Epoch 00") == 3, "the resumed video run did not train exactly one more epoch")
+    losses = [float(v) for v in re.findall(r"\| loss ([0-9.eE+-]+|nan|inf) \|", log)]
+    print(f"video CLI epoch losses {losses}")
+    check(len(losses) == 3 and all(v == v and abs(v) != float("inf") for v in losses),
+          f"video epoch losses {losses}")
+    last = 3 * steps_per_epoch
+    files = sorted(f.name for f in run.iterdir())
+    for name in ("config.yml", "stdout.txt", f"ckpt_{last:08d}.pth"):
+        check(name in files, f"{name} missing from the video run's folder: {files}")
+    trained = logged_errors(run / "stdout.txt")[-1]
+    alone, runs = {}, {"train": counts}
+    for impl, kernel in (("fused", "backbone"), ("fused_st", None), ("fused_full", "st")):
+        reset_launch_counts()
+        check(main_video.main(common + ["--doc", f"eval_{impl}", "--track_metrics", "--denoiser_impl",
+                                        impl, "--model_diff_path", str(run / f"ckpt_{last:08d}.pth")])
+              == 0, f"the video CLI eval run ({impl}) failed")
+        got = launch_counts()
+        n = eval_batches * per_batch
+        exp_counts = (dict(zero, backbone=n, temporal=n) if impl == "fused_st"
+                      else dict(zero, **{kernel: n}))
+        check(got == exp_counts, f"video CLI eval-only {impl} launches {got}, expected {exp_counts}")
+        alone[impl] = logged_errors(exp / f"eval_{impl}" / "stdout.txt")[-1]
+        runs[impl] = got
+    print(f"video eval-only from the checkpoint, P1/P2 mm: {alone}; the training run's last epoch "
+          f"{trained}")
+    check(all(max(abs(a - c) for a, c in zip(trained, v)) <= 1e-3 for v in alone.values()),
+          "video eval-only P1/P2 disagree with each other or with the training run's last eval")
+
+    # 21 (runner part). train epochs and throughput_stats() per fused forward
+    args = main_video.parse_args(train + ["--doc", "times", "--n_epochs", "3"])
+    config = setup_experiment(args)
+    runner = VideoRunner(config, seed=args.seed, log_dir=None, denoiser_impl="fused",
+                         train_impl="fused", dropout_impl="prng")
+    runner.create_video_model()
+    runner.set_data(synthetic_video_dataset(VIDEO_WINDOWS, config.video.frames, seed=args.seed),
+                    synthetic_video_dataset(VIDEO_WINDOWS // 4, config.video.frames, seed=args.seed + 1))
+    runner.train()
+    secs = runner.train_seconds
+    frames_epoch = VIDEO_WINDOWS * config.video.frames
+    print(f"video runner train epochs of {VIDEO_WINDOWS} windows ({frames_epoch} frames) at B={b} "
+          f"(fused, prng): " + " ".join(f"{v:.4f}" for v in secs)
+          + f" s; last epoch {frames_epoch / secs[-1]:.1f} frames/s  [{card}]")
+    for impl in ("fused", "fused_st", "fused_full", "fused"):
+        runner.denoiser_impl = impl
+        runner._eval_cache.clear()
+        runner.evaluate(is_train=True)
+        print(f"video runner eval {impl} (seconds a batch "
+              f"{[round(v, 4) for v in runner.inference_times]}): {runner.throughput_stats()}  [{card}]")
+    logging.getLogger().handlers.clear()
+    shutil.rmtree(exp)
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
@@ -1164,6 +1574,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     # 1. build
@@ -1282,11 +1693,27 @@ def main() -> int:
     prng_records = prng_phases(dev, diff, g, ctx, card)
     cli_counts = cli_phases(card)
 
+    t_implicit = time.perf_counter()
     backbone_record = implicit_kernel_phases(dev, basis, gen, g, card)
     implicit_counts = implicit_cli_phases(card)
+    t_video = time.perf_counter()
+    row9, row10, masks_launches, row3_video = video_kernel_phases(dev, basis, gen, g, card)
+    video_runs = video_cli_phases(card)
+    t_end = time.perf_counter()
+    video = video_runs["train"]
     for rec, key in zip(prng_records, ("fwd_prng", "bwd_prng")):
-        kernels.append(dict(rec, launches=cli_counts[key], implicit_launches=implicit_counts[key]))
-    kernels.insert(2, dict(backbone_record, launches=implicit_counts["backbone"]))
+        kernels.append(dict(rec, launches=cli_counts[key], implicit_launches=implicit_counts[key],
+                            video_launches=video[key]))
+    for rec, key in zip(kernels[2:4], ("fwd", "bwd")):
+        rec["video_launches"] = masks_launches[key]     # phase 19's explicit-mask steps
+    kernels.insert(2, dict(backbone_record, launches=implicit_counts["backbone"],
+                           video_launches=video["backbone"], **row3_video))
+    kernels.append(dict(row9, launches=video_runs["fused_full"]["st"],
+                        main_path="main_video eval-only --denoiser_impl fused_full"))
+    kernels.append(dict(row10, launches=video_runs["fused_st"]["temporal"],
+                        main_path="main_video eval-only --denoiser_impl fused_st"))
+    print(f"wall seconds by family: frame (phases 1-11, build included) {t_implicit - t_start:.1f}, "
+          f"implicit (12-16) {t_video - t_implicit:.1f}, video (17-21) {t_end - t_video:.1f}")
 
     print(card)
     print(json.dumps({"kernels": kernels}))

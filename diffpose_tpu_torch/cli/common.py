@@ -5,8 +5,9 @@ Mirrors the reference main scripts' behavior
 non-interactive consent, dual stream+file logging handlers with de-dup,
 config snapshot dump, and global seeding.  Counterpart of
 ``diffpose_tpu/cli/common.py``: every flag keeps its name and default; the
-implementation values ``pallas`` read as ``fused`` (the hand-written CUDA
-kernels), and ``--device`` chooses where the run lies.
+implementation values ``pallas``, ``pallas_st`` and ``pallas_full`` read as
+``fused``, ``fused_st`` and ``fused_full`` (the hand-written CUDA kernels),
+and ``--device`` chooses where the run lies.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 # The JAX package's names for its fused implementations, as this one reads them.
-_IMPL_ALIASES = {"pallas": "fused"}
+_IMPL_ALIASES = {"pallas": "fused", "pallas_st": "fused_st", "pallas_full": "fused_full"}
 
 
 def add_common_flags(parser: argparse.ArgumentParser):
@@ -108,11 +109,13 @@ def add_common_flags(parser: argparse.ArgumentParser):
                         "grade, which the CUDA kernels compute in f32 FMA.  The "
                         "reduced tiers are not ported yet: they raise")
     parser.add_argument("--denoiser_impl", default="module",
-                        choices=("module", "fused", "pallas", "pallas_st", "pallas_full"),
+                        choices=("module", "fused", "pallas", "fused_st", "pallas_st",
+                                 "fused_full", "pallas_full"),
                         help="eval forward implementation: the nn.Module, or fused, "
                         "the hand-written whole-network CUDA kernels (pallas reads "
-                        "as fused).  pallas_st and pallas_full belong to the video "
-                        "family, which is not ported yet: they raise")
+                        "as fused).  The video family also takes pallas_st (read as "
+                        "fused_st: temporal blocks on their kernel) and pallas_full "
+                        "(fused_full: one kernel a spatio-temporal layer)")
     return parser
 
 

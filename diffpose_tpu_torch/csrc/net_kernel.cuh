@@ -299,6 +299,87 @@ __device__ __forceinline__ void out_mix(const float* big, float* __restrict__ ou
   }
 }
 
+// The Chebyshev term list into shared memory (once per CTA).
+__device__ __forceinline__ void load_cheb(const NetArgs& a, int* cptr, int* cidx, float* cval,
+                                          int tid) {
+  for (int i = tid; i < a.cheb_nnz; i += THREADS) {
+    cval[i] = a.cheb_val[i];
+    cidx[i] = a.cheb_idx[i];
+  }
+  for (int i = tid; i <= N_PTS; i += THREADS) cptr[i] = a.cheb_ptr[i];
+}
+
+// Layer l of the stack on the tile's residual stream h (samples b0 ..
+// b0 + nb - 1), with y, big and lap as scratch.  Starts and ends on a
+// __syncthreads().
+template <bool HAS_TEMB>
+__device__ __forceinline__ void stack_layer(const NetArgs& a, int l, float* h, float* y,
+                                            float* big, float* lap, const int* cptr,
+                                            const int* cidx, const float* cval, int b0, int nb,
+                                            int tid) {
+  // attention sublayer: h += out_proj(attention(LN1(h)))
+  layer_norm(h, y, a.ln1s + l * HID, a.ln1b + l * HID, tid);
+  for (int i = tid; i < N_PTS * N_PTS; i += THREADS) lap[i] = a.lap[l * N_PTS * N_PTS + i];
+  __syncthreads();
+  gemm<HID, 3 * HID, LDH, LDB, kStoreBias>(y, a.wqkv + static_cast<size_t>(l) * HID * 3 * HID,
+                                           a.bqkv + l * 3 * HID, big, tid);
+  __syncthreads();
+  attention(big, y, tid);
+  __syncthreads();
+  gemm<HID, HID, LDH, LDH, kAddBias>(y, a.wao + static_cast<size_t>(l) * HID * HID,
+                                     a.bao + l * HID, h, tid);
+  __syncthreads();
+
+  // GraphNet sublayer: h += fc2(lap . relu(fc1(lap . LN2(h)))), computed
+  // as lap . (relu(...) @ W_fc2) + b_fc2 so that the second mix is HID wide.
+  layer_norm(h, y, a.ln2s + l * HID, a.ln2b + l * HID, tid);
+  __syncthreads();
+  mix<HID, LDH, LDB, kMixStore, true>(y, big, cptr, cidx, cval, lap, nullptr, nullptr, nb, tid);
+  __syncthreads();
+  gemm<HID, 2 * HID, LDB, LDB, kReluBias>(big, a.wfc1 + static_cast<size_t>(l) * HID * 2 * HID,
+                                          a.bfc1 + l * 2 * HID, big + HID, tid);
+  __syncthreads();
+  gemm<2 * HID, HID, LDB, LDH, kStore>(big + HID, a.wfc2 + static_cast<size_t>(l) * 2 * HID * HID,
+                                       nullptr, y, tid);
+  __syncthreads();
+  mix<HID, LDH, LDH, kMixAddBias, true>(y, h, cptr, cidx, cval, lap, a.bfc2 + l * HID, nullptr,
+                                        nb, tid);
+  __syncthreads();
+
+  // residual Chebyshev block: h += relu(cheb2(relu(cheb1(h)) + tp))
+  gemm<HID, 3 * HID, LDH, LDB, kStore>(h, a.wg1 + static_cast<size_t>(l) * HID * 3 * HID,
+                                       nullptr, big, tid);
+  __syncthreads();
+  const float* tp = HAS_TEMB ? a.tp + (static_cast<size_t>(l) * a.batch + b0) * HID : nullptr;
+  mix<HID, LDB, LDH, kMixReluBiasTp, false>(big, y, cptr, cidx, cval, lap, a.bg1 + l * HID, tp,
+                                            nb, tid);
+  __syncthreads();
+  gemm<HID, 3 * HID, LDH, LDB, kStore>(y, a.wg2 + static_cast<size_t>(l) * HID * 3 * HID,
+                                       nullptr, big, tid);
+  __syncthreads();
+  mix<HID, LDB, LDH, kMixAddReluBias, false>(big, h, cptr, cidx, cval, lap, a.bg2 + l * HID,
+                                             nullptr, nb, tid);
+  __syncthreads();
+}
+
+// The tile's nb samples of the HID-wide input x [B, 17, HID] into h.
+__device__ __forceinline__ void load_tile(const float* __restrict__ x, float* h, int nb, int tid) {
+  for (int i = tid; i < nb * N_PTS * (HID / 4); i += THREADS) {
+    const int r = i / (HID / 4);
+    const int c = 4 * (i % (HID / 4));
+    st4(h + r * LDH + c, ldg4(x + r * HID + c));
+  }
+}
+
+// The tile's nb samples of h out to [B, 17, HID].
+__device__ __forceinline__ void store_tile(const float* h, float* out, int nb, int tid) {
+  for (int i = tid; i < nb * N_PTS * (HID / 4); i += THREADS) {
+    const int r = i / (HID / 4);
+    const int c = 4 * (i % (HID / 4));
+    st4(out + r * HID + c, ld4(h + r * LDH + c));
+  }
+}
+
 // HAS_IO false: x and out are [B, 17, HID] (C_IN = C_OUT = HID); x goes
 // straight into the residual stream and the stream is stored after the last
 // layer; win, bin, wout and bout are not read.
@@ -320,11 +401,7 @@ __global__ void __launch_bounds__(THREADS, 1) net_forward_kernel(const NetArgs a
 
   // Rows of absent samples hold zeros and stay finite; they are never stored.
   for (int i = tid; i < ACT_FLOATS; i += THREADS) h[i] = 0.f;
-  for (int i = tid; i < a.cheb_nnz; i += THREADS) {
-    cval[i] = a.cheb_val[i];
-    cidx[i] = a.cheb_idx[i];
-  }
-  for (int i = tid; i <= N_PTS; i += THREADS) cptr[i] = a.cheb_ptr[i];
+  load_cheb(a, cptr, cidx, cval, tid);
   __syncthreads();
   const float* x = a.x + static_cast<size_t>(b0) * N_PTS * C_IN;
   if constexpr (HAS_IO) {
@@ -335,59 +412,12 @@ __global__ void __launch_bounds__(THREADS, 1) net_forward_kernel(const NetArgs a
     mix<HID, LDB, LDH, kMixStoreBias, false>(big, h, cptr, cidx, cval, lap, a.bin, nullptr, nb,
                                              tid);
   } else {
-    for (int i = tid; i < nb * N_PTS * (HID / 4); i += THREADS) {
-      const int r = i / (HID / 4);
-      const int c = 4 * (i % (HID / 4));
-      st4(h + r * LDH + c, ldg4(x + r * HID + c));
-    }
+    load_tile(x, h, nb, tid);
   }
   __syncthreads();
 
-  for (int l = 0; l < a.num_layers; ++l) {
-    // attention sublayer: h += out_proj(attention(LN1(h)))
-    layer_norm(h, y, a.ln1s + l * HID, a.ln1b + l * HID, tid);
-    for (int i = tid; i < N_PTS * N_PTS; i += THREADS) lap[i] = a.lap[l * N_PTS * N_PTS + i];
-    __syncthreads();
-    gemm<HID, 3 * HID, LDH, LDB, kStoreBias>(y, a.wqkv + static_cast<size_t>(l) * HID * 3 * HID,
-                                             a.bqkv + l * 3 * HID, big, tid);
-    __syncthreads();
-    attention(big, y, tid);
-    __syncthreads();
-    gemm<HID, HID, LDH, LDH, kAddBias>(y, a.wao + static_cast<size_t>(l) * HID * HID,
-                                       a.bao + l * HID, h, tid);
-    __syncthreads();
-
-    // GraphNet sublayer: h += fc2(lap . relu(fc1(lap . LN2(h)))), computed
-    // as lap . (relu(...) @ W_fc2) + b_fc2 so that the second mix is HID wide.
-    layer_norm(h, y, a.ln2s + l * HID, a.ln2b + l * HID, tid);
-    __syncthreads();
-    mix<HID, LDH, LDB, kMixStore, true>(y, big, cptr, cidx, cval, lap, nullptr, nullptr, nb, tid);
-    __syncthreads();
-    gemm<HID, 2 * HID, LDB, LDB, kReluBias>(big, a.wfc1 + static_cast<size_t>(l) * HID * 2 * HID,
-                                            a.bfc1 + l * 2 * HID, big + HID, tid);
-    __syncthreads();
-    gemm<2 * HID, HID, LDB, LDH, kStore>(big + HID, a.wfc2 + static_cast<size_t>(l) * 2 * HID * HID,
-                                         nullptr, y, tid);
-    __syncthreads();
-    mix<HID, LDH, LDH, kMixAddBias, true>(y, h, cptr, cidx, cval, lap, a.bfc2 + l * HID, nullptr,
-                                          nb, tid);
-    __syncthreads();
-
-    // residual Chebyshev block: h += relu(cheb2(relu(cheb1(h)) + tp))
-    gemm<HID, 3 * HID, LDH, LDB, kStore>(h, a.wg1 + static_cast<size_t>(l) * HID * 3 * HID,
-                                         nullptr, big, tid);
-    __syncthreads();
-    const float* tp = HAS_TEMB ? a.tp + (static_cast<size_t>(l) * a.batch + b0) * HID : nullptr;
-    mix<HID, LDB, LDH, kMixReluBiasTp, false>(big, y, cptr, cidx, cval, lap, a.bg1 + l * HID, tp,
-                                              nb, tid);
-    __syncthreads();
-    gemm<HID, 3 * HID, LDH, LDB, kStore>(y, a.wg2 + static_cast<size_t>(l) * HID * 3 * HID,
-                                         nullptr, big, tid);
-    __syncthreads();
-    mix<HID, LDB, LDH, kMixAddReluBias, false>(big, h, cptr, cidx, cval, lap, a.bg2 + l * HID,
-                                               nullptr, nb, tid);
-    __syncthreads();
-  }
+  for (int l = 0; l < a.num_layers; ++l)
+    stack_layer<HAS_TEMB>(a, l, h, y, big, lap, cptr, cidx, cval, b0, nb, tid);
 
   float* out = a.out + static_cast<size_t>(b0) * N_PTS * C_OUT;
   if constexpr (HAS_IO) {
@@ -395,11 +425,7 @@ __global__ void __launch_bounds__(THREADS, 1) net_forward_kernel(const NetArgs a
     __syncthreads();
     out_mix<C_OUT>(big, out, cptr, cidx, cval, a.bout, nb, tid);
   } else {
-    for (int i = tid; i < nb * N_PTS * (HID / 4); i += THREADS) {
-      const int r = i / (HID / 4);
-      const int c = 4 * (i % (HID / 4));
-      st4(out + r * HID + c, ld4(h + r * LDH + c));
-    }
+    store_tile(h, out, nb, tid);
   }
 }
 

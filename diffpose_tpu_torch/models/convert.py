@@ -11,7 +11,9 @@ names, so reference checkpoints load into them unchanged.  This module
   can be compared leaf by leaf,
 * does both for the implicit model's variables, parameters and BatchNorm
   statistics (:func:`state_dict_from_flax_igcn`,
-  :func:`flax_igcn_from_state_dict`), and
+  :func:`flax_igcn_from_state_dict`) and for the video model's parameters
+  (:func:`state_dict_from_flax_video`, :func:`flax_video_from_state_dict`),
+  and
 * reads and writes the reference 5-element checkpoint list
   ``[model, optim, epoch, step, ema]`` (``runners/diffpose_frame.py:248-255``),
   whose names carry ``DataParallel``'s ``module.`` prefix.
@@ -34,6 +36,44 @@ def _get(tree: Mapping, path: tuple) -> np.ndarray:
     return np.asarray(node)
 
 
+def _put_cheb(sd: dict, params: Mapping, src: tuple, dst: str):
+    sd[f"{dst}.weight"] = _get(params, src + ("w",))[:, None]
+    sd[f"{dst}.bias"] = _get(params, src + ("b",)).reshape(1, 1, -1)
+
+
+def _put_linear(sd: dict, params: Mapping, src: tuple, dst: str):
+    sd[f"{dst}.weight"] = _get(params, src + ("kernel",)).T
+    sd[f"{dst}.bias"] = _get(params, src + ("bias",))
+
+
+def _put_norm(sd: dict, params: Mapping, src: tuple, dst: str):
+    sd[f"{dst}.a_2"] = _get(params, src + ("scale",))
+    sd[f"{dst}.b_2"] = _get(params, src + ("bias",))
+
+
+def _put_atten(sd: dict, params: Mapping, src: str, dst: str):
+    """A Flax GraAttenLayer ``src`` → the reference names under ``dst``."""
+    for j, name in enumerate(ATTN_NAMES):
+        _put_linear(sd, params, (src, "attn", name), f"{dst}.self_attn.linears.{j}")
+    for j, norm in enumerate(("norm1", "norm2")):
+        _put_norm(sd, params, (src, norm), f"{dst}.sublayer.{j}.norm")
+    sd[f"{dst}.feed_forward.A_hat"] = _get(params, (src, "gnet", "a_hat"))
+    for conv, fc in (("gconv1", "fc1"), ("gconv2", "fc2")):
+        _put_linear(sd, params, (src, "gnet", fc), f"{dst}.feed_forward.{conv}.fc")
+
+
+def _put_res(sd: dict, params: Mapping, src: str, dst: str, with_temb: bool):
+    """A Flax ResChebGCDiff (or, without ``temb_proj``, ResChebGC) ``src``."""
+    for conv in ("gconv1", "gconv2"):
+        _put_cheb(sd, params, (src, conv, "gconv"), f"{dst}.{conv}.gconv")
+    if with_temb:
+        _put_linear(sd, params, (src, "temb_proj"), f"{dst}.temb_proj")
+
+
+def _tensors(sd: dict) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
+
+
 def state_dict_from_flax(
     params: Mapping, *, with_temb: bool, num_layers: int, hid_dim: int
 ) -> Dict[str, torch.Tensor]:
@@ -47,44 +87,51 @@ def state_dict_from_flax(
     """
     sd: Dict[str, np.ndarray] = {}
     emd_dim = 4 * hid_dim
-
-    def put_cheb(src: tuple, dst: str):
-        sd[f"{dst}.weight"] = _get(params, src + ("w",))[:, None]
-        sd[f"{dst}.bias"] = _get(params, src + ("b",)).reshape(1, 1, -1)
-
-    def put_linear(src: tuple, dst: str):
-        sd[f"{dst}.weight"] = _get(params, src + ("kernel",)).T
-        sd[f"{dst}.bias"] = _get(params, src + ("bias",))
-
-    put_cheb(("gconv_input",), "gconv_input")
-    put_cheb(("gconv_output",), "gconv_output")
+    _put_cheb(sd, params, ("gconv_input",), "gconv_input")
+    _put_cheb(sd, params, ("gconv_output",), "gconv_output")
     if with_temb:
-        put_linear(("temb_dense_0",), "temb.dense.0")
-        put_linear(("temb_dense_1",), "temb.dense.1")
+        _put_linear(sd, params, ("temb_dense_0",), "temb.dense.0")
+        _put_linear(sd, params, ("temb_dense_1",), "temb.dense.1")
     else:
         sd["temb.dense.0.weight"] = np.zeros((emd_dim, hid_dim), np.float32)
         sd["temb.dense.0.bias"] = np.zeros((emd_dim,), np.float32)
         sd["temb.dense.1.weight"] = np.zeros((emd_dim, emd_dim), np.float32)
         sd["temb.dense.1.bias"] = np.zeros((emd_dim,), np.float32)
-
     for i in range(num_layers):
-        a = f"atten_layers.{i}"
-        for j, name in enumerate(ATTN_NAMES):
-            put_linear((f"atten_{i}", "attn", name), f"{a}.self_attn.linears.{j}")
-        for j, norm in enumerate(("norm1", "norm2")):
-            sd[f"{a}.sublayer.{j}.norm.a_2"] = _get(params, (f"atten_{i}", norm, "scale"))
-            sd[f"{a}.sublayer.{j}.norm.b_2"] = _get(params, (f"atten_{i}", norm, "bias"))
-        sd[f"{a}.feed_forward.A_hat"] = _get(params, (f"atten_{i}", "gnet", "a_hat"))
-        for conv, fc in (("gconv1", "fc1"), ("gconv2", "fc2")):
-            put_linear((f"atten_{i}", "gnet", fc), f"{a}.feed_forward.{conv}.fc")
+        _put_atten(sd, params, f"atten_{i}", f"atten_layers.{i}")
+        _put_res(sd, params, f"res_{i}", f"gconv_layers.{i}", with_temb)
+    return _tensors(sd)
 
-        g = f"gconv_layers.{i}"
-        for conv in ("gconv1", "gconv2"):
-            put_cheb((f"res_{i}", conv, "gconv"), f"{g}.{conv}.gconv")
+
+def _reader(state: Mapping[str, torch.Tensor]):
+    def arr(name):
+        return np.asarray(torch.as_tensor(state[name]).detach().cpu().numpy())
+
+    def cheb(name):
+        return {"w": arr(f"{name}.weight")[:, 0], "b": arr(f"{name}.bias").reshape(-1)}
+
+    def linear(name):
+        return {"kernel": arr(f"{name}.weight").T, "bias": arr(f"{name}.bias")}
+
+    def norm(name):
+        return {"scale": arr(f"{name}.a_2"), "bias": arr(f"{name}.b_2")}
+
+    def atten(name):
+        return {
+            "attn": {n: linear(f"{name}.self_attn.linears.{j}") for j, n in enumerate(ATTN_NAMES)},
+            **{nm: norm(f"{name}.sublayer.{j}.norm") for j, nm in enumerate(("norm1", "norm2"))},
+            "gnet": {"a_hat": arr(f"{name}.feed_forward.A_hat"),
+                     "fc1": linear(f"{name}.feed_forward.gconv1.fc"),
+                     "fc2": linear(f"{name}.feed_forward.gconv2.fc")},
+        }
+
+    def res(name, with_temb):
+        out = {conv: {"gconv": cheb(f"{name}.{conv}.gconv")} for conv in ("gconv1", "gconv2")}
         if with_temb:
-            put_linear((f"res_{i}", "temb_proj"), f"{g}.temb_proj")
+            out["temb_proj"] = linear(f"{name}.temb_proj")
+        return out
 
-    return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
+    return arr, cheb, linear, norm, atten, res
 
 
 def flax_from_state_dict(
@@ -95,37 +142,64 @@ def flax_from_state_dict(
     tree of numpy arrays.  Dense weights go back to ``[in, out]``, Chebyshev
     weights lose the singleton axis, their biases become ``[out]``.  The
     ``temb.dense`` entries of a GCNPose are dropped, as Flax has none."""
-    def arr(name):
-        return np.asarray(torch.as_tensor(state[name]).detach().cpu().numpy())
-
-    def cheb(name):
-        return {"w": arr(f"{name}.weight")[:, 0], "b": arr(f"{name}.bias").reshape(-1)}
-
-    def linear(name):
-        return {"kernel": arr(f"{name}.weight").T, "bias": arr(f"{name}.bias")}
-
+    _, cheb, linear, _, atten, res = _reader(state)
     tree: Dict[str, dict] = {"gconv_input": cheb("gconv_input"),
                              "gconv_output": cheb("gconv_output")}
     if with_temb:
         tree["temb_dense_0"] = linear("temb.dense.0")
         tree["temb_dense_1"] = linear("temb.dense.1")
     for i in range(num_layers):
-        a = f"atten_layers.{i}"
-        tree[f"atten_{i}"] = {
-            "attn": {name: linear(f"{a}.self_attn.linears.{j}")
-                     for j, name in enumerate(ATTN_NAMES)},
-            **{norm: {"scale": arr(f"{a}.sublayer.{j}.norm.a_2"),
-                      "bias": arr(f"{a}.sublayer.{j}.norm.b_2")}
-               for j, norm in enumerate(("norm1", "norm2"))},
-            "gnet": {"a_hat": arr(f"{a}.feed_forward.A_hat"),
-                     "fc1": linear(f"{a}.feed_forward.gconv1.fc"),
-                     "fc2": linear(f"{a}.feed_forward.gconv2.fc")},
-        }
-        g = f"gconv_layers.{i}"
-        res = {conv: {"gconv": cheb(f"{g}.{conv}.gconv")} for conv in ("gconv1", "gconv2")}
-        if with_temb:
-            res["temb_proj"] = linear(f"{g}.temb_proj")
-        tree[f"res_{i}"] = res
+        tree[f"atten_{i}"] = atten(f"atten_layers.{i}")
+        tree[f"res_{i}"] = res(f"gconv_layers.{i}", with_temb)
+    return tree
+
+
+def _video_layers(names) -> int:
+    return len({k.split(".")[0] for k in names if k.startswith("spatial_atten_")})
+
+
+def state_dict_from_flax_video(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A Flax ``SpatioTemporalDiff`` parameter tree → the port's
+    ``SpatioTemporalDiff`` ``state_dict``.
+
+    The family has no reference checkpoint format, so the names are the
+    Flax tree's: ``temb_dense_{0,1}``, ``pos_embed``, and per layer
+    ``temporal_{i}.{attn.{q,k,v,out},norm1,norm2,ff1,ff2}``; the spatial
+    blocks ``spatial_atten_{i}`` / ``spatial_res_{i}`` and the I/O ChebConvs
+    take the frame model's reference names under those prefixes."""
+    sd: Dict[str, np.ndarray] = {"pos_embed": _get(params, ("pos_embed",))}
+    _put_cheb(sd, params, ("gconv_input",), "gconv_input")
+    _put_cheb(sd, params, ("gconv_output",), "gconv_output")
+    for d in ("temb_dense_0", "temb_dense_1"):
+        _put_linear(sd, params, (d,), d)
+    for i in range(_video_layers(params)):
+        _put_atten(sd, params, f"spatial_atten_{i}", f"spatial_atten_{i}")
+        _put_res(sd, params, f"spatial_res_{i}", f"spatial_res_{i}", True)
+        tb = f"temporal_{i}"
+        for name in ATTN_NAMES:
+            _put_linear(sd, params, (tb, "attn", name), f"{tb}.attn.{name}")
+        for name in ("norm1", "norm2"):
+            _put_norm(sd, params, (tb, name), f"{tb}.{name}")
+        for name in ("ff1", "ff2"):
+            _put_linear(sd, params, (tb, name), f"{tb}.{name}")
+    return _tensors(sd)
+
+
+def flax_video_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
+    """The inverse of :func:`state_dict_from_flax_video`, for parameters,
+    their gradients or an EMA shadow named like the ``state_dict``."""
+    arr, cheb, linear, norm, atten, res = _reader(state)
+    tree: Dict[str, dict] = {"pos_embed": arr("pos_embed"), "gconv_input": cheb("gconv_input"),
+                             "gconv_output": cheb("gconv_output"),
+                             "temb_dense_0": linear("temb_dense_0"),
+                             "temb_dense_1": linear("temb_dense_1")}
+    for i in range(_video_layers(state)):
+        tb = f"temporal_{i}"
+        tree[f"spatial_atten_{i}"] = atten(f"spatial_atten_{i}")
+        tree[f"spatial_res_{i}"] = res(f"spatial_res_{i}", True)
+        tree[tb] = {"attn": {n: linear(f"{tb}.attn.{n}") for n in ATTN_NAMES},
+                    "norm1": norm(f"{tb}.norm1"), "norm2": norm(f"{tb}.norm2"),
+                    "ff1": linear(f"{tb}.ff1"), "ff2": linear(f"{tb}.ff2")}
     return tree
 
 

@@ -14,6 +14,8 @@ reference ``state_dict`` loads strictly, and its numerics:
   of each :class:`GraAttenLayer`.
 * :class:`ResChebGCDiff` — two Chebyshev convs with the timestep embedding
   added between them (``models/gcndiff.py:39-53``).
+* :func:`chunked_attention` — query-chunked attention for long temporal
+  windows (the video family's beyond-threshold inference path).
 
 Dropout follows ``module.training``; call ``.eval()`` for inference.
 """
@@ -228,3 +230,40 @@ class TimestepMLP(nn.Module):
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         temb = timestep_embedding(t, self.hid_dim)
         return self.dense[1](F.silu(self.dense[0](temb)))
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None, chunk_size: int = 128,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """Query-chunked scaled-dot-product attention (counterpart of
+    ``diffpose_tpu/models/layers.py:chunked_attention``): query chunks of
+    ``chunk_size`` against the full K/V, so the whole score matrix never
+    exists at once.
+
+    ``q, k, v``: ``[B, H, S, D]``; ``mask`` broadcastable to ``[B, H, S, S_k]``,
+    0 where masked (filled with −1e9).  A query length that is not a multiple
+    of the chunk is zero-padded up to one and the padded mask rows are 1s,
+    so that no row is all masked; the padded rows are dropped.  ``scale``
+    defaults to 1/√D (pass 1.0 where q carries it already).
+    """
+    b, h, s, d = q.shape
+    sk = k.shape[2]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+
+    def attend(qc, m):
+        scores = torch.einsum("bhnd,bhmd->bhnm", qc, k) * scale
+        if m is not None:
+            scores = scores.masked_fill(m == 0, -1e9)
+        return torch.einsum("bhnm,bhmd->bhnd", torch.softmax(scores, dim=-1), v)
+
+    if s <= chunk_size:
+        return attend(q, mask)
+    pad = (-s) % chunk_size
+    q = F.pad(q, (0, 0, 0, pad))
+    if mask is not None:
+        mask = torch.broadcast_to(mask, (b, h, s, sk))
+        mask = torch.cat([mask, mask.new_ones((b, h, pad, sk))], dim=2)
+    out = torch.cat([attend(q[:, :, i:i + chunk_size],
+                            None if mask is None else mask[:, :, i:i + chunk_size])
+                     for i in range(0, s + pad, chunk_size)], dim=2)
+    return out[:, :, :s]

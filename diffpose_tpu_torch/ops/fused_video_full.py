@@ -1,0 +1,386 @@
+"""The video denoiser's layer kernels: one TemporalBlock (kernel row 10) and one
+whole spatio-temporal layer (row 9), hand-written in CUDA.
+
+Replaces the TPU kernels ``diffpose_tpu/ops/pallas_video_full.py:329
+_temporal_only_kernel`` (built by ``make_pallas_temporal_layer_fn:346``)
+and ``:148 _st_kernel`` (built by ``make_pallas_video_full_fn:183``).  The
+CUDA source is ``csrc/video_kernel.cuh`` (device code; the spatial phase
+reuses ``csrc/net_kernel.cuh``'s layer) and ``csrc/video_kernel.cu``
+(launch).
+
+* :func:`fused_temporal_layer` (row 10): ``ht [N, F, 96] → [N, F, 96]``,
+  N = windows × joints.  Bound: operations.  A row of F=81 frames costs
+  14.5 MFLOP (QKV 4.5, the attention's two products 2.5, out-projection
+  1.5, feed-forward 6.0); at B=16 (N=272) 3.9 GFLOP, 0.059 ms at 67 TFLOP/s
+  FP32, against 17 MB of activations in and out (0.005 ms at 3.35 TB/s).
+  Design: one CTA of 288 threads owns a row and walks over it in tiles of
+  36 frames, so any window fits (F=243 too): pass A writes K and V of every
+  frame to a global scratch (L2-resident), pass B computes each tile's
+  queries against all keys with an online softmax (the key range split in
+  two halves per (query, head), merged in shared memory), then the
+  out-projection, LN2 and the feed-forward, all in shared memory.
+* :func:`fused_st_layer` (row 9): ``h [B, F, 17, 96] → [B, F, 17, 96]``, the
+  spatial block of every frame and then the temporal block of every
+  (window, joint), in one cooperative launch: phase S runs
+  ``net_kernel.cuh``'s layer over tiles of 4 frames (grid-stride) into a
+  global scratch, a grid-wide barrier, phase T runs row 10's row function
+  over the B·17 rows, reading the scratch at the frame stride 17·96 (the
+  port is batch-major where the TPU kernel is joint-major).  The grid is as
+  many CTAs as can be co-resident (one an SM: 150 KB of shared memory);
+  where none can, the launch returns an error and nothing runs.  Bound:
+  operations, row 3's layer at B·F frames plus row 10.
+
+Outside the kernels, as in the JAX wrappers: the weight prep (one
+``prepare_weights`` over every spatial block, sliced per layer by
+:func:`layer_weights`; :func:`temporal_weight_stacks`
+with 1/√d_k folded into q), the timestep MLP and per-layer projections
+repeated over the frames (:func:`spatial_projections`), the input ChebConv
+with the positional embedding and the output ChebConv
+(:func:`make_video_full_fn`).
+
+On CPU tensors the wrappers run the plain versions (:func:`temporal_layer_plain`,
+:func:`st_layer_plain`); on CUDA tensors they launch the kernel or raise.
+``fused_temporal_layer.launches`` and ``fused_st_layer.launches`` count
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from types import SimpleNamespace
+from typing import Any, Dict, List
+
+import torch
+import torch.nn.functional as F
+
+from diffpose_tpu_torch.models.layers import chunked_attention
+from diffpose_tpu_torch.ops import _build
+from diffpose_tpu_torch.ops.fused_denoiser import (
+    _BACKBONE_WEIGHTS,
+    KERNEL_HEADS,
+    KERNEL_HID,
+    _check_launch,
+    _check_tensor,
+    _cheb,
+    _layer_norm,
+    backbone_plain,
+    prepare_weights,
+    resolve_device,
+    timestep_projections,
+)
+
+Weights = Dict[str, Any]
+
+# Temporal weight stacks in the order of the kernels' arguments
+# (pallas_video_full.py:_T_ORDER).
+T_KEYS = ("tln1s", "tln1b", "tln2s", "tln2b", "twqkv", "tbqkv", "twao", "tbao",
+          "tff1", "tbff1", "tff2", "tbff2")
+
+
+# prepare_weights' per-layer stacks (leading dimension L), and its tensors
+# that only the network's ends read: the I/O ChebConvs and the timestep MLP.
+_LAYER_STACKS = ("ln1s", "ln1b", "ln2s", "ln2b", "wqkv", "bqkv", "wao", "bao", "lap", "wfc1",
+                 "bfc1", "wfc2", "bfc2", "wg1", "bg1", "wg2", "bg2", "wtp", "btp")
+_ENDS = ("win", "bin", "wout", "bout", "t0k", "t0b", "t1k", "t1b")
+
+
+class SpatialBlocks:
+    """What ``prepare_weights`` reads of a GCNDiff, for the spatial blocks of a
+    ``SpatioTemporalDiff``: every layer's GraAttenLayer and ResChebGCDiff, the
+    I/O ChebConvs and the timestep MLP.  The Chebyshev basis is copied to the
+    host once, here, so that preparing the weights never waits on the device."""
+
+    def __init__(self, model):
+        layers = range(model.num_layers)
+        self.atten_layers = [model.layer(i)[0] for i in layers]
+        self.gconv_layers = [model.layer(i)[1] for i in layers]
+        self.num_layers, self.hid_dim, self.num_heads = len(layers), model.hid_dim, model.num_heads
+        cin = model.gconv_input
+        self.gconv_input = SimpleNamespace(weight=cin.weight, bias=cin.bias,
+                                           basis=cin.basis.detach().cpu())
+        self.gconv_output = model.gconv_output
+        self.temb = SimpleNamespace(dense=[model.temb_dense_0, model.temb_dense_1])
+
+
+def layer_weights(sw: Weights) -> List[Weights]:
+    """Each layer of ``prepare_weights(SpatialBlocks(model))`` (every spatial
+    block at once: ``[L, ...]`` stacks, the I/O ChebConvs, the timestep MLP)
+    as a one-layer bare stack, row 3's and the train pair's weight set: its
+    slice of every stack, the graph constants and the configuration, none of
+    the network's ends."""
+    shared = {k: v for k, v in sw.items() if k not in _LAYER_STACKS + _ENDS}
+
+    def one(i):
+        w = {k: sw[k][i:i + 1] for k in _LAYER_STACKS}
+        w["lap"] = w["lap"].clone()       # a 17×17 slice is not 16-byte aligned
+        return {**w, **shared, "num_layers": 1}
+
+    return [one(i) for i in range(sw["num_layers"])]
+
+
+def temporal_weight_stacks(model, device="cuda", *, differentiable: bool = False) -> Weights:
+    """The temporal blocks' weights stacked over layers (``[L, ...]``, dense
+    weights ``[in, out]``), QKV side by side with 1/√d_k folded into q's
+    weight and bias (``pallas_video_full.py:78-111``)."""
+    device = resolve_device(device)
+    blocks = [model.layer(i)[2] for i in range(model.num_layers)]
+    hid, heads = model.hid_dim, model.num_heads
+
+    def f32(t):
+        if differentiable:
+            return t.to(device=device, dtype=torch.float32)
+        return t.detach().to(device=device, dtype=torch.float32, copy=True)
+
+    def stack(fn):
+        return torch.stack([f32(fn(b)) for b in blocks]).contiguous()
+
+    with torch.enable_grad() if differentiable else torch.no_grad():
+        a = lambda b: b.attn  # noqa: E731
+        tw = dict(
+            tln1s=stack(lambda b: b.norm1.a_2), tln1b=stack(lambda b: b.norm1.b_2),
+            tln2s=stack(lambda b: b.norm2.a_2), tln2b=stack(lambda b: b.norm2.b_2),
+            twqkv=stack(lambda b: torch.cat([a(b).q.weight.t(), a(b).k.weight.t(),
+                                             a(b).v.weight.t()], dim=1)),
+            tbqkv=stack(lambda b: torch.cat([a(b).q.bias, a(b).k.bias, a(b).v.bias])),
+            twao=stack(lambda b: a(b).out.weight.t()), tbao=stack(lambda b: a(b).out.bias),
+            tff1=stack(lambda b: b.ff1.weight.t()), tbff1=stack(lambda b: b.ff1.bias),
+            tff2=stack(lambda b: b.ff2.weight.t()), tbff2=stack(lambda b: b.ff2.bias),
+        )
+        fold = torch.ones(3 * hid, device=device)
+        fold[:hid] = 1.0 / math.sqrt(hid // heads)
+        tw["twqkv"] = (tw["twqkv"] * fold).contiguous()
+        tw["tbqkv"] = (tw["tbqkv"] * fold).contiguous()
+    tw.update(num_layers=model.num_layers, num_heads=heads, hid_dim=hid)
+    return tw
+
+
+@torch.no_grad()
+def prepare_video_weights(model, device="cuda") -> Weights:
+    """A snapshot of a ``SpatioTemporalDiff``'s weights for the fused eval
+    forwards: ``spatial`` (``prepare_weights`` of :class:`SpatialBlocks`), ``layers``
+    (:func:`layer_weights`), ``temporal`` (:func:`temporal_weight_stacks`),
+    ``pos`` (``[F, H]``)."""
+    device = resolve_device(device)
+    sw = prepare_weights(SpatialBlocks(model), device)
+    return dict(spatial=sw, layers=layer_weights(sw), temporal=temporal_weight_stacks(model, device),
+                pos=model.pos_embed.detach().to(device=device, dtype=torch.float32, copy=True))
+
+
+def spatial_projections(sw: Weights, t: torch.Tensor, frames: int) -> List[torch.Tensor]:
+    """The timestep MLP once, then each layer's projection of ``swish(temb)``
+    repeated over the window's frames: ``[1, B·F, H]`` per layer."""
+    return list(timestep_projections(sw, t).repeat_interleave(frames, dim=1).split(1))
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def temporal_layer_plain(tw: Weights, ht: torch.Tensor, layer: int, *,
+                         attention_chunk: int = 0) -> torch.Tensor:
+    """One eval-mode TemporalBlock on ``ht [N, F, H]`` from the stacks
+    (q carries 1/√d_k), the function of row 10.  ``attention_chunk > 0``:
+    at or above that many frames the attention goes through
+    :func:`chunked_attention`, as the module's does."""
+    l, heads = layer, tw["num_heads"]
+    n, f, hid = ht.shape
+
+    def split(z):
+        return z.reshape(n, f, heads, -1).transpose(1, 2)
+
+    y = _layer_norm(ht, tw["tln1s"][l], tw["tln1b"][l])
+    q, k, v = (split(z) for z in (y @ tw["twqkv"][l] + tw["tbqkv"][l]).split(hid, dim=-1))
+    if attention_chunk > 0 and f >= attention_chunk:
+        att = chunked_attention(q, k, v, chunk_size=attention_chunk, scale=1.0)
+    else:
+        att = torch.softmax(q @ k.transpose(-1, -2), dim=-1) @ v
+    x = ht + (att.transpose(1, 2).reshape(n, f, hid) @ tw["twao"][l] + tw["tbao"][l])
+    y = F.relu(_layer_norm(x, tw["tln2s"][l], tw["tln2b"][l]) @ tw["tff1"][l] + tw["tbff1"][l])
+    return x + (y @ tw["tff2"][l] + tw["tbff2"][l])
+
+
+def to_rows(h: torch.Tensor) -> torch.Tensor:
+    """``[B, F, J, H]`` → the temporal blocks' ``[B·J, F, H]`` rows."""
+    b, f, j, hid = h.shape
+    return h.transpose(1, 2).reshape(b * j, f, hid)
+
+
+def from_rows(ht: torch.Tensor, b: int) -> torch.Tensor:
+    """The inverse of :func:`to_rows`."""
+    n, f, hid = ht.shape
+    return ht.reshape(b, n // b, f, hid).transpose(1, 2)
+
+
+def st_layer_plain(lw: List[Weights], tw: Weights, h: torch.Tensor, tp: torch.Tensor,
+                   layer: int) -> torch.Tensor:
+    """One video layer, the function of row 9: ``backbone_plain`` with layer
+    ``layer``'s one-layer spatial weights (of :func:`layer_weights`) on the
+    ``B·F`` frames, then :func:`temporal_layer_plain` on the ``B·J`` rows."""
+    b, f, j, hid = h.shape
+    hs = backbone_plain(lw[layer], h.reshape(b * f, j, hid), tp).reshape(b, f, j, hid)
+    return from_rows(temporal_layer_plain(tw, to_rows(hs), layer), b)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = _build.load("video_kernel")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.temporal_forward.argtypes = [i32] * 3 + [ptr] * (3 + len(T_KEYS)) + [ptr]
+    lib.temporal_forward.restype = i32
+    n_spatial = len(_BACKBONE_WEIGHTS)           # 17 stacks and the 3 term-list arrays
+    lib.st_layer_forward.argtypes = ([i32] * 3 + [ptr] * (5 + n_spatial) + [i32]
+                                     + [ptr] * len(T_KEYS) + [ptr])
+    lib.st_layer_forward.restype = i32
+    lib.video_occupancy.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
+    lib.video_occupancy.restype = i32
+    lib.video_error_string.argtypes = [i32]
+    lib.video_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(code: int, what: str):
+    if code != 0:
+        raise RuntimeError(f"{what} kernel: {_library().video_error_string(code).decode()} "
+                           f"(cudaError {code})")
+
+
+def _temporal_ptrs(tw: Weights, layer: int, dev: torch.device) -> list:
+    """Layer ``layer``'s slice of every temporal stack, checked, as pointers."""
+    L, H = tw["num_layers"], tw["hid_dim"]
+    if (H, tw["num_heads"]) != (KERNEL_HID, KERNEL_HEADS):
+        raise ValueError(f"the kernels are built for hid/heads {(KERNEL_HID, KERNEL_HEADS)}, "
+                         f"got {(H, tw['num_heads'])}")
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} of a {L}-layer stack")
+    shapes = dict(tln1s=(L, H), tln1b=(L, H), tln2s=(L, H), tln2b=(L, H), twqkv=(L, H, 3 * H),
+                  tbqkv=(L, 3 * H), twao=(L, H, H), tbao=(L, H), tff1=(L, H, 2 * H),
+                  tbff1=(L, 2 * H), tff2=(L, 2 * H, H), tbff2=(L, H))
+    for k in T_KEYS:
+        _check_tensor(k, tw[k], shapes[k], torch.float32, dev)
+    return [tw[k][layer].data_ptr() for k in T_KEYS]   # every layer slice is 16-byte aligned
+
+
+def _check_rows(name: str, x: torch.Tensor, shape: tuple):
+    if x.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {x.device}")
+    _check_tensor(name, x, shape, torch.float32, x.device)
+
+
+def _launch_temporal(tw: Weights, ht: torch.Tensor, layer: int) -> torch.Tensor:
+    """One launch of row 10; every input is checked first."""
+    n, f, H = ht.shape
+    _check_rows("ht", ht, (n, f, KERNEL_HID))
+    dev = ht.device
+    wptrs = _temporal_ptrs(tw, layer, dev)
+    out = torch.empty_like(ht)
+    if n == 0 or f == 0:
+        return out
+    kv = torch.empty((n, f, 2 * H), dtype=torch.float32, device=dev)
+    code = _library().temporal_forward(dev.index, n, f, ht.data_ptr(), out.data_ptr(),
+                                       kv.data_ptr(), *wptrs,
+                                       torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(code, "temporal_forward")
+    return out
+
+
+def _launch_st(lw: List[Weights], tw: Weights, h: torch.Tensor, tp: torch.Tensor,
+               layer: int) -> torch.Tensor:
+    """One cooperative launch of row 9; every input is checked first."""
+    b, f, j, H = h.shape
+    _check_rows("h", h, (b, f, j, KERNEL_HID))
+    dev = h.device
+    w = lw[layer]
+    if w["num_layers"] != 1:
+        raise ValueError("row 9 takes the one-layer spatial weights of layer_weights()")
+    _check_launch(w, h.reshape(b * f, j, H), tp, H, _BACKBONE_WEIGHTS)
+    wptrs = _temporal_ptrs(tw, layer, dev)
+    out = torch.empty_like(h)
+    if b == 0:
+        return out
+    spatial = torch.empty_like(h)
+    kv = torch.empty((b * j, f, 2 * H), dtype=torch.float32, device=dev)
+    code = _library().st_layer_forward(
+        dev.index, b, f, h.data_ptr(), tp.data_ptr(), spatial.data_ptr(), out.data_ptr(),
+        kv.data_ptr(), *[w[k].data_ptr() for k in _BACKBONE_WEIGHTS], w["cheb_nnz"], *wptrs,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(code, "st_layer_forward")
+    return out
+
+
+def kernel_occupancy(device: torch.device, kernel: str) -> Dict[str, int]:
+    """Co-resident CTAs per SM, dynamic shared memory and registers a thread
+    of row 10 (``kernel="temporal"``) or row 9 (``"st"``)."""
+    which = {"temporal": 0, "st": 1}[kernel]
+    per_sm, smem, regs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    _raise_on(_library().video_occupancy(device.index or 0, which, ctypes.byref(per_sm),
+                                         ctypes.byref(smem), ctypes.byref(regs)),
+              "video_occupancy")
+    return {"ctas_per_sm": per_sm.value, "smem_bytes": smem.value, "regs": regs.value}
+
+
+def fused_temporal_layer(tw: Weights, ht: torch.Tensor, layer: int) -> torch.Tensor:
+    """TemporalBlock ``layer`` on ``ht [N, F, 96]``: one launch of row 10 for
+    CUDA tensors, :func:`temporal_layer_plain` for CPU tensors."""
+    if ht.device.type == "cpu":
+        return temporal_layer_plain(tw, ht, layer)
+    out = _launch_temporal(tw, ht, layer)
+    fused_temporal_layer.launches += 1
+    return out
+
+
+def fused_st_layer(lw: List[Weights], tw: Weights, h: torch.Tensor, tp: torch.Tensor,
+                   layer: int) -> torch.Tensor:
+    """Video layer ``layer`` on ``h [B, F, 17, 96]`` with ``tp [1, B·F, 96]``:
+    one cooperative launch of row 9 for CUDA tensors, :func:`st_layer_plain`
+    for CPU tensors."""
+    if h.device.type == "cpu":
+        return st_layer_plain(lw, tw, h, tp, layer)
+    out = _launch_st(lw, tw, h, tp, layer)
+    fused_st_layer.launches += 1
+    return out
+
+
+fused_temporal_layer.launches = 0
+fused_st_layer.launches = 0
+
+
+def embed(vw: Weights, x: torch.Tensor) -> torch.Tensor:
+    """Input ChebConv per frame plus the positional embedding: ``[B, F, J, H]``."""
+    b, f, j, c = x.shape
+    sw = vw["spatial"]
+    h = _cheb(x.reshape(b * f, j, c), sw["win"], sw["bin"], sw["basis"]).reshape(b, f, j, -1)
+    return (h + vw["pos"][None, :, None, :]).contiguous()
+
+
+def project_out(vw: Weights, h: torch.Tensor) -> torch.Tensor:
+    """Output ChebConv per frame: ``[B, F, J, C_out]``."""
+    b, f, j, hid = h.shape
+    sw = vw["spatial"]
+    return _cheb(h.reshape(b * f, j, hid), sw["wout"], sw["bout"], sw["basis"]).reshape(b, f, j, -1)
+
+
+def make_video_full_fn(model):
+    """Build ``fn(vw, x [B, F, J, 5], t [B]) → ε̂``: the eval forward of a
+    ``SpatioTemporalDiff`` with every layer one launch of row 9 (the JAX
+    default ``layers_per_call=1``); ``vw`` is :func:`prepare_video_weights`'
+    snapshot.  Counterpart of ``make_pallas_video_full_fn``."""
+    frames, num_layers = model.frames, model.num_layers
+
+    def fn(vw: Weights, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        if x.shape[1] != frames:
+            raise ValueError(f"the model takes {frames}-frame windows, got {x.shape[1]}")
+        tps = spatial_projections(vw["spatial"], t, frames)
+        h = embed(vw, x)
+        for l in range(num_layers):
+            h = fused_st_layer(vw["layers"], vw["temporal"], h, tps[l], l)
+        return project_out(vw, h)
+
+    return fn

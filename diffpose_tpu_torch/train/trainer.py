@@ -79,11 +79,11 @@ class DiffposeRunner:
             raise NotImplementedError(
                 "a device mesh needs the torch.distributed port of diffpose_tpu/parallel "
                 "(ROADMAP queue 1 item 12), which is not written yet")
-        if denoiser_impl in ("pallas_st", "pallas_full"):
+        if denoiser_impl in ("pallas_st", "pallas_full", "fused_st", "fused_full"):
             raise ValueError(
-                f"--denoiser_impl {denoiser_impl} belongs to the video family (ROADMAP queue 1 "
-                "item 10, kernel rows 9-10), which is not ported yet; the frame family's "
-                "whole-network kernel is --denoiser_impl fused")
+                f"--denoiser_impl {denoiser_impl} belongs to the video family "
+                "(diffpose_tpu_torch.cli.main_video); the frame family's whole-network kernel "
+                "is --denoiser_impl fused")
         if denoiser_impl not in DENOISER_IMPLS:
             raise ValueError(f"denoiser_impl must be one of {DENOISER_IMPLS}, got {denoiser_impl!r}")
         if train_impl not in TRAIN_IMPLS:

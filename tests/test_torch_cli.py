@@ -23,7 +23,8 @@ CPN = "configs/human36m_diffpose_uvxyz_cpn.yml"
 # what the port's command line adds, and the choices it widens
 ADDED_FLAGS = {"device"}
 CHOICES = {"train_impl": ("module", "plain", "fused", "pallas"),
-           "denoiser_impl": ("module", "fused", "pallas", "pallas_st", "pallas_full")}
+           "denoiser_impl": ("module", "fused", "pallas", "fused_st", "pallas_st", "fused_full",
+                             "pallas_full")}
 
 
 def flags(mod):
@@ -45,6 +46,8 @@ def test_every_flag_keeps_its_name_and_default():
             assert ours[name].choices == action.choices, name
     assert ours["device"].default == "cuda"
     assert common.resolve_impl("pallas") == "fused" and common.resolve_impl("module") == "module"
+    assert common.resolve_impl("pallas_st") == "fused_st"
+    assert common.resolve_impl("pallas_full") == "fused_full"
 
 
 @pytest.mark.parametrize("path", sorted(glob.glob("configs/*.yml")))
