@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU and check it: for the frame, implicit
 and video families the eval and training functions, every kernel, and the
-command line over the runner.
+command line over the runner; the standalone GraFormer's eval forward; the
+two probes.
 
 Run from the root of a checkout, on a host with one NVIDIA H100:
 
@@ -127,8 +128,30 @@ seeded init:
     versions and, for row 10, ``scaled_dot_product_attention`` on its q/k/v
     and the block from library calls; the inner eval call and the eval step
     of each impl; the fused train step by parts; the video runner (train
-    epochs, ``throughput_stats()`` per impl).  Each family's wall seconds are
-    printed.
+    epochs, ``throughput_stats()`` per impl).
+
+The standalone GraFormer (hid 128, 4 layers, 4 heads, 21 points, ``GAN_EDGES``,
+seeded init) and the probes:
+
+22. hold ``make_graformer_fn`` (every ChebConv on kernel row 4,
+    ``fused_cheb_conv``) against the module at B=1024, with and without two
+    joints masked (bound 2e-4; 10 row-4 launches a forward); row 4 against
+    ``cheb_conv_plain`` at GraFormer's 2->128, 128->128 and 128->3 at 21
+    joints (B=1024) and 17 joints (B=1000, ragged), and at the video
+    family's I/O shapes (1,296 rows, 5->96 and 96->5); bound 5e-5; each
+    shape's kernel, plain and ``torch.einsum`` ms beside its bound, the
+    module's and the fused forward's, and from ``torch.profiler`` the
+    device time of row 4's launches inside the fused forward and of the
+    module's ChebConvs inside its own;
+23. kernel row 11 (``probes/ablate.py``): the probe's SKIP = 0 build
+    bit-equal to row 1's production kernel with the same ptxas resources;
+    the five variants within 5e-5 of ``net_plain_ablated``; ms per variant
+    at B=1024 and the share of each part;
+24. kernel row 12 (``probes/batched_dot.py``): TF32 tensor-core attention,
+    1x and 3x, against f32 at T=136 and 1088 (F=81, dk=24), ms beside
+    ``scaled_dot_product_attention``; 3xTF32 within 5e-5 at T=136.
+
+Each family's wall seconds are printed.
 
 The line before the last holds the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -156,10 +179,11 @@ from diffpose_tpu_torch.data.loader import prefetch_to_device
 from diffpose_tpu_torch.data.synthetic import make_synthetic_dataset
 from diffpose_tpu_torch.data.video import synthetic_video_dataset
 from diffpose_tpu_torch.diffusion import get_beta_schedule
-from diffpose_tpu_torch.graph import H36M_EDGES, cheb_basis_from_edges
+from diffpose_tpu_torch.graph import GAN_EDGES, H36M_EDGES, cheb_basis_from_edges
 from diffpose_tpu_torch.metrics import p_mpjpe_per_sample
-from diffpose_tpu_torch.models import IGCN, GCNDiff, GCNPose
+from diffpose_tpu_torch.models import IGCN, GCNDiff, GCNPose, GraFormer
 from diffpose_tpu_torch.models.igcn import bn_eval, bn_state
+from diffpose_tpu_torch.models.layers import ChebGraphConv
 from diffpose_tpu_torch.models.video import SpatioTemporalDiff
 from diffpose_tpu_torch.ops.fused_igcn import make_igcn_fn
 from diffpose_tpu_torch.ops.fused_igcn_train import make_igcn_train_fn
@@ -177,7 +201,10 @@ from diffpose_tpu_torch.ops.fused_denoiser import (
     prepare_weights,
     timestep_projections,
 )
+from diffpose_tpu_torch.ops import fused_cheb as fc
 from diffpose_tpu_torch.ops import fused_train as ft
+from diffpose_tpu_torch.ops.fused_graformer import make_graformer_fn
+from diffpose_tpu_torch.probes import ablate, batched_dot, time_ms
 from diffpose_tpu_torch.ops.fused_denoiser import _cheb, _layer_norm
 from diffpose_tpu_torch.ops.fused_video_full import fused_st_layer, fused_temporal_layer
 from diffpose_tpu_torch.ops.fused_pipeline import lift_and_denoise, make_eval_fn
@@ -247,8 +274,15 @@ VIDEO_BATCH, VIDEO_FRAMES = 16, 81
 VIDEO_SHAPES = ((VIDEO_FRAMES, VIDEO_BATCH), (VIDEO_FRAMES, 5), (243, 2))
 VIDEO_WINDOWS = 128          # 8 steps an epoch; the CLI cuts 32 test windows, 2 eval batches
 VIDEO_STEPS = 3
-# H100 SXM peaks (NVIDIA data sheet): FP32 on CUDA cores, HBM3.
+# The standalone GraFormer (phase 22): hid 128, 4 layers, 4 heads, 21 points
+# (GAN_EDGES); row 4 also at 17 joints with a ragged batch, and at the video
+# family's I/O ChebConv shapes (B·F rows).
+GRAFORMER_BATCH, GRAFORMER_RAGGED = 1024, 1000
+VIDEO_IO = ((5, 96), (96, 5))       # models/video.py: gconv_input, gconv_output
+# H100 SXM peaks (NVIDIA data sheet): FP32 on CUDA cores, dense TF32 on the
+# tensor cores, HBM3.
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 
@@ -259,24 +293,6 @@ def check(ok: bool, msg: str):
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.detach() - b.detach()).abs().max())
-
-
-def time_ms(fn, reps: int = 10, runs: int = 7) -> float:
-    """Median over ``runs`` of the mean time of ``reps`` back-to-back calls."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop) / reps)
-    return statistics.median(times)
 
 
 def randomize(model: torch.nn.Module, gen: torch.Generator):
@@ -1566,6 +1582,281 @@ def video_cli_phases(card):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# The standalone GraFormer and row 4 (phase 22); the probes, rows 11-12 (23-24)
+# ---------------------------------------------------------------------------
+
+
+def cheb_bound(bsz: int, n: int, c: int, d: int, k1: int, nnz: int):
+    """Row 4's least time: the channel product and the sparse joint mix, x and
+    w read once, y written once."""
+    flops = 2 * bsz * (n * k1 * c * d + nnz * c)
+    nbytes = 4 * (bsz * n * (c + d) + k1 * c * d + d) + 8 * nnz + 4 * (n + 1)
+    return bound_of(flops, nbytes)
+
+
+def cheb_shape(name, x, w, b, gconst, card, timed=True):
+    """Row 4 against ``cheb_conv_plain`` on one shape (bound 5e-5), and its,
+    the plain version's and ``torch.einsum``'s times beside the bound."""
+    bsz, n, c = x.shape
+    k1, _, d = w.shape
+    with torch.no_grad():
+        got = fc.fused_cheb_conv(x, w, b, gconst)
+        torch.cuda.synchronize()
+        err = max_err(got, fc.cheb_conv_plain(x, w, b, gconst["basis"]))
+    tile = fc._library().cheb_tile(n, c, k1)
+    print(f"row 4 {name:>9s} {c:3d}->{d:3d} N={n} B={bsz:5d} ({tile} samples a CTA): "
+          f"max|kernel-plain| {err:.3e}")
+    check(err <= TOL_KERNEL, f"row 4 {name} {c}->{d} N={n} B={bsz}: {err}")
+    rec = dict(c_in=c, d_out=d, n_pts=n, batch=bsz, max_abs_err=err)
+    if not timed:
+        return rec
+    basis = gconst["basis"]
+    with torch.no_grad():
+        rec["ms"] = time_ms(lambda: fc._launch(x, w, b, gconst))
+        rec["plain_ms"] = time_ms(lambda: fc.cheb_conv_plain(x, w, b, basis))
+        rec["library_ms"] = time_ms(lambda: torch.einsum("knm,bmc,kcd->bnd", basis, x, w) + b)
+    rec["bound_ms"], rec["bound_by"] = cheb_bound(bsz, n, c, d, k1, gconst["cheb_nnz"])
+    print(f"row 4 {name:>9s} {c:3d}->{d:3d} N={n} B={bsz:5d}: kernel {rec['ms']:.4f} ms  plain "
+          f"{rec['plain_ms']:.4f} ms  einsum {rec['library_ms']:.4f} ms  bound {rec['bound_ms']:.4f} "
+          f"ms ({rec['bound_by']}, {100 * rec['bound_ms'] / rec['ms']:.1f}%)  [{card}]")
+    return rec
+
+
+def chebconv_device_ms(fn, model, x, per_call: int, reps: int = 5):
+    """Device time a forward, from ``torch.profiler`` over ``reps`` calls: of
+    row 4's kernels inside the fused forward ``fn(x)``, and of the kernels
+    that the module's ChebGraphConvs launch inside ``model(x)`` (each
+    ChebGraphConv's call is a ``record_function`` range, set by hooks)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.no_grad():
+        fn(x)
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            for _ in range(reps):
+                fn(x)
+            torch.cuda.synchronize()
+    row4 = [e for e in prof.events()
+            if e.device_type.name == "CUDA" and "cheb_kernel" in e.name]
+    check(len(row4) == per_call * reps,
+          f"the profiler saw {len(row4)} row-4 kernels in {reps} fused forwards")
+    fused_ms = sum(e.device_time_total for e in row4) / 1e3 / reps
+
+    ranges, hooks = [], []
+
+    def enter(*_):
+        ranges.append(record_function("ChebGraphConv"))
+        ranges[-1].__enter__()
+
+    def leave(*_):
+        ranges.pop().__exit__(None, None, None)
+
+    for m in model.modules():
+        if isinstance(m, ChebGraphConv):
+            hooks += [m.register_forward_pre_hook(enter), m.register_forward_hook(leave)]
+    try:
+        with torch.no_grad():
+            model(x)
+            torch.cuda.synchronize()
+            with profile(activities=activities) as prof:
+                for _ in range(reps):
+                    model(x)
+                torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    convs = [e for e in prof.events()
+             if e.device_type.name == "CPU" and e.name == "ChebGraphConv"]
+    check(len(convs) == per_call * reps,
+          f"the profiler saw {len(convs)} ChebGraphConv calls in {reps} module forwards")
+    module_ms = sum(e.device_time_total for e in convs) / 1e3 / reps
+    check(fused_ms > 0 and module_ms > 0, "the profiler recorded no device time")
+    return fused_ms, module_ms
+
+
+def graformer_phases(dev, gen, g, card):
+    """Phase 22: the standalone GraFormer's eval forward with its ChebConvs on
+    row 4 (``make_graformer_fn``) against the module at full width, counted;
+    row 4 against its plain version at GraFormer's three shapes at 21 joints
+    (B=1024) and 17 joints (B=1000, ragged), and at the video family's I/O
+    shapes; times.  Returns row 4's record."""
+    basis21, basis17 = cheb_basis_from_edges(21, GAN_EDGES), cheb_basis_from_edges(17, H36M_EDGES)
+    model = GraFormer(basis21)
+    randomize(model, gen)
+    model = model.to(dev).eval()
+    fn = make_graformer_fn(model)
+    bsz, per_call = GRAFORMER_BATCH, 2 + 2 * model.num_layers
+    x = torch.randn((bsz, 21, 2), generator=g, device=dev)
+    mask = torch.ones((bsz, 1, 21), device=dev)
+    mask[:, :, [3, 19]] = 0.0
+
+    # 22. the main path: one fused forward, counted
+    with torch.no_grad():
+        fc.fused_cheb_conv.launches = 0
+        out = fn(x)
+        torch.cuda.synchronize()
+        launches = fc.fused_cheb_conv.launches
+        e_fwd = max_err(out, model(x))
+        e_mask = max_err(fn(x, mask), model(x, mask))
+    print(f"main path (GraFormer eval forward, hid 128, 4 layers, 21 joints, B={bsz}) row-4 "
+          f"launches: {launches}; max|fused-module| {e_fwd:.3e}, with two joints masked "
+          f"{e_mask:.3e}")
+    check(launches == per_call, f"GraFormer forward made {launches} row-4 launches, expected {per_call}")
+    check(tuple(out.shape) == (bsz, 21, 3) and bool(torch.isfinite(out).all()),
+          f"GraFormer output shape {tuple(out.shape)} or non-finite values")
+    check(e_fwd <= TOL_PIPELINE and e_mask <= TOL_PIPELINE, f"GraFormer fused forward: {e_fwd}, {e_mask}")
+
+    convs = {"input": model.gconv_input, "residual": model.gconv_layers[0].gconv1.gconv,
+             "output": model.gconv_output}
+    shapes = {}
+    for n, basis, b in ((21, basis21, bsz), (17, basis17, GRAFORMER_RAGGED)):
+        gconst = fc.graph_constants(basis, dev)
+        for name, conv in convs.items():
+            w, bias = conv.weight.detach()[:, 0], conv.bias.detach().reshape(-1)
+            xin = torch.randn((b, n, w.shape[1]), generator=g, device=dev)
+            shapes[(name, n)] = cheb_shape(name, xin, w, bias, gconst, card)
+    gconst = fc.graph_constants(basis17, dev)
+    for c, d in VIDEO_IO:
+        conv = ChebGraphConv(c, d, basis17).to(dev)
+        xin = torch.randn((VIDEO_BATCH * VIDEO_FRAMES, 17, c), generator=g, device=dev)
+        shapes[(f"video{c}->{d}", 17)] = cheb_shape(
+            "video", xin, conv.weight.detach()[:, 0], conv.bias.detach().reshape(-1), gconst, card)
+
+    with torch.no_grad():
+        module_ms = time_ms(lambda: model(x), reps=5)
+        fused_ms = time_ms(lambda: fn(x), reps=5)
+    launch_ms, module_conv_ms = chebconv_device_ms(fn, model, x, per_call)
+    row4 = {k: shapes[(k, 21)] for k in convs}
+    counts = {"input": 1, "residual": 2 * model.num_layers, "output": 1}
+    launch_bound = sum(counts[k] * row4[k]["bound_ms"] for k in convs)
+    print(f"GraFormer forward B={bsz}: module {module_ms:.4f} ms, fused {fused_ms:.4f} ms "
+          f"({bsz / fused_ms * 1e3:.1f} poses/s); device time a forward (torch.profiler): "
+          f"its {per_call} row-4 launches {launch_ms:.4f} ms against a bound of "
+          f"{launch_bound:.4f} ms, the module's {per_call} ChebGraphConvs {module_conv_ms:.4f} ms"
+          f"  [{card}]")
+    mid = row4["residual"]
+    others = {f"{k[0]}_N{k[1]}": {f: v[f] for f in ("c_in", "d_out", "batch", "ms", "plain_ms",
+                                                     "library_ms", "bound_ms", "bound_by")}
+              for k, v in shapes.items() if k != ("residual", 21)}
+    return dict(name="cheb_kernel", route="cuda", source="diffpose_tpu_torch/csrc/cheb_kernel.cu",
+                replaces="diffpose_tpu/ops/pallas_cheb.py:48", launches=launches,
+                max_abs_err=max(v["max_abs_err"] for v in shapes.values()), ms=mid["ms"],
+                plain_ms=mid["plain_ms"], bound_ms=mid["bound_ms"], bound_by=mid["bound_by"],
+                library_ms=mid["library_ms"],
+                library_what="torch.einsum('knm,bmc,kcd->bnd', basis, x, w) + b",
+                batch=bsz, n_pts=21, c_in=128, d_out=128, forward_launches_device_ms=launch_ms,
+                module_chebconvs_device_ms=module_conv_ms,
+                forward_bound_ms=launch_bound, module_forward_ms=module_ms,
+                fused_forward_ms=fused_ms, max_err_forward=max(e_fwd, e_mask), other_shapes=others,
+                main_path=f"make_graformer_fn forward, B={bsz}")
+
+
+def ptxas_usage(name: str) -> dict:
+    """Each kernel entry's ``Used ... registers ...`` line from the build log
+    of ``csrc/<name>.cu``."""
+    usage, entry = {}, None
+    for line in _build.build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        elif entry and "Used" in line and "registers" in line:
+            usage[entry] = line.split("Used", 1)[1].strip()
+            entry = None
+    return usage
+
+
+def ablate_phases(dev, wd, g, card):
+    """Phase 23: row 11.  The probe's SKIP = 0 build is bit-equal to the
+    production denoiser kernel (row 1); each variant is within 5e-5 of its
+    plain twin; ms per variant at B=1024 and the share each part takes; the
+    production builds' registers.  Returns row 11's record."""
+    x = torch.randn((BATCH, 17, 5), generator=g, device=dev)
+    t = torch.randint(0, len(BETAS), (BATCH,), generator=g, device=dev).to(torch.float32)
+    with torch.no_grad():
+        tp = timestep_projections(wd, t)
+        prod = _launch(wd, x, tp)
+        full = ablate.probe_forward(wd, x, tp)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(full, prod))
+        print(f"row 11: probe SKIP=0 build bit-equal to net_forward_kernel<true,true,5,5>: {same}")
+        check(same, "the probe's SKIP = 0 build differs from the production kernel")
+        errs = {}
+        for name, parts in ablate.VARIANTS.items():
+            got = ablate.probe_forward(wd, x, tp, parts)
+            torch.cuda.synchronize()
+            errs[name] = max_err(got, ablate.net_plain_ablated(wd, x, tp, parts))
+        print("row 11 max|kernel-plain| by variant: " +
+              "  ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        check(max(errs.values()) <= TOL_KERNEL, f"row 11 variants against their plain twins: {errs}")
+        ablate.probe_forward.launches = 0
+        ms = ablate.run(inputs=(wd, x, tp))
+        launches = ablate.probe_forward.launches
+        check(launches > 0, "the probe's timed run launched no probe kernel")
+        plain_ms = time_ms(lambda: ablate.net_plain_ablated(wd, x, tp, ()), reps=3)
+    bms, by = bound_ms(wd, BATCH)
+    print(f"row 11 at B={BATCH} ({launches} launches), ms and the share of full left out  [{card}]:")
+    for name in ablate.VARIANTS:
+        print(f"  {name:11s} {ms[name]:.4f} ms  {100 * (1 - ms[name] / ms['full']):5.1f}%")
+    for name, why in ablate.NOT_APPLICABLE.items():
+        print(f"  {name:11s} not applicable: {why}")
+    prod_usage, probe_usage = ptxas_usage("net_kernel"), ptxas_usage("probe_kernel")
+    for entry, used in sorted(prod_usage.items()):
+        print(f"  ptxas net_kernel {entry}: {used}")
+    print(f"  dynamic shared memory of every net_forward_kernel build: "
+          f"{ablate._library().probe_smem_bytes()} bytes")
+    denoiser = [e for e in prod_usage if "net_forward_kernelILb1ELb1ELi5ELi5E" in e]
+    check(len(denoiser) == 1 and probe_usage.get(denoiser[0]) == prod_usage[denoiser[0]],
+          f"the probe's SKIP = 0 build uses other resources: {probe_usage} against {prod_usage}")
+    return dict(name="probe_kernel[full]", route="cuda", source="diffpose_tpu_torch/csrc/probe_kernel.cu",
+                replaces="scripts/probe_ablate.py:79", launches=launches,
+                max_abs_err=max(errs.values()), ms=ms["full"], plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None, batch=BATCH, variants_ms=ms,
+                shares={k: 1 - v / ms["full"] for k, v in ms.items() if k != "full"},
+                bit_equal_to_row1=same, main_path="probes/ablate.run (phase 23)")
+
+
+def attention_bound(rows: int, frames: int, dk: int, passes: int = 3):
+    """Row 12's least time in its 3xTF32 mode: the two products on the tensor
+    cores at the TF32 peak, ``passes`` times over; the softmax on the CUDA
+    cores at the f32 peak; q, k and v read and the output written once."""
+    mma_ms = 1e3 * passes * 4 * rows * frames * frames * dk / PEAK_TF32
+    softmax_ms = 1e3 * 5 * rows * frames * frames / PEAK_FP32
+    ops_ms, bytes_ms = mma_ms + softmax_ms, 1e3 * 16 * rows * frames * dk / PEAK_BYTES
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def attention_probe_phases(card):
+    """Phase 24: row 12.  Both TF32 modes' max |Δ| against the f32 plain twin
+    and ms at the JAX probe's shape and row 10's, beside SDPA; 3xTF32 must be
+    within 5e-5 at T=136.  Returns row 12's record."""
+    batched_dot.batched_attention.launches = 0
+    res = batched_dot.run()
+    launches = batched_dot.batched_attention.launches
+    check(launches > 0, "the attention probe's run launched no kernel")
+    for shape, rec in res.items():
+        bms, by = attention_bound(*shape)
+        rec["bound_ms"], rec["bound_by"] = bms, by
+        print(f"row 12 T,F,dk={shape}: 3xTF32 max|Δ| {rec['3xtf32']['max_abs_err']:.3e} "
+              f"{rec['3xtf32']['ms']:.4f} ms; 1xTF32 max|Δ| {rec['1xtf32']['max_abs_err']:.3e} "
+              f"{rec['1xtf32']['ms']:.4f} ms; plain {rec['plain_ms']:.4f} ms; SDPA "
+              f"{rec['library_ms']:.4f} ms; bound {bms:.4f} ms ({by})  [{card}]")
+    first = res[batched_dot.SHAPES[0]]
+    check(first["3xtf32"]["max_abs_err"] <= TOL_KERNEL,
+          f"3xTF32 attention at {batched_dot.SHAPES[0]}: {first['3xtf32']['max_abs_err']}")
+    return dict(name="probe_attention[3xtf32]", route="cuda",
+                source="diffpose_tpu_torch/csrc/probe_attention.cu",
+                replaces="scripts/probe_batched_dot.py:22", launches=launches,
+                max_abs_err=first["3xtf32"]["max_abs_err"], ms=first["3xtf32"]["ms"],
+                plain_ms=first["plain_ms"], bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+                library_ms=first["library_ms"],
+                library_what="scaled_dot_product_attention(q, k, v, scale=1.0)",
+                shape=list(batched_dot.SHAPES[0]),
+                other={str(list(s)): r for s, r in res.items()},
+                main_path="probes/batched_dot.run (phase 24)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
@@ -1699,6 +1990,10 @@ def main() -> int:
     t_video = time.perf_counter()
     row9, row10, masks_launches, row3_video = video_kernel_phases(dev, basis, gen, g, card)
     video_runs = video_cli_phases(card)
+    t_graformer = time.perf_counter()
+    row4 = graformer_phases(dev, gen, g, card)
+    row11 = ablate_phases(dev, wd, g, card)
+    row12 = attention_probe_phases(card)
     t_end = time.perf_counter()
     video = video_runs["train"]
     for rec, key in zip(prng_records, ("fwd_prng", "bwd_prng")):
@@ -1712,8 +2007,10 @@ def main() -> int:
                         main_path="main_video eval-only --denoiser_impl fused_full"))
     kernels.append(dict(row10, launches=video_runs["fused_st"]["temporal"],
                         main_path="main_video eval-only --denoiser_impl fused_st"))
+    kernels += [row4, row11, row12]
     print(f"wall seconds by family: frame (phases 1-11, build included) {t_implicit - t_start:.1f}, "
-          f"implicit (12-16) {t_video - t_implicit:.1f}, video (17-21) {t_end - t_video:.1f}")
+          f"implicit (12-16) {t_video - t_implicit:.1f}, video (17-21) {t_graformer - t_video:.1f}, "
+          f"GraFormer and probes (22-24) {t_end - t_graformer:.1f}")
 
     print(card)
     print(json.dumps({"kernels": kernels}))

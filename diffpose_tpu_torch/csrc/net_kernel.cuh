@@ -20,6 +20,11 @@
 // Each stage is a loop over work items of the form
 // `for (it = tid; it < n; it += THREADS)`, separated by __syncthreads(), so a
 // stage never depends on another thread's result within itself.
+//
+// SKIP (a template argument of stack_layer and net_forward_kernel, 0 in
+// production) leaves parts out for the cost-split probe
+// (csrc/probe_kernel.cu, counterpart of scripts/probe_ablate.py): every
+// `if constexpr` on it is true at 0, so SKIP = 0 compiles today's code.
 #pragma once
 
 namespace netk {
@@ -42,6 +47,15 @@ constexpr int LAP_PAD = (N_PTS * N_PTS + 3) / 4 * 4;
 constexpr int ACT_FLOATS = 2 * ROWS_PAD * LDH + ROWS_PAD * LDB;
 constexpr int SMEM_FLOATS = ACT_FLOATS + LAP_PAD + 2 * TERMS_PAD + 20;
 constexpr size_t SMEM_BYTES = sizeof(float) * SMEM_FLOATS;
+
+// Parts the probe leaves out (bits of SKIP), as scripts/probe_ablate.py names them.
+enum Skip : int {
+  kSkipAttn = 1,      // no_attn: the attention sublayer
+  kSkipGnetCheb = 2,  // attn_only: the GraphNet sublayer and the residual Chebyshev block
+  kSkipLap = 4,       // no_lap: GraphNet's two learned-Laplacian mixes
+  kSkipChebMix = 8,   // no_chebmix: every ChebConv is its order-0 product plus the bias
+  kSkipLn = 16,       // no_ln: both LayerNorms are the identity
+};
 
 struct NetArgs {
   const float* x;      // [B, 17, C_IN]
@@ -87,10 +101,11 @@ __device__ __forceinline__ void fma4(float4& acc, float s, float4 v) {
 
 enum Epi { kStore, kStoreBias, kReluBias, kAddBias, kAdd };
 
-// C[r, :N] (=, +=) A[r, :K] @ W[K, N] (+ bias) for the tile's rows.
-// Thread = (column group of 4, row group); row group g takes rows g, g+G, ...
-// so that the THREADS threads cover the N/4 column groups exactly.
-template <int K, int N, int LDA, int LDC, Epi EPI>
+// C[r, :N] (=, +=) A[r, :K] @ W[K, :N] (+ bias) for the tile's rows; W's rows
+// are LDW apart.  Thread = (column group of 4, row group); row group g takes
+// rows g, g+G, ... so that the THREADS threads cover the N/4 column groups
+// exactly.
+template <int K, int N, int LDA, int LDC, Epi EPI, int LDW = N>
 __device__ __forceinline__ void gemm(const float* A, const float* __restrict__ W,
                                      const float* __restrict__ bias, float* C, int tid) {
   constexpr int NG = N / 4;
@@ -107,10 +122,10 @@ __device__ __forceinline__ void gemm(const float* A, const float* __restrict__ W
   if constexpr (K % 4 == 0) {
 #pragma unroll 2
     for (int k = 0; k < K; k += 4) {
-      const float4 w0 = ldg4(wc + (k + 0) * N);
-      const float4 w1 = ldg4(wc + (k + 1) * N);
-      const float4 w2 = ldg4(wc + (k + 2) * N);
-      const float4 w3 = ldg4(wc + (k + 3) * N);
+      const float4 w0 = ldg4(wc + (k + 0) * LDW);
+      const float4 w1 = ldg4(wc + (k + 1) * LDW);
+      const float4 w2 = ldg4(wc + (k + 2) * LDW);
+      const float4 w3 = ldg4(wc + (k + 3) * LDW);
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
         const float4 a = ld4(A + (rg + i * G) * LDA + k);
@@ -122,7 +137,7 @@ __device__ __forceinline__ void gemm(const float* A, const float* __restrict__ W
     }
   } else {
     for (int k = 0; k < K; ++k) {
-      const float4 w = ldg4(wc + k * N);
+      const float4 w = ldg4(wc + k * LDW);
 #pragma unroll
       for (int i = 0; i < RPT; ++i) fma4(acc[i], A[(rg + i * G) * LDA + k], w);
     }
@@ -146,8 +161,9 @@ enum MixEpi { kMixStore, kMixStoreBias, kMixReluBiasTp, kMixAddReluBias, kMixAdd
 // Graph mixing over the joints of each sample:
 //   out[b, n, :W] (=, +=) epilogue(sum_e val_e * in[b, m_e, k_e*W : k_e*W + W])
 // over the Chebyshev term list of row n (sparse, all orders k), or over the
-// dense learned adjacency lap[n, m] (DENSE, k = 0).
-template <int W, int LDI, int LDO, MixEpi EPI, bool DENSE>
+// dense learned adjacency lap[n, m] (DENSE, k = 0); ORDER0 (probe only) takes
+// in[b, n, :W] alone, no mixing.
+template <int W, int LDI, int LDO, MixEpi EPI, bool DENSE, bool ORDER0 = false>
 __device__ __forceinline__ void mix(const float* in, float* out, const int* ptr, const int* idx,
                                     const float* val, const float* lap,
                                     const float* __restrict__ bias,
@@ -164,6 +180,8 @@ __device__ __forceinline__ void mix(const float* in, float* out, const int* ptr,
     if constexpr (DENSE) {
 #pragma unroll
       for (int m = 0; m < N_PTS; ++m) fma4(v, lap[n * N_PTS + m], ld4(src + m * LDI));
+    } else if constexpr (ORDER0) {
+      v = ld4(src + n * LDI);
     } else {
       for (int e = ptr[n]; e < ptr[n + 1]; ++e) {
         const int km = idx[e];
@@ -263,24 +281,26 @@ __device__ __forceinline__ void attention(const float* qkv, float* out, int tid)
   }
 }
 
-// The three output-ChebConv products h @ [W_0 | W_1 | W_2], C_OUT wide each.
-template <int C_OUT>
+// The three output-ChebConv products h @ [W_0 | W_1 | W_2], C_OUT wide each
+// (ORDER0, probe only: h @ W_0 alone).
+template <int C_OUT, bool ORDER0 = false>
 __device__ __forceinline__ void out_gemm(const float* h, const float* __restrict__ w,
                                          float* big, int tid) {
-  constexpr int N = 3 * C_OUT;
+  constexpr int LDW = 3 * C_OUT;
+  constexpr int N = ORDER0 ? C_OUT : LDW;
   for (int it = tid; it < ROWS * N; it += THREADS) {
     const int r = it / N;
     const int j = it % N;
     const float* a = h + r * LDH;
     float acc = 0.f;
-    for (int k = 0; k < HID; ++k) acc = fmaf(a[k], __ldg(w + k * N + j), acc);
+    for (int k = 0; k < HID; ++k) acc = fmaf(a[k], __ldg(w + k * LDW + j), acc);
     big[r * LDB + j] = acc;
   }
 }
 
 // Output ChebConv mixing + bias, written straight to global memory for the
-// tile's nb real samples.
-template <int C_OUT>
+// tile's nb real samples (ORDER0, probe only: the order-0 product, no mixing).
+template <int C_OUT, bool ORDER0 = false>
 __device__ __forceinline__ void out_mix(const float* big, float* __restrict__ out, const int* ptr,
                                         const int* idx, const float* val,
                                         const float* __restrict__ bias, int nb, int tid) {
@@ -291,9 +311,13 @@ __device__ __forceinline__ void out_mix(const float* big, float* __restrict__ ou
     const int n = r % N_PTS;
     const float* src = big + b * N_PTS * LDB + c;
     float acc = 0.f;
-    for (int e = ptr[n]; e < ptr[n + 1]; ++e) {
-      const int km = idx[e];
-      acc = fmaf(val[e], src[(km & 0xff) * LDB + (km >> 8) * C_OUT], acc);
+    if constexpr (ORDER0) {
+      acc = src[n * LDB];
+    } else {
+      for (int e = ptr[n]; e < ptr[n + 1]; ++e) {
+        const int km = idx[e];
+        acc = fmaf(val[e], src[(km & 0xff) * LDB + (km >> 8) * C_OUT], acc);
+      }
     }
     out[it] = acc + __ldg(bias + c);
   }
@@ -312,53 +336,77 @@ __device__ __forceinline__ void load_cheb(const NetArgs& a, int* cptr, int* cidx
 // Layer l of the stack on the tile's residual stream h (samples b0 ..
 // b0 + nb - 1), with y, big and lap as scratch.  Starts and ends on a
 // __syncthreads().
-template <bool HAS_TEMB>
+template <bool HAS_TEMB, int SKIP = 0>
 __device__ __forceinline__ void stack_layer(const NetArgs& a, int l, float* h, float* y,
                                             float* big, float* lap, const int* cptr,
                                             const int* cidx, const float* cval, int b0, int nb,
                                             int tid) {
+  constexpr bool ATTN = !(SKIP & kSkipAttn), REST = !(SKIP & kSkipGnetCheb);
+  constexpr bool LAP = !(SKIP & kSkipLap), MIX = !(SKIP & kSkipChebMix), LN = !(SKIP & kSkipLn);
+  constexpr int NCHEB = MIX ? 3 * HID : HID;  // columns of a residual ChebConv's products
+  const float* normed = LN ? y : h;           // the LayerNorms' output
+
   // attention sublayer: h += out_proj(attention(LN1(h)))
-  layer_norm(h, y, a.ln1s + l * HID, a.ln1b + l * HID, tid);
+  if constexpr (ATTN && LN) layer_norm(h, y, a.ln1s + l * HID, a.ln1b + l * HID, tid);
   for (int i = tid; i < N_PTS * N_PTS; i += THREADS) lap[i] = a.lap[l * N_PTS * N_PTS + i];
   __syncthreads();
-  gemm<HID, 3 * HID, LDH, LDB, kStoreBias>(y, a.wqkv + static_cast<size_t>(l) * HID * 3 * HID,
-                                           a.bqkv + l * 3 * HID, big, tid);
-  __syncthreads();
-  attention(big, y, tid);
-  __syncthreads();
-  gemm<HID, HID, LDH, LDH, kAddBias>(y, a.wao + static_cast<size_t>(l) * HID * HID,
-                                     a.bao + l * HID, h, tid);
-  __syncthreads();
+  if constexpr (ATTN) {
+    gemm<HID, 3 * HID, LDH, LDB, kStoreBias>(normed,
+                                             a.wqkv + static_cast<size_t>(l) * HID * 3 * HID,
+                                             a.bqkv + l * 3 * HID, big, tid);
+    __syncthreads();
+    attention(big, y, tid);
+    __syncthreads();
+    gemm<HID, HID, LDH, LDH, kAddBias>(y, a.wao + static_cast<size_t>(l) * HID * HID,
+                                       a.bao + l * HID, h, tid);
+    __syncthreads();
+  }
+  if constexpr (!REST) return;
 
   // GraphNet sublayer: h += fc2(lap . relu(fc1(lap . LN2(h)))), computed
   // as lap . (relu(...) @ W_fc2) + b_fc2 so that the second mix is HID wide.
-  layer_norm(h, y, a.ln2s + l * HID, a.ln2b + l * HID, tid);
-  __syncthreads();
-  mix<HID, LDH, LDB, kMixStore, true>(y, big, cptr, cidx, cval, lap, nullptr, nullptr, nb, tid);
-  __syncthreads();
-  gemm<HID, 2 * HID, LDB, LDB, kReluBias>(big, a.wfc1 + static_cast<size_t>(l) * HID * 2 * HID,
-                                          a.bfc1 + l * 2 * HID, big + HID, tid);
-  __syncthreads();
-  gemm<2 * HID, HID, LDB, LDH, kStore>(big + HID, a.wfc2 + static_cast<size_t>(l) * 2 * HID * HID,
-                                       nullptr, y, tid);
-  __syncthreads();
-  mix<HID, LDH, LDH, kMixAddBias, true>(y, h, cptr, cidx, cval, lap, a.bfc2 + l * HID, nullptr,
-                                        nb, tid);
+  if constexpr (LN) {
+    layer_norm(h, y, a.ln2s + l * HID, a.ln2b + l * HID, tid);
+    __syncthreads();
+  }
+  if constexpr (LAP) {
+    mix<HID, LDH, LDB, kMixStore, true>(normed, big, cptr, cidx, cval, lap, nullptr, nullptr, nb,
+                                        tid);
+    __syncthreads();
+    gemm<HID, 2 * HID, LDB, LDB, kReluBias>(big,
+                                            a.wfc1 + static_cast<size_t>(l) * HID * 2 * HID,
+                                            a.bfc1 + l * 2 * HID, big + HID, tid);
+    __syncthreads();
+    gemm<2 * HID, HID, LDB, LDH, kStore>(big + HID,
+                                         a.wfc2 + static_cast<size_t>(l) * 2 * HID * HID,
+                                         nullptr, y, tid);
+    __syncthreads();
+    mix<HID, LDH, LDH, kMixAddBias, true>(y, h, cptr, cidx, cval, lap, a.bfc2 + l * HID, nullptr,
+                                          nb, tid);
+  } else {
+    gemm<HID, 2 * HID, LDH, LDB, kReluBias>(normed,
+                                            a.wfc1 + static_cast<size_t>(l) * HID * 2 * HID,
+                                            a.bfc1 + l * 2 * HID, big + HID, tid);
+    __syncthreads();
+    gemm<2 * HID, HID, LDB, LDH, kAddBias>(big + HID,
+                                           a.wfc2 + static_cast<size_t>(l) * 2 * HID * HID,
+                                           a.bfc2 + l * HID, h, tid);
+  }
   __syncthreads();
 
   // residual Chebyshev block: h += relu(cheb2(relu(cheb1(h)) + tp))
-  gemm<HID, 3 * HID, LDH, LDB, kStore>(h, a.wg1 + static_cast<size_t>(l) * HID * 3 * HID,
-                                       nullptr, big, tid);
+  gemm<HID, NCHEB, LDH, LDB, kStore, 3 * HID>(h, a.wg1 + static_cast<size_t>(l) * HID * 3 * HID,
+                                              nullptr, big, tid);
   __syncthreads();
   const float* tp = HAS_TEMB ? a.tp + (static_cast<size_t>(l) * a.batch + b0) * HID : nullptr;
-  mix<HID, LDB, LDH, kMixReluBiasTp, false>(big, y, cptr, cidx, cval, lap, a.bg1 + l * HID, tp,
-                                            nb, tid);
+  mix<HID, LDB, LDH, kMixReluBiasTp, false, !MIX>(big, y, cptr, cidx, cval, lap, a.bg1 + l * HID,
+                                                  tp, nb, tid);
   __syncthreads();
-  gemm<HID, 3 * HID, LDH, LDB, kStore>(y, a.wg2 + static_cast<size_t>(l) * HID * 3 * HID,
-                                       nullptr, big, tid);
+  gemm<HID, NCHEB, LDH, LDB, kStore, 3 * HID>(y, a.wg2 + static_cast<size_t>(l) * HID * 3 * HID,
+                                              nullptr, big, tid);
   __syncthreads();
-  mix<HID, LDB, LDH, kMixAddReluBias, false>(big, h, cptr, cidx, cval, lap, a.bg2 + l * HID,
-                                             nullptr, nb, tid);
+  mix<HID, LDB, LDH, kMixAddReluBias, false, !MIX>(big, h, cptr, cidx, cval, lap,
+                                                   a.bg2 + l * HID, nullptr, nb, tid);
   __syncthreads();
 }
 
@@ -383,9 +431,10 @@ __device__ __forceinline__ void store_tile(const float* h, float* out, int nb, i
 // HAS_IO false: x and out are [B, 17, HID] (C_IN = C_OUT = HID); x goes
 // straight into the residual stream and the stream is stored after the last
 // layer; win, bin, wout and bout are not read.
-template <bool HAS_TEMB, bool HAS_IO, int C_IN, int C_OUT>
+template <bool HAS_TEMB, bool HAS_IO, int C_IN, int C_OUT, int SKIP = 0>
 __global__ void __launch_bounds__(THREADS, 1) net_forward_kernel(const NetArgs a) {
   static_assert(HAS_IO || (C_IN == HID && C_OUT == HID), "the bare stack is HID wide");
+  constexpr bool MIX = !(SKIP & kSkipChebMix);
   extern __shared__ float4 smem4[];
   float* h = reinterpret_cast<float*>(smem4);
   float* y = h + ROWS_PAD * LDH;
@@ -407,23 +456,23 @@ __global__ void __launch_bounds__(THREADS, 1) net_forward_kernel(const NetArgs a
   if constexpr (HAS_IO) {
     for (int i = tid; i < nb * N_PTS * C_IN; i += THREADS) y[(i / C_IN) * LDH + i % C_IN] = x[i];
     __syncthreads();
-    gemm<C_IN, 3 * HID, LDH, LDB, kStore>(y, a.win, nullptr, big, tid);
+    gemm<C_IN, MIX ? 3 * HID : HID, LDH, LDB, kStore, 3 * HID>(y, a.win, nullptr, big, tid);
     __syncthreads();
-    mix<HID, LDB, LDH, kMixStoreBias, false>(big, h, cptr, cidx, cval, lap, a.bin, nullptr, nb,
-                                             tid);
+    mix<HID, LDB, LDH, kMixStoreBias, false, !MIX>(big, h, cptr, cidx, cval, lap, a.bin, nullptr,
+                                                   nb, tid);
   } else {
     load_tile(x, h, nb, tid);
   }
   __syncthreads();
 
   for (int l = 0; l < a.num_layers; ++l)
-    stack_layer<HAS_TEMB>(a, l, h, y, big, lap, cptr, cidx, cval, b0, nb, tid);
+    stack_layer<HAS_TEMB, SKIP>(a, l, h, y, big, lap, cptr, cidx, cval, b0, nb, tid);
 
   float* out = a.out + static_cast<size_t>(b0) * N_PTS * C_OUT;
   if constexpr (HAS_IO) {
-    out_gemm<C_OUT>(h, a.wout, big, tid);
+    out_gemm<C_OUT, !MIX>(h, a.wout, big, tid);
     __syncthreads();
-    out_mix<C_OUT>(big, out, cptr, cidx, cval, a.bout, nb, tid);
+    out_mix<C_OUT, !MIX>(big, out, cptr, cidx, cval, a.bout, nb, tid);
   } else {
     store_tile(h, out, nb, tid);
   }

@@ -11,9 +11,11 @@ names, so reference checkpoints load into them unchanged.  This module
   can be compared leaf by leaf,
 * does both for the implicit model's variables, parameters and BatchNorm
   statistics (:func:`state_dict_from_flax_igcn`,
-  :func:`flax_igcn_from_state_dict`) and for the video model's parameters
-  (:func:`state_dict_from_flax_video`, :func:`flax_video_from_state_dict`),
-  and
+  :func:`flax_igcn_from_state_dict`), for the video model's parameters
+  (:func:`state_dict_from_flax_video`, :func:`flax_video_from_state_dict`)
+  and for the standalone GraFormer's (:func:`state_dict_from_flax_graformer`,
+  :func:`flax_graformer_from_state_dict`), and the first for ``ChebNet`` and
+  ``PositionwiseFeedForward``,
 * reads and writes the reference 5-element checkpoint list
   ``[model, optim, epoch, step, ema]`` (``runners/diffpose_frame.py:248-255``),
   whose names carry ``DataParallel``'s ``module.`` prefix.
@@ -62,10 +64,21 @@ def _put_atten(sd: dict, params: Mapping, src: str, dst: str):
         _put_linear(sd, params, (src, "gnet", fc), f"{dst}.feed_forward.{conv}.fc")
 
 
+def _put_chebnet(sd: dict, params: Mapping, src: tuple, prefix: str):
+    """A Flax ChebNet (two GraphConvBlocks) at ``src`` → ``{prefix}gconv{1,2}.gconv``."""
+    for conv in ("gconv1", "gconv2"):
+        _put_cheb(sd, params, src + (conv, "gconv"), f"{prefix}{conv}.gconv")
+
+
+def _put_ffn(sd: dict, params: Mapping, src: tuple, prefix: str):
+    """A Flax PositionwiseFeedForward at ``src`` (``w1``, ``w2``) → ``{prefix}w_{1,2}``."""
+    for fc in ("1", "2"):
+        _put_linear(sd, params, src + (f"w{fc}",), f"{prefix}w_{fc}")
+
+
 def _put_res(sd: dict, params: Mapping, src: str, dst: str, with_temb: bool):
     """A Flax ResChebGCDiff (or, without ``temb_proj``, ResChebGC) ``src``."""
-    for conv in ("gconv1", "gconv2"):
-        _put_cheb(sd, params, (src, conv, "gconv"), f"{dst}.{conv}.gconv")
+    _put_chebnet(sd, params, (src,), f"{dst}.")
     if with_temb:
         _put_linear(sd, params, (src, "temb_proj"), f"{dst}.temb_proj")
 
@@ -151,6 +164,49 @@ def flax_from_state_dict(
     for i in range(num_layers):
         tree[f"atten_{i}"] = atten(f"atten_layers.{i}")
         tree[f"res_{i}"] = res(f"gconv_layers.{i}", with_temb)
+    return tree
+
+
+def state_dict_from_flax_chebnet(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A Flax ``ChebNet`` parameter tree → the port's ``ChebNet`` ``state_dict``
+    (``gconv{1,2}.gconv.{weight,bias}``)."""
+    sd: Dict[str, np.ndarray] = {}
+    _put_chebnet(sd, params, (), "")
+    return _tensors(sd)
+
+
+def state_dict_from_flax_ffn(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A Flax ``PositionwiseFeedForward`` parameter tree (``w1``, ``w2``) → the
+    reference names ``w_1``, ``w_2`` (``models/GraFormer.py:143-155``)."""
+    sd: Dict[str, np.ndarray] = {}
+    _put_ffn(sd, params, (), "")
+    return _tensors(sd)
+
+
+def state_dict_from_flax_graformer(params: Mapping, *, num_layers: int) -> Dict[str, torch.Tensor]:
+    """A Flax standalone ``GraFormer`` parameter tree → the reference
+    ``GraFormer`` ``state_dict`` (``models/GraFormer.py:204-237``): the
+    I/O ChebConvs, ``atten_layers.{i}`` and ``gconv_layers.{i}`` (ResChebGC,
+    no timestep projection); the model has no ``temb``."""
+    sd: Dict[str, np.ndarray] = {}
+    _put_cheb(sd, params, ("gconv_input",), "gconv_input")
+    _put_cheb(sd, params, ("gconv_output",), "gconv_output")
+    for i in range(num_layers):
+        _put_atten(sd, params, f"atten_{i}", f"atten_layers.{i}")
+        _put_res(sd, params, f"res_{i}", f"gconv_layers.{i}", with_temb=False)
+    return _tensors(sd)
+
+
+def flax_graformer_from_state_dict(state: Mapping[str, torch.Tensor], *,
+                                   num_layers: int) -> Dict[str, dict]:
+    """The inverse of :func:`state_dict_from_flax_graformer`, for parameters or
+    their gradients named like the ``state_dict``."""
+    _, cheb, _, _, atten, res = _reader(state)
+    tree: Dict[str, dict] = {"gconv_input": cheb("gconv_input"),
+                             "gconv_output": cheb("gconv_output")}
+    for i in range(num_layers):
+        tree[f"atten_{i}"] = atten(f"atten_layers.{i}")
+        tree[f"res_{i}"] = res(f"gconv_layers.{i}", False)
     return tree
 
 

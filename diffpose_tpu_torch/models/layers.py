@@ -13,7 +13,10 @@ reference ``state_dict`` loads strictly, and its numerics:
 * :class:`GraphNet` — learned-adjacency two-layer GCN, the "feed-forward"
   of each :class:`GraAttenLayer`.
 * :class:`ResChebGCDiff` — two Chebyshev convs with the timestep embedding
-  added between them (``models/gcndiff.py:39-53``).
+  added between them (``models/gcndiff.py:39-53``); :class:`ChebNet`, two
+  plain ones.
+* :class:`PositionwiseFeedForward` — the transformer FFN the reference
+  defines beside the attention.
 * :func:`chunked_attention` — query-chunked attention for long temporal
   windows (the video family's beyond-threshold inference path).
 
@@ -55,20 +58,26 @@ class ChebGraphConv(nn.Module):
 
 
 class GraphConvBlock(nn.Module):
-    """ChebConv + ReLU + dropout, reference ``_GraphConv``.
+    """ChebConv + ReLU (+ dropout), reference ``_GraphConv``.
 
-    The reference applies ReLU, dropout, then ReLU again
+    With a dropout rate the reference applies ReLU, dropout, then ReLU again
     (``models/ChebConv.py:145-151``); the second ReLU is a no-op in eval
-    but changes the dropout statistics in training.
+    but changes the dropout statistics in training.  With
+    ``dropout_rate=None`` the block is ``relu(gconv(x))`` and has no
+    dropout module.
     """
 
-    def __init__(self, in_features: int, out_features: int, basis, dropout_rate: float):
+    def __init__(self, in_features: int, out_features: int, basis,
+                 dropout_rate: Optional[float] = None):
         super().__init__()
         self.gconv = ChebGraphConv(in_features, out_features, basis)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = None if dropout_rate is None else nn.Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.dropout(F.relu(self.gconv(x))))
+        x = self.gconv(x)
+        if self.dropout is not None:
+            x = self.dropout(F.relu(x))
+        return F.relu(x)
 
 
 class ResChebGC(nn.Module):
@@ -81,6 +90,20 @@ class ResChebGC(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.gconv2(self.gconv1(x))
+
+
+class ChebNet(nn.Module):
+    """Plain two-conv graph net (reference ``ChebNet``, ChebConv.py:168-178):
+    ``gconv2(gconv1(x))``, both :class:`GraphConvBlock`."""
+
+    def __init__(self, in_features: int, features: int, hid_dim: int, basis,
+                 dropout_rate: Optional[float] = None):
+        super().__init__()
+        self.gconv1 = GraphConvBlock(in_features, hid_dim, basis, dropout_rate)
+        self.gconv2 = GraphConvBlock(hid_dim, features, basis, dropout_rate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.gconv2(self.gconv1(x))
 
 
 class ResChebGCDiff(nn.Module):
@@ -140,6 +163,20 @@ class MultiHeadAttention(nn.Module):
         probs = self.dropout(torch.softmax(scores, dim=-1))
         out = (probs @ v).transpose(1, 2).reshape(b, n, d)
         return self.linears[3](out)
+
+
+class PositionwiseFeedForward(nn.Module):
+    """Transformer FFN ``w_2(dropout(relu(w_1(x))))`` (reference
+    ``models/GraFormer.py:143-155``)."""
+
+    def __init__(self, d_model: int, d_ff: int, dropout_rate: float = 0.1):
+        super().__init__()
+        self.w_1 = TorchDense(d_model, d_ff)
+        self.w_2 = TorchDense(d_ff, d_model)
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.w_2(self.dropout(F.relu(self.w_1(x))))
 
 
 class LAMGconv(nn.Module):
