@@ -39,7 +39,9 @@ Phases (each fails loudly; none catches its own failure):
    TOL_STEP_PARAMS); 25 steps at lr 1e-3 on one fixed draw, whose loss must
    fall; one sweep of 4 steps against 4 single steps;
 7. time the two kernels, the weight-gradient products, the optimizer and
-   EMA, whole fused, plain and module steps;
+   EMA, whole fused, plain and module steps; each train kernel beside its
+   bound (the channel products at the TF32 tensor-core peak, three passes,
+   the rest at FP32) and the FP32-only bound of the earlier design;
 8. hold the seeded-dropout kernel pair (masks drawn in the kernels with
    Philox from a step seed) against its plain version, B=1024 and 1000: the
    masks the forward dumps equal ``ops/philox.py:philox_masks`` bit for bit,
@@ -47,8 +49,9 @@ Phases (each fails loudly; none catches its own failure):
    two seeds two; forward output and stashes within 5e-5 of ``layers_forward``
    over those masks; the backward, given no masks, within the limits of
    phase 5 of ``stack_bwd_plain`` over them;
-9. time the seeded pair beside the explicit-mask pair, turn by turn, and
-   the fused step with ``dropout="prng"`` beside ``"masks"``;
+9. time the seeded pair beside the explicit-mask pair, turn by turn, beside
+   both bounds, and the fused step with ``dropout="prng"`` beside
+   ``"masks"``;
 10. run the command line in process, ``diffpose_tpu_torch.cli.main_frame``
     with ``configs/human36m_diffpose_uvxyz_cpn.yml``, 8192 synthetic frames,
     B=1024, ``--train_impl fused --dropout_impl prng --denoiser_impl fused``:
@@ -82,7 +85,9 @@ The implicit (IGCN) family, at the width of ``configs/human36m_ipose.yml``
     history full (first-step gradients finite, float64 norms within a factor
     5); Anderson 20/10, the config (finite gradients); 1 + iterations launches of
     the seeded forward a step and as many of the backward as iterations
-    (Anderson's last f(z) reaches nothing the loss reads);
+    (Anderson's last f(z) reaches nothing the loss reads); print the damped
+    20/10 first-step gradients' worst error on 6 more seeds (finite), beside
+    the module on the card against the module on the host;
 15. run ``diffpose_tpu_torch.cli.main_implicit --use_implicit`` in process,
     ``configs/human36m_ipose.yml``, 4096 synthetic frames, B=512,
     ``--train_impl fused --dropout_impl prng --denoiser_impl fused``: train 2
@@ -92,8 +97,8 @@ The implicit (IGCN) family, at the width of ``configs/human36m_ipose.yml``
     pair or the denoiser), files,
     finite losses, moved BatchNorm buffers, eval-only P1/P2 equal to the
     last epoch's;
-16. time row 3, the eval solve, the train step by parts and the implicit
-    runner (train epochs, ``throughput_stats()``).
+16. time row 3, the eval solve, the train step by parts, rows 5-8 at B=512
+    (both bounds) and the implicit runner (train epochs, ``throughput_stats()``).
 
 The video (spatio-temporal) family, at the width of
 ``configs/human36m_video.yml`` (hid 96, 4 heads, 17 joints, 81-frame
@@ -127,8 +132,9 @@ seeded init:
 21. time rows 9 and 10 at the three shapes beside their bounds, plain
     versions and, for row 10, ``scaled_dot_product_attention`` on its q/k/v
     and the block from library calls; the inner eval call and the eval step
-    of each impl; the fused train step by parts; the video runner (train
-    epochs, ``throughput_stats()`` per impl).
+    of each impl; the fused train step by parts, rows 5-8 at 1,296 rows and
+    1 layer (both bounds); the video runner (train epochs,
+    ``throughput_stats()`` per impl).
 
 The standalone GraFormer (hid 128, 4 layers, 4 heads, 21 points, ``GAN_EDGES``,
 seeded init) and the probes:
@@ -149,7 +155,10 @@ seeded init) and the probes:
     at B=1024 and the share of each part;
 24. kernel row 12 (``probes/batched_dot.py``): TF32 tensor-core attention,
     1x and 3x, against f32 at T=136 and 1088 (F=81, dk=24), ms beside
-    ``scaled_dot_product_attention``; 3xTF32 within 5e-5 at T=136.
+    ``scaled_dot_product_attention``; 3xTF32 within 5e-5 at T=136; and
+    ``ops/tf32.py``, the plain model of the train kernels' products, bit
+    for bit equal to ``mma.sync`` (``probes/tf32_gemm.py``: one mma, a
+    chain, 3xTF32 with k-step partials as ``tc_gemm`` and over the whole K).
 
 Each family's wall seconds are printed.
 
@@ -204,7 +213,7 @@ from diffpose_tpu_torch.ops.fused_denoiser import (
 from diffpose_tpu_torch.ops import fused_cheb as fc
 from diffpose_tpu_torch.ops import fused_train as ft
 from diffpose_tpu_torch.ops.fused_graformer import make_graformer_fn
-from diffpose_tpu_torch.probes import ablate, batched_dot, time_ms
+from diffpose_tpu_torch.probes import ablate, batched_dot, tf32_gemm, time_ms
 from diffpose_tpu_torch.ops.fused_denoiser import _cheb, _layer_norm
 from diffpose_tpu_torch.ops.fused_video_full import fused_st_layer, fused_temporal_layer
 from diffpose_tpu_torch.ops.fused_pipeline import lift_and_denoise, make_eval_fn
@@ -214,7 +223,7 @@ from diffpose_tpu_torch.models.ema import ema_register, ema_update
 from diffpose_tpu_torch.train.optim import make_optimizer
 from diffpose_tpu_torch.train.state import TrainState
 from diffpose_tpu_torch.train.implicit_steps import make_implicit_train_step
-from diffpose_tpu_torch.train.steps import make_train_step, make_train_sweep_step
+from diffpose_tpu_torch.train.steps import make_draw, make_train_step, make_train_sweep_step
 
 SEED = 0
 BATCH = 1024
@@ -266,6 +275,10 @@ STABLE_SOLVES = (("anderson", 5), ("damped", 20))
 TRAIN_SOLVES = (("damped", 20, 10, 5, "entries"), ("anderson", 2, 2, 5, "entries"),
                 ("anderson", 3, 3, 3, "norms"), ("anderson", 20, 10, 5, "finite"))
 GRAD_NORM_RATIO = 5.0
+# More seeds (weights, data and dropout) of the damped 20/10 step's first-step
+# gradients in phase 14, printed beside the module on the card against the
+# module on the host: how far float32 rounding alone moves them at each draw.
+MARGIN_SEEDS = (1, 2, 3, 4, 5, 6)
 TOL_BN = 1e-5
 # The video family (configs/human36m_video.yml): 16 windows of 81 frames;
 # rows 9 and 10 also at a ragged 5 windows and at the published long window.
@@ -342,26 +355,77 @@ def grad_close(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def train_flops(w, batch: int):
-    """Multiply-adds (×2) of the stack forward and backward as the kernels compute them."""
+    """Multiply-adds (×2) of the stack forward and backward as the kernels
+    compute them, as (channel products, the rest): the products run on the
+    tensor cores, the rest on the CUDA cores."""
     H, L, n, nnz = w["hid_dim"], w["num_layers"], w["n_pts"], w["cheb_nnz"]
     fwd_gemm = H * 3 * H + H * H + H * 2 * H + 2 * H * H + 2 * (H * 3 * H)
-    fwd = n * (fwd_gemm + 2 * n * H + 2 * n * H) + 2 * nnz * H
+    fwd_rest = n * (2 * n * H + 2 * n * H) + 2 * nnz * H
     # two transposed Chebyshev products, fc2ᵀ, fc1ᵀ, out-projᵀ, the QKV recompute, QKVᵀ
     bwd_gemm = 2 * (3 * H * H) + 2 * (2 * H * H) + H * H + 2 * (H * 3 * H)
     # scores, dp, dq, dk, dv over n keys; two transposed learned-adjacency mixes
-    bwd = n * (bwd_gemm + 5 * n * H + 2 * n * H) + 2 * nnz * H
-    return 2 * batch * L * fwd, 2 * batch * L * bwd
+    bwd_rest = n * (5 * n * H + 2 * n * H) + 2 * nnz * H
+    return {"fwd": (2 * batch * L * n * fwd_gemm, 2 * batch * L * fwd_rest),
+            "bwd": (2 * batch * L * n * bwd_gemm, 2 * batch * L * bwd_rest)}
 
 
-def train_bytes(w, batch: int):
-    """Inputs read once and outputs written once, forward and backward."""
+def train_bytes(w, batch: int, masks: bool = True):
+    """Inputs read once and outputs written once, forward and backward; the
+    dropout masks only where the kernels read them (``masks``: rows 5-6,
+    not the seeded rows 7-8)."""
     H, L, n, heads = w["hid_dim"], w["num_layers"], w["n_pts"], w["num_heads"]
     weights = 4 * sum(w[k].numel() for k in ft.STACK_KEYS)
-    masks = L * batch * (heads * n * n + 4 * n * H)
+    mask = L * batch * (heads * n * n + 4 * n * H) if masks else 0
     row = 4 * batch * n * H                      # one [B, 17, H] f32 array
-    fwd = weights + masks + row + 4 * L * batch * H + row + L * row * 10     # h0, tp, d5, stashes
-    bwd = weights + masks + row + L * row * 7 + row + 4 * L * batch * H + L * row * 9
-    return fwd, bwd
+    fwd = weights + mask + row + 4 * L * batch * H + row + L * row * 10     # h0, tp, d5, stashes
+    bwd = weights + mask + row + L * row * 7 + row + 4 * L * batch * H + L * row * 9
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def train_bounds(w, batch: int):
+    """Rows 5-8's least times at one shape, {(kind, masks): (ms, by, fp32_ms)}:
+    the channel products at the dense TF32 tensor-core peak, three passes
+    (3xTF32), plus the rest at the FP32 peak, against the bytes; and, for
+    comparison with the earlier design, every operation at the FP32 peak
+    against the bytes with the masks counted for both pairs (the bound that
+    design was given)."""
+    flops, old_bytes = train_flops(w, batch), train_bytes(w, batch)
+    out = {}
+    for masks in (True, False):
+        nbytes = train_bytes(w, batch, masks)
+        for kind, (prod, rest) in flops.items():
+            ops_ms = 1e3 * (3 * prod / PEAK_TF32 + rest / PEAK_FP32)
+            bytes_ms = 1e3 * nbytes[kind] / PEAK_BYTES
+            ms, by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+            out[(kind, masks)] = (ms, by, bound_of(prod + rest, old_bytes[kind])[0])
+    return out
+
+
+def train_pair_times(w, h0, tp, seed, gen, rates, card, shape: str):
+    """Rows 5-8 at one shape, each launch timed turn by turn (explicit,
+    seeded, seeded, explicit), beside both bounds; {(kind, masks): ms}."""
+    L, bsz = w["num_layers"], h0.shape[0]
+    ikeep = ft._inv_keep(rates)
+    km = ft.kernel_masks(make_dropout_masks(gen, num_layers=L, n_pts=w["n_pts"], batch=bsz,
+                                            num_heads=w["num_heads"], hid_dim=w["hid_dim"],
+                                            rates=rates))
+    drop = ft._seeded(seed, rates)
+    st = ft._launch_fwd(w, h0, tp, drop, ikeep)[1]
+    dd5 = torch.randn_like(h0)
+    runs = {"fwd": (lambda: ft._launch_fwd(w, h0, tp, km, ikeep),
+                    lambda: ft._launch_fwd(w, h0, tp, drop, ikeep)),
+            "bwd": (lambda: ft._launch_bwd(w, km, st, dd5, ikeep),
+                    lambda: ft._launch_bwd(w, drop, st, dd5, ikeep))}
+    bounds, ms = train_bounds(w, bsz), {}
+    for kind, (explicit, seeded) in runs.items():
+        a, b, c, d = time_ms(explicit), time_ms(seeded), time_ms(seeded), time_ms(explicit)
+        ms[(kind, True)], ms[(kind, False)] = (a + d) / 2, (b + c) / 2
+    for (kind, masks), t in ms.items():
+        bms, by, fp32 = bounds[(kind, masks)]
+        print(f"train {kind} kernel ({'masks' if masks else 'prng '}) {shape}: {t:.4f} ms  bound "
+              f"{bms:.4f} ms ({by}; {100 * bms / t:.1f}%)  FP32-only bound {fp32:.4f} ms "
+              f"({100 * fp32 / t:.1f}%)  [{card}]")
+    return ms, bounds
 
 
 def bound_of(flops: int, nbytes: int):
@@ -569,14 +633,13 @@ def train_phases(dev, basis, diff, g):
     grad_inputs = [k["h0r"], k["tpr"], *[k["wr"][key] for key in ft.STACK_KEYS]]
     plain_bwd_ms = time_ms(lambda: torch.autograd.grad(k["d5_plain"], grad_inputs, k["dd5"],
                                                        retain_graph=True), reps=3)
-    (f_fl, b_fl), (f_by, b_by) = train_flops(wt, BATCH), train_bytes(wt, BATCH)
-    (f_bound, f_by_what), (b_bound, b_by_what) = bound_of(f_fl, f_by), bound_of(b_fl, b_by)
-    print(f"train fwd kernel B={BATCH}: {fwd_ms:.4f} ms  plain {plain_fwd_ms:.4f} ms  bound "
-          f"{f_bound:.4f} ms ({f_by_what}; {f_fl / 1e9:.2f} GFLOP, {f_by / 1e6:.1f} MB)  "
-          f"{f_fl / fwd_ms / 1e9:.1f} TFLOP/s")
-    print(f"train bwd kernel B={BATCH}: {bwd_ms:.4f} ms  plain autograd {plain_bwd_ms:.4f} ms  bound "
-          f"{b_bound:.4f} ms ({b_by_what}; {b_fl / 1e9:.2f} GFLOP, {b_by / 1e6:.1f} MB)  "
-          f"{b_fl / bwd_ms / 1e9:.1f} TFLOP/s")
+    flops, nbytes, bounds = train_flops(wt, BATCH), train_bytes(wt, BATCH), train_bounds(wt, BATCH)
+    for kind, t, plain in (("fwd", fwd_ms, plain_fwd_ms), ("bwd", bwd_ms, plain_bwd_ms)):
+        (prod, rest), (bms, by, fp32) = flops[kind], bounds[(kind, True)]
+        print(f"train {kind} kernel B={BATCH}: {t:.4f} ms  plain {plain:.4f} ms  bound {bms:.4f} ms "
+              f"({by}; {prod / 1e9:.2f} GFLOP products at 3xTF32, {rest / 1e9:.2f} GFLOP other, "
+              f"{nbytes[kind] / 1e6:.1f} MB)  FP32-only bound {fp32:.4f} ms  "
+              f"{(prod + rest) / t / 1e9:.1f} TFLOP/s")
     print(f"weight_grads B={BATCH}: {wg_ms:.4f} ms")
 
     step_ms = {}
@@ -606,15 +669,22 @@ def train_phases(dev, basis, diff, g):
 
     common = dict(route="cuda", source="diffpose_tpu_torch/csrc/train_kernel.cu", library_ms=None,
                   batch=BATCH, steps=TRAIN_STEPS)
-    ctx = dict(wt=wt, kept=kept, fresh=fresh, batch_of=batch_of, bounds=(f_bound, b_bound))
+    ctx = dict(wt=wt, kept=kept, fresh=fresh, batch_of=batch_of, bounds=bounds)
     return ctx, [
         dict(name="train_kernel[fwd]", replaces="diffpose_tpu/ops/pallas_train.py:215",
              launches=launches["fwd"], max_abs_err=errs["fwd"], ms=fwd_ms, plain_ms=plain_fwd_ms,
-             bound_ms=f_bound, bound_by=f_by_what, **common),
+             **train_record_bounds(bounds, "fwd", True), **common),
         dict(name="train_kernel[bwd]", replaces="diffpose_tpu/ops/pallas_train.py:531",
              launches=launches["bwd"], max_abs_err=errs["bwd"], ms=bwd_ms, plain_ms=plain_bwd_ms,
-             bound_ms=b_bound, bound_by=b_by_what, **common),
+             **train_record_bounds(bounds, "bwd", True), **common),
     ]
+
+
+def train_record_bounds(bounds, kind: str, masks: bool) -> dict:
+    """A row's bound keys on the kernels line: the TF32 bound, its kind and
+    the FP32-only bound of the earlier design."""
+    bms, by, fp32 = bounds[(kind, masks)]
+    return dict(bound_ms=bms, bound_by=by, bound_ms_fp32=fp32)
 
 
 def card_line() -> str:
@@ -701,8 +771,10 @@ def prng_phases(dev, diff, g, ctx, card):
     for name, (seeded, explicit) in runs.items():
         a, b, c, d = time_ms(explicit), time_ms(seeded), time_ms(seeded), time_ms(explicit)
         ms[name] = ((b + c) / 2, (a + d) / 2)
+        bms, by, fp32 = ctx["bounds"][(name, False)]
         print(f"prng {name} kernel B={BATCH}: seeded {b:.4f} {c:.4f} ms  explicit masks {a:.4f} "
-              f"{d:.4f} ms  bound {ctx['bounds'][name == 'bwd']:.4f} ms (operations)  [{card}]")
+              f"{d:.4f} ms  bound {bms:.4f} ms ({by}; {100 * bms / ms[name][0]:.1f}%)  FP32-only "
+              f"bound {fp32:.4f} ms ({100 * fp32 / ms[name][0]:.1f}%)  [{card}]")
     # the plain versions: philox_masks (numpy on the host, timed once) and then
     # layers_forward / stack_bwd_plain with those masks
     torch.cuda.synchronize()
@@ -728,14 +800,16 @@ def prng_phases(dev, diff, g, ctx, card):
               f"whole {got[2]:.4f} ms  {BATCH / got[2] * 1e3:.1f} frames/s  [{card}]")
 
     common = dict(route="cuda", source="diffpose_tpu_torch/csrc/train_kernel.cu", library_ms=None,
-                  batch=BATCH, bound_by="operations")
+                  batch=BATCH)
     return [
         dict(name="train_kernel[fwd,prng]", replaces="diffpose_tpu/ops/pallas_train.py:314",
              max_abs_err=errs["fwd"], ms=ms["fwd"][0], explicit_masks_ms=ms["fwd"][1],
-             plain_ms=philox_ms + plain_fwd, bound_ms=ctx["bounds"][0], **common),
+             plain_ms=philox_ms + plain_fwd, **train_record_bounds(ctx["bounds"], "fwd", False),
+             **common),
         dict(name="train_kernel[bwd,prng]", replaces="diffpose_tpu/ops/pallas_train.py:581",
              max_abs_err=errs["bwd"], ms=ms["bwd"][0], explicit_masks_ms=ms["bwd"][1],
-             plain_ms=philox_ms + plain_bwd, bound_ms=ctx["bounds"][1], **common),
+             plain_ms=philox_ms + plain_bwd, **train_record_bounds(ctx["bounds"], "bwd", False),
+             **common),
     ]
 
 
@@ -1045,6 +1119,30 @@ def implicit_kernel_phases(dev, basis, gen, g, card):
             check(max(rel) <= TOL_STEP_LOSS and dbn <= TOL_BN and worst[0] < GRAD_REL,
                   f"{solver} {mx}/{mn}: fused step against the module step")
 
+    # 14 (margin). the damped step's first-step gradients on more seeds, one
+    # draw each (its seed for the fused forward, that seed's Philox masks for
+    # the module's), beside the module on the host: float32 rounding alone
+    draw = make_draw(BETAS, dev, num_layers=model.num_layers, num_heads=model.num_heads,
+                     hid_dim=model.hid_dim, dropout="prng", masks_dtype=torch.float32)
+    host = torch.device("cpu")
+    with torch.random.fork_rng(devices=[]):   # the later phases draw as before
+        for s in MARGIN_SEEDS:
+            torch.manual_seed(SEED + s)
+            ms_model = with_solver(seeded_igcn(basis, dev, torch.Generator().manual_seed(SEED + s)),
+                                   "damped", 20, 10).train()
+            d = draw(batches[s % IMPLICIT_STEPS], torch.Generator(device=dev).manual_seed(SEED + s))
+            gf, gm = implicit_grads(ms_model, d, "fused"), implicit_grads(ms_model, d, "module")
+            d_host = d._replace(x_t=d.x_t.to(host), t=d.t.to(host), e=d.e.to(host),
+                                masks=type(d.masks)(*(f.to(host) for f in d.masks)))
+            gh = implicit_grads(copy.deepcopy(ms_model).to(host), d_host, "module")
+            keys = [k for k in gf if not k.endswith("self_attn.linears.1.bias")]
+            wf = max((grad_close(gf[k], gm[k]), k) for k in keys)
+            wh = max((grad_close(gm[k].to(host), gh[k]), k) for k in keys)
+            print(f"  damped 20/10, seed {SEED + s}: worst first-step gradient rel err fused vs module "
+                  f"{wf[0]:.2e} ({wf[1]}); the module on the card vs on the host {wh[0]:.2e} ({wh[1]})")
+            check(all(bool(torch.isfinite(v).all()) for v in (*gf.values(), *gm.values())),
+                  f"damped 20/10, seed {SEED + s}: non-finite gradients")
+
     # 16 (kernel part). times
     times = {}
     with torch.no_grad():
@@ -1094,6 +1192,8 @@ def implicit_kernel_phases(dev, basis, gen, g, card):
     print(f"  parts: {n + 1} forward kernels {(n + 1) * fwd_ms:.4f} ({fwd_ms:.4f} each)  {n} backward kernels "
           f"{n * bwd_ms:.4f} ({bwd_ms:.4f})  {n} weight_grads {n * wg_ms:.4f} ({wg_ms:.4f})  "
           f"rest {rest:.4f} ms")
+    pair = train_pair_times(wt, z, tp, seed, g, None, card,
+                            f"B={IMPLICIT_BATCH}, {wt['num_layers']} layers (implicit)")
     if "--profile" in sys.argv[1:]:
         profile_fused_step((state, step), d, steps=2)
     ms, plain_ms, bms, bwhat = times[IMPLICIT_BATCH]
@@ -1103,7 +1203,7 @@ def implicit_kernel_phases(dev, basis, gen, g, card):
                   plain_ms=plain_ms, bound_ms=bms, bound_by=bwhat, library_ms=None,
                   batch=IMPLICIT_BATCH, ms_b1024=times[ROW3_BATCHES[1]][0],
                   bound_ms_b1024=times[ROW3_BATCHES[1]][2])
-    return record
+    return record, pair
 
 
 def implicit_cli_phases(card):
@@ -1461,6 +1561,8 @@ def video_kernel_phases(dev, basis, gen, g, card):
           f"{4 * fwd_ms:.4f} ({fwd_ms:.4f} each), 4 backward {4 * bwd_ms:.4f} ({bwd_ms:.4f}), 4 "
           f"weight_grads {4 * wg_ms:.4f} ({wg_ms:.4f}), rest (temporal blocks under autograd, "
           f"ChebConvs, weight prep, clip, Adam, EMA) {rest:.4f} ms  [{card}]")
+    pair = train_pair_times(w1, z, tp0, seed, g, fvt.video_dropout_rates(st.model), card,
+                            f"{z.shape[0]} rows, 1 layer (video)")
 
     r = records[(VIDEO_FRAMES, VIDEO_BATCH)]
     extra = {f"F{f}_B{b}": {k: v for k, v in rec.items() if k in ("k10", "k9", "b10", "b9", "p10", "p9")}
@@ -1476,7 +1578,7 @@ def video_kernel_phases(dev, basis, gen, g, card):
     row9 = dict(name="video_kernel[st_layer]", replaces="diffpose_tpu/ops/pallas_video_full.py:148",
                 max_abs_err=errs["row9"], ms=r["k9"], plain_ms=r["p9"], bound_ms=r["b9"],
                 bound_by=r["by9"], library_ms=None, occupancy=occupancy["st"], **common)
-    return row9, row10, masks_launches, row3_video
+    return row9, row10, masks_launches, row3_video, pair
 
 
 def library_temporal_block(tw, ht, layer):
@@ -1830,7 +1932,9 @@ def attention_bound(rows: int, frames: int, dk: int, passes: int = 3):
 def attention_probe_phases(card):
     """Phase 24: row 12.  Both TF32 modes' max |Δ| against the f32 plain twin
     and ms at the JAX probe's shape and row 10's, beside SDPA; 3xTF32 must be
-    within 5e-5 at T=136.  Returns row 12's record."""
+    within 5e-5 at T=136.  Then ``ops/tf32.py`` must equal ``mma.sync`` bit
+    for bit in every case of ``probes/tf32_gemm.py``.  Returns row 12's
+    record."""
     batched_dot.batched_attention.launches = 0
     res = batched_dot.run()
     launches = batched_dot.batched_attention.launches
@@ -1845,6 +1949,13 @@ def attention_probe_phases(card):
     first = res[batched_dot.SHAPES[0]]
     check(first["3xtf32"]["max_abs_err"] <= TOL_KERNEL,
           f"3xTF32 attention at {batched_dot.SHAPES[0]}: {first['3xtf32']['max_abs_err']}")
+    tf32_gemm.gemm.launches = 0
+    model_check = tf32_gemm.run()
+    check(tf32_gemm.gemm.launches == len(model_check), "the TF32 probe launched no kernel")
+    for name, rec in model_check.items():
+        print(f"ops/tf32.py against mma.sync, {name}: {rec['differing']} of {rec['of']} elements "
+              f"differ (max |Δ| {rec['max_abs_diff']:.3e})")
+        check(rec["differing"] == 0, f"the plain TF32 model differs from mma.sync: {name}")
     return dict(name="probe_attention[3xtf32]", route="cuda",
                 source="diffpose_tpu_torch/csrc/probe_attention.cu",
                 replaces="scripts/probe_batched_dot.py:22", launches=launches,
@@ -1876,6 +1987,9 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    spills = [l for l in _build.build_log("train_kernel").splitlines() if "spill" in l]
+    check(len(spills) == 4 and all("0 bytes spill stores, 0 bytes spill loads" in l for l in spills),
+          f"the train kernels spill registers: {spills}")
 
     # 2. models with seeded weights, and each kernel against its plain version
     torch.manual_seed(SEED)
@@ -1985,10 +2099,10 @@ def main() -> int:
     cli_counts = cli_phases(card)
 
     t_implicit = time.perf_counter()
-    backbone_record = implicit_kernel_phases(dev, basis, gen, g, card)
+    backbone_record, implicit_pair = implicit_kernel_phases(dev, basis, gen, g, card)
     implicit_counts = implicit_cli_phases(card)
     t_video = time.perf_counter()
-    row9, row10, masks_launches, row3_video = video_kernel_phases(dev, basis, gen, g, card)
+    row9, row10, masks_launches, row3_video, video_pair = video_kernel_phases(dev, basis, gen, g, card)
     video_runs = video_cli_phases(card)
     t_graformer = time.perf_counter()
     row4 = graformer_phases(dev, gen, g, card)
@@ -2001,6 +2115,14 @@ def main() -> int:
                             video_launches=video[key]))
     for rec, key in zip(kernels[2:4], ("fwd", "bwd")):
         rec["video_launches"] = masks_launches[key]     # phase 19's explicit-mask steps
+    # rows 5-8: the other two main-path shapes, and ptxas' resources
+    usage = ptxas_usage("train_kernel")
+    for rec, kind, masks in zip(kernels[2:6], ("fwd", "bwd", "fwd", "bwd"), (True, True, False, False)):
+        for tag, (pair_ms, pair_bounds) in (("b512", implicit_pair), ("video", video_pair)):
+            rec[f"ms_{tag}"] = pair_ms[(kind, masks)]
+            rec[f"bound_ms_{tag}"], _, rec[f"bound_ms_fp32_{tag}"] = pair_bounds[(kind, masks)]
+        entry = f"train_{'forward' if kind == 'fwd' else 'backward'}_kernelILb{0 if masks else 1}"
+        rec["ptxas"] = next(v for k, v in usage.items() if entry in k)
     kernels.insert(2, dict(backbone_record, launches=implicit_counts["backbone"],
                            video_launches=video["backbone"], **row3_video))
     kernels.append(dict(row9, launches=video_runs["fused_full"]["st"],

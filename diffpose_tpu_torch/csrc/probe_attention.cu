@@ -16,7 +16,8 @@
 // 16 x F score strip in registers (accumulator layout), takes the softmax
 // there (a row's entries live in the 4 lanes of a quad), writes the
 // probabilities to its own shared-memory strip and reads them back in the
-// A-operand layout for P V.  Plain C interface for ctypes, built by
+// A-operand layout for P V.  The TF32 split and the mma are
+// csrc/mma_tf32.cuh's.  Plain C interface for ctypes, built by
 // diffpose_tpu_torch/ops/_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared -Xcompiler -fPIC
 #include <cuda_runtime.h>
@@ -24,7 +25,11 @@
 #include <cmath>
 #include <cstdint>
 
+#include "mma_tf32.cuh"
+
 namespace probe_attn {
+
+using tf32::mma_f32;
 
 constexpr int DK = 24;
 constexpr int MAX_F = 96;
@@ -32,43 +37,6 @@ constexpr int MAX_WARPS = MAX_F / 16;        // query tiles of 16
 constexpr int MAX_NT = MAX_F / 8;            // key tiles of 8
 constexpr int LDQ = DK + 4;                  // row strides in shared memory, floats
 constexpr int LDP = MAX_F + 4;
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// An operand as TF32 parts: big = tf32(x), small = tf32(x - big).
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += A B for a 16x8 tile, A = 16 x 8 and B = 8 x 8 given as f32 fragments:
-// a[i] at (row g + 8 * (i & 1), col t + 4 * (i >> 1)), b[i] at (row t + 4 * i,
-// col g), g = lane / 4, t = lane % 4 (PTX ISA, m16n8k8 .tf32 fragments).
-template <int MODE>
-__device__ __forceinline__ void mma_f32(float (&d)[4], const float (&a)[4], const float (&b)[2]) {
-  uint32_t ab[4], as[4], bb[2], bs[2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split(a[i], ab[i], as[i]);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) split(b[i], bb[i], bs[i]);
-  if constexpr (MODE == 3) {  // the small products first, then the big one
-    mma(d, ab, bs);
-    mma(d, as, bb);
-  }
-  mma(d, ab, bb);
-}
 
 template <int MODE>
 __global__ void __launch_bounds__(32 * MAX_WARPS) attention_kernel(const float* __restrict__ q,

@@ -74,8 +74,8 @@ extern "C" int train_stack_forward(
       ha,   hb,   hc,   y1,   att,  r1,   rc1,      u,        rd1,      batch,    num_layers,
       ikp,  iks,  ikc};
   const auto s = static_cast<cudaStream_t>(stream);
-  return seeded ? launch(traink::train_forward_kernel<true>, a, netk::SMEM_BYTES, s)
-                : launch(traink::train_forward_kernel<false>, a, netk::SMEM_BYTES, s);
+  return seeded ? launch(traink::train_forward_kernel<true>, a, traink::FWD_SMEM_BYTES, s)
+                : launch(traink::train_forward_kernel<false>, a, traink::FWD_SMEM_BYTES, s);
 }
 
 extern "C" int train_stack_backward(

@@ -7,11 +7,11 @@
 // dropout decision is drawn in the kernel with Philox4x32-10 from the step
 // seed and the element's place, keyed as philox.cuh sets out, so the
 // backward regenerates the forward's masks and none exists in device
-// memory; the forward can dump what it drew).  The tile, the thread block
-// and the GEMM, mixing and LayerNorm stages are those of net_kernel.cuh:
-// one CTA owns TB samples (ROWS joint rows, sample-major); the forward keeps
-// the residual stream h in shared memory through all layers, the backward
-// its gradient dh.  Everything in global memory is batch-major:
+// memory; the forward can dump what it drew).  One CTA of 288 threads (9
+// warps) owns TB = 4 samples (ROWS joint rows, sample-major, padded to 72);
+// the forward keeps the residual stream h in shared memory through all
+// layers, the backward its gradient dh.  Everything in global memory is
+// batch-major:
 //
 //   stashes / d-stashes  [L, B*17, width]   f32
 //   site masks           [L, B*17, HID]     uint8 0/1
@@ -20,10 +20,36 @@
 // Rows of absent samples in a ragged last tile hold zeros in h / dh, are
 // never loaded from or stored to global memory, and stay finite elsewhere.
 //
-// As in net_kernel.cuh, every stage is a loop over work items separated by
-// __syncthreads(), with no warp intrinsics.
+// Bound on the H100: the channel products (92-94% of the operations).
+// The design for it:
+//   - every channel product (QKV, out-projection, fc1, fc2, the two
+//     Chebyshev convs, and in the backward their transposes and the QKV
+//     recompute) runs on the tensor cores, mma.sync m16n8k8 at 3xTF32 with
+//     f32 accumulation (tc_gemm; the counterpart of the TPU kernels'
+//     bf16x3 products, pallas_denoiser.py:_dot);
+//   - the weights stream from L2 in K-slabs of 32 rows through a ring in
+//     shared memory (3 stages in the forward, 2 in the backward), filled by
+//     cp.async while the previous slab multiplies, each weight split into
+//     its TF32 parts once per CTA; a product's first slabs are requested as
+//     soon as the ring is free, before the stages that precede it; the
+//     backward's ring shares its space with the attention-backward scratch,
+//     the forward's lends the attention its score rows;
+//   - the LayerNorms and their backward take one warp a row, with
+//     shuffle reductions;
+//   - elementwise stages that only need what one thread (or one product
+//     fragment) holds run in the epilogue of the stage that feeds them:
+//     the out-projection's residual dropout, fc1's stash, the backward's
+//     ReLU gate of df1 and the dropout of du; the mixes carry the
+//     residuals after them.
+// The graph mixes, attention and Philox stay on CUDA cores, one work item a
+// thread between barriers, as in net_kernel.cuh.  With 9 warps a thread has
+// at most 168 registers (3 warps share an SM quarter's 16K); every stage is
+// written to fit them: ptxas reports no spill for any instantiation.
 #pragma once
 
+#include <cmath>
+
+#include "mma_tf32.cuh"
 #include "net_kernel.cuh"
 #include "philox.cuh"
 
@@ -101,9 +127,6 @@ struct BwdArgs {
 __device__ __forceinline__ float4 mul4(float4 a, float4 b) {
   return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
 }
-__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
-  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
-}
 // Four 0/1 mask bytes (4-byte aligned) as dropout factors 0 or s.
 __device__ __forceinline__ float4 mask4(const unsigned char* m, float s) {
   const unsigned int v = __ldg(reinterpret_cast<const unsigned int*>(m));
@@ -136,11 +159,50 @@ struct Site {
       return mask4(m + r * HID + c, s);
     }
   }
+  // The same decisions for the elements of an mma accumulator fragment
+  // (tc_gemm): rows rb + 2t + (i & 1), columns m0 + g + 8 (i >> 1) of a 16x8
+  // tile, g = lane / 4, t = lane % 4.  Drawn: frag_draw has each lane of the
+  // warp make one Philox call, row rb + 2t + (g & 1) and columns m0 + 4 (g >> 1)
+  // .. +3 (so a tile's 8 (row, group of 4) calls are made once), and dumps it
+  // for a real row; frag_factor fetches an element's bit from the lane that
+  // drew it.  Both run on every lane of the warp.  Explicit: frag_draw reads
+  // the mask bytes of the lane's own 4 elements (0 past the real rows) as bits
+  // 0..3.
+  __device__ __forceinline__ unsigned frag_draw(int rb, int m0, int g, int t, int nreal) const {
+    if constexpr (PRNG) {
+      const int r = rb + 2 * t + (g & 1);
+      const int c = m0 + 4 * (g >> 1);
+      const unsigned group = (r % N_PTS) * (HID / 4) + c / 4;
+      const unsigned bits = philox::keep4(
+          philox::philox4x32_10(make_uint4(group, b0 + r / N_PTS, 0u, 0u), k0, k1), thresh);
+      if (dump != nullptr && r < nreal)
+        *reinterpret_cast<unsigned int*>(dump + r * HID + c) =
+            (bits & 1u) | (bits & 2u) << 7 | (bits & 4u) << 14 | (bits & 8u) << 21;
+      return bits;
+    } else {
+      unsigned bits = 0u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = rb + 2 * t + (i & 1);
+        if (r < nreal && __ldg(m + r * HID + m0 + g + 8 * (i >> 1)) != 0) bits |= 1u << i;
+      }
+      return bits;
+    }
+  }
+  __device__ __forceinline__ float frag_factor(unsigned bits, int i, int g, int t, float s) const {
+    if constexpr (PRNG) {
+      const int cc = g + 8 * (i >> 1);                       // column in the tile
+      const unsigned b = __shfl_sync(0xffffffffu, bits, ((2 * (cc >> 2) + (i & 1)) << 2) | t);
+      return (b >> (cc & 3) & 1u) ? s : 0.f;
+    } else {
+      return (bits >> i & 1u) ? s : 0.f;
+    }
+  }
 };
 
-// The dropout of the attention probabilities over one tile in one layer.
-// Drawn: row(b, hd, n) draws the query's row once, bit m set where the
-// probability of key m is kept.  Explicit: keep() reads the mask's byte.
+// The dropout of the attention probabilities over one tile in one layer:
+// row(b, hd, n) gives the query's row as bits, bit m set where the
+// probability of key m is kept, drawn once (or read from the mask once).
 template <bool PRNG>
 struct Probs {
   const unsigned char* m;   // explicit: the tile's first sample in [L, B, HEADS, 17, 17]
@@ -149,17 +211,11 @@ struct Probs {
   static __device__ __forceinline__ int at(int b, int hd, int n) {
     return ((b * HEADS + hd) * N_PTS + n) * N_PTS;
   }
-  __device__ __forceinline__ bool keep(unsigned bits, int pos, int k) const {
-    if constexpr (PRNG) {
-      return (bits >> k & 1u) != 0u;
-    } else {
-      return __ldg(m + pos + k) != 0;
-    }
-  }
+  static __device__ __forceinline__ bool keep(unsigned bits, int k) { return (bits >> k & 1u) != 0u; }
   __device__ __forceinline__ unsigned row(int b, int hd, int n) const {
     unsigned bits = 0u;
+    const int pos = at(b, hd, n);
     if constexpr (PRNG) {
-      const int pos = at(b, hd, n);
       const unsigned group = static_cast<unsigned>(hd * N_PTS + n) << 3;
 #pragma unroll
       for (int j = 0; j < (N_PTS + 3) / 4; ++j)
@@ -171,6 +227,9 @@ struct Probs {
 #pragma unroll
         for (int k = 0; k < N_PTS; ++k) dump[pos + k] = (bits >> k) & 1u;
       }
+    } else {
+#pragma unroll
+      for (int k = 0; k < N_PTS; ++k) bits |= (__ldg(m + pos + k) != 0 ? 1u : 0u) << k;
     }
     return bits;
   }
@@ -228,12 +287,557 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ src, float* 
 }
 
 // ---------------------------------------------------------------------------
+// Channel products on the tensor cores (3xTF32), LayerNorms a warp a row
+// ---------------------------------------------------------------------------
+
+constexpr int WARPS = THREADS / 32;                      // 9
+static_assert(ROWS_PAD == 9 * 8, "the tile's padded rows are 9 n8 tiles");
+
+// The products run 96 output columns at a time (a "chunk"), so that a warp
+// holds 2 x 3 accumulator tiles whatever the width.  The weight ring: S
+// stages of a slab of KS rows of W's chunk, each as TF32 big and small parts,
+// rows LDR floats apart (== 8 mod 32: conflict-free A fragments).
+constexpr int CW = HID;                                  // columns a chunk
+constexpr int LDR = CW + 8;
+constexpr int FWD_KS = 32, FWD_STAGES = 3;               // rows of W a slab, slabs in the ring
+constexpr int BWD_KS = 32, BWD_STAGES = 2;
+constexpr int FWD_RING = FWD_STAGES * 2 * FWD_KS * LDR;
+constexpr int BWD_RING = BWD_STAGES * 2 * BWD_KS * LDR;
+
+// Slab j of a product of N columns, chunk j / NSK and rows (j % NSK) * KS ..
+// of W [K, N] (global, read-only), into ring stage j % S by cp.async, 16
+// bytes a thread and piece.
+template <int N, int NSK, int S, int KS>
+__device__ __forceinline__ void stage_slab(const float* __restrict__ W, float* ring, int j, int tid) {
+  constexpr int NG = CW / 4;
+  float* dst = ring + (j % S) * 2 * KS * LDR;
+  const float* src = W + static_cast<size_t>(j % NSK) * KS * N + (j / NSK) * CW;
+  for (int it = tid; it < KS * NG; it += THREADS) {
+    const int r = it / NG, c = 4 * (it % NG);
+    tf32::cp_async16(dst + r * LDR + c, src + r * N + c);
+  }
+}
+
+// After the wait: every thread splits the pieces it copied itself (its own
+// cp.async writes are visible to it without a barrier): big in place, small
+// KS rows further on.  So each weight is split once per CTA.
+template <int S, int KS>
+__device__ __forceinline__ void split_slab(float* ring, int j, int tid) {
+  constexpr int NG = CW / 4;
+  float* big = ring + (j % S) * 2 * KS * LDR;
+  for (int it = tid; it < KS * NG; it += THREADS) {
+    float* p = big + (it / NG) * LDR + 4 * (it % NG);
+    const float4 v = ld4(p);
+    uint32_t b[4], sm[4];
+    tf32::split(v.x, b[0], sm[0]);
+    tf32::split(v.y, b[1], sm[1]);
+    tf32::split(v.z, b[2], sm[2]);
+    tf32::split(v.w, b[3], sm[3]);
+    st4(p, make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]), __uint_as_float(b[2]),
+                       __uint_as_float(b[3])));
+    st4(p + KS * LDR, make_float4(__uint_as_float(sm[0]), __uint_as_float(sm[1]),
+                                  __uint_as_float(sm[2]), __uint_as_float(sm[3])));
+  }
+}
+
+// The first S - 1 slabs of the product A @ W (K x N) into the ring, one
+// commit group each: issued as soon as the ring is free (after the barrier
+// that follows the previous product), so that they land during the stages
+// before tc_gemm.  No other cp.async may be issued in between.
+template <int K, int N, int S, int KS>
+__device__ __forceinline__ void tc_prefetch(const float* __restrict__ W, float* ring, int tid) {
+  constexpr int NSK = K / KS, TOTAL = (N / CW) * NSK;
+#pragma unroll
+  for (int j = 0; j < S - 1; ++j) {
+    if (j < TOTAL) stage_slab<N, NSK, S, KS>(W, ring, j, tid);
+    tf32::cp_async_commit();
+  }
+}
+
+// C (epilogue) A[r, :K] @ W[:K, :N] for the tile's 72 padded rows, as
+// Cᵀ = Wᵀ Aᵀ on mma.sync m16n8k8 TF32 at 3xTF32 (big·big + big·small +
+// small·big, f32 accumulation), N / 96 chunks of 96 columns one after the
+// other: a chunk's 96 columns are the M side (6 m16 tiles), the 72 rows the
+// N side (9 n8 tiles); warp w = (w / 3, w % 3) owns m tiles 2 (w / 3) .. +1
+// and n tiles 3 (w % 3) .. +2.  W streams through the S-stage ring in slabs
+// of KS rows of a chunk, S - 1 slabs in flight while one multiplies, one
+// barrier a slab, across chunk boundaries.  A's rows are LDA ≡ 4 (mod 32)
+// floats apart, so its B fragments load without bank conflicts.  After a
+// chunk's last slab the warp hands its accumulators to the epilogue,
+// epi(acc, m0, rb, g, t): acc[mt][nt][i] is column m0 + 16 mt + g + 8 (i >> 1),
+// row rb + 8 nt + 2 t + (i & 1).  C must not overlap A; nothing reads C
+// before the caller's barrier.  The caller brackets the call with barriers:
+// A is complete before it, and the ring is not written again until after
+// the next; tc_prefetch<K, N, S, KS>(W, ...) has been called since that
+// barrier.
+template <int K, int N, int LDA, int S, int KS, class Epi>
+__device__ __forceinline__ void tc_gemm(const float* A, const float* __restrict__ W, float* ring,
+                                        const Epi& epi, int tid) {
+  constexpr int NSK = K / KS, TOTAL = (N / CW) * NSK;
+  static_assert(K % KS == 0 && KS % 8 == 0 && N % CW == 0 && S >= 2, "product shape");
+  static_assert(LDR % 32 == 8, "slab rows must be 8 mod 32 floats apart");
+  static_assert(LDA % 32 == 4, "A's row stride must be 4 mod 32 floats");
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int m_warp = (warp / 3) * 32, rb = (warp % 3) * 24;
+
+  float acc[2][3][4];
+  for (int j = 0; j < TOTAL; ++j) {
+    if (j % NSK == 0) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+    }
+    tf32::cp_async_wait<S - 2>();      // slab j has landed (this thread's part)
+    split_slab<S, KS>(ring, j, tid);
+    __syncthreads();                   // slab j split everywhere; slab j - 1 read by all
+    if (j + S - 1 < TOTAL) stage_slab<N, NSK, S, KS>(W, ring, j + S - 1, tid);
+    tf32::cp_async_commit();
+    const float* wb = ring + (j % S) * 2 * KS * LDR;
+    const float* ws = wb + KS * LDR;
+    const float* a0 = A + (rb + g) * LDA + (j % NSK) * KS + t;
+#pragma unroll 1   // unrolled, the k-steps' hoisted fragments outgrow 168 registers
+    for (int kk = 0; kk < KS; kk += 8) {
+      uint32_t bb[3][2], bs[3][2];
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt) {
+        tf32::split(a0[8 * nt * LDA + kk], bb[nt][0], bs[nt][0]);
+        tf32::split(a0[8 * nt * LDA + kk + 4], bb[nt][1], bs[nt][1]);
+      }
+      // An m tile at a time: its k-step's three passes (the small products
+      // first, then the big one; the three n tiles take turns) go to a fresh
+      // partial sum, added to the accumulator in f32 with round-to-nearest.
+      // The tensor cores' own accumulation truncates; fed the whole K, its
+      // bias grows with K and through the implicit family's solves.
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int o0 = (kk + t) * LDR + m_warp + 16 * mt + g, o1 = o0 + 4 * LDR;
+        const int o[4] = {o0, o0 + 8, o1, o1 + 8};
+        uint32_t ab[4], as[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ab[i] = __float_as_uint(wb[o[i]]);
+          as[i] = __float_as_uint(ws[o[i]]);
+        }
+        float part[3][4] = {};
+#pragma unroll
+        for (int nt = 0; nt < 3; ++nt) tf32::mma(part[nt], ab, bs[nt]);
+#pragma unroll
+        for (int nt = 0; nt < 3; ++nt) tf32::mma(part[nt], as, bb[nt]);
+#pragma unroll
+        for (int nt = 0; nt < 3; ++nt) tf32::mma(part[nt], ab, bb[nt]);
+#pragma unroll
+        for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[nt][i];
+      }
+    }
+    if (j % NSK == NSK - 1) epi(acc, (j / NSK) * CW + m_warp, rb, g, t);
+  }
+}
+
+// Epilogues.  Each gathers what it reads from global memory for a group of
+// the warp's elements before it stores anything, so that the loads overlap.
+using Acc = float[2][3][4];
+__device__ __forceinline__ int frag_row(int rb, int nt, int i, int t) { return rb + 8 * nt + 2 * t + (i & 1); }
+__device__ __forceinline__ int frag_col(int m0, int mt, int i, int g) { return m0 + 16 * mt + g + 8 * (i >> 1); }
+
+// The bias of the warp's four columns, [mt][i >> 1].
+__device__ __forceinline__ void frag_bias(const float* __restrict__ bias, int m0, int g,
+                                          float (&b)[2][2]) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) b[mt][h] = __ldg(bias + m0 + 16 * mt + g + 8 * h);
+}
+
+// C[r, c] (=, +=) acc (+ bias[c]) for the tile's rows.
+template <int LDC, bool BIAS, bool ADD>
+struct EpSmem {
+  float* c;
+  const float* bias;
+  __device__ __forceinline__ void operator()(const Acc& d, int m0, int rb, int g, int t) const {
+    float b[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    if constexpr (BIAS) frag_bias(bias, m0, g, b);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = frag_row(rb, nt, i, t), col = frag_col(m0, mt, i, g);
+          if (r >= ROWS) continue;
+          float v = d[mt][nt][i] + b[mt][i >> 1];
+          if constexpr (ADD) v += c[r * LDC + col];
+          c[r * LDC + col] = v;
+        }
+  }
+};
+
+// fc1: relu(acc + bias) into C (LDB), stashed (W wide) for the real rows.
+template <int W>
+struct EpReluStash {
+  float* c;
+  const float* bias;
+  float* stash;
+  int nreal;
+  __device__ __forceinline__ void operator()(const Acc& d, int m0, int rb, int g, int t) const {
+    float b[2][2];
+    frag_bias(bias, m0, g, b);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = frag_row(rb, nt, i, t), col = frag_col(m0, mt, i, g);
+          if (r >= ROWS) continue;
+          const float v = fmaxf(d[mt][nt][i] + b[mt][i >> 1], 0.f);
+          c[r * LDB + col] = v;
+          if (r < nreal) stash[r * W + col] = v;
+        }
+  }
+};
+
+// The Philox draws of the warp's 6 tiles (Site::frag_draw), [mt][nt].
+template <bool PRNG>
+__device__ __forceinline__ void frag_draws(const Site<PRNG>& mask, int m0, int rb, int g, int t,
+                                           int nreal, unsigned (&bits)[2][3]) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 3; ++nt) bits[mt][nt] = mask.frag_draw(rb + 8 * nt, m0 + 16 * mt, g, t, nreal);
+}
+
+// The out-projection's residual: h += (acc + bias) * mask * scale over the
+// real rows, the new h stashed.
+template <bool PRNG>
+struct EpResidual {
+  float* h;
+  const float* bias;
+  Site<PRNG> mask;
+  float scale;
+  float* stash_h;
+  int nreal;
+  __device__ __forceinline__ void operator()(const Acc& d, int m0, int rb, int g, int t) const {
+    float b[2][2];
+    unsigned bits[2][3];
+    frag_bias(bias, m0, g, b);
+    frag_draws(mask, m0, rb, g, t, nreal, bits);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float f = mask.frag_factor(bits[mt][nt], i, g, t, scale);
+          const int r = frag_row(rb, nt, i, t), col = frag_col(m0, mt, i, g);
+          if (r >= nreal) continue;
+          const float hv = h[r * LDH + col] + (d[mt][nt][i] + b[mt][i >> 1]) * f;
+          h[r * LDH + col] = hv;
+          stash_h[r * HID + col] = hv;
+        }
+  }
+};
+
+// du = the product, into du; dc1 = du * mask * scale where rc1 > 0 into dc
+// and its d-stash (real rows; 0 in the absent ones).  An m tile (12
+// elements) at a time: its 3 Philox draws, then its 12 values of rc1.
+template <bool PRNG>
+struct EpDu {
+  float* du;
+  float* dc;
+  Site<PRNG> mask;
+  float scale;
+  const float* rc1;
+  float* dstash;
+  int nreal;
+  __device__ __forceinline__ void operator()(const Acc& d, int m0, int rb, int g, int t) const {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      unsigned bits[3];
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt) bits[nt] = mask.frag_draw(rb + 8 * nt, m0 + 16 * mt, g, t, nreal);
+      float x[3][4];
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = frag_row(rb, nt, i, t), col = frag_col(m0, mt, i, g);
+          x[nt][i] = r < nreal ? __ldg(rc1 + r * HID + col) : 0.f;
+        }
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float f = mask.frag_factor(bits[nt], i, g, t, scale);
+          const int r = frag_row(rb, nt, i, t), col = frag_col(m0, mt, i, g);
+          if (r >= ROWS) continue;
+          du[r * LDH + col] = d[mt][nt][i];
+          const float v = x[nt][i] > 0.f ? d[mt][nt][i] * f : 0.f;
+          if (r < nreal) dstash[r * HID + col] = v;
+          dc[r * LDH + col] = v;
+        }
+    }
+  }
+};
+
+// df1 = the product where r1 > 0, into C (LDB) and its d-stash (2·HID
+// wide); absent rows 0.  r1 is gathered an m tile at a time.
+struct EpGate {
+  float* c;
+  const float* r1;
+  float* dstash;
+  int nreal;
+  __device__ __forceinline__ void operator()(const Acc& d, int m0, int rb, int g, int t) const {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      float x[3][4];
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = frag_row(rb, nt, i, t), col = frag_col(m0, mt, i, g);
+          x[nt][i] = r < nreal ? __ldg(r1 + r * 2 * HID + col) : 0.f;
+        }
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = frag_row(rb, nt, i, t), col = frag_col(m0, mt, i, g);
+          if (r >= ROWS) continue;
+          const float v = x[nt][i] > 0.f ? d[mt][nt][i] : 0.f;
+          if (r < nreal) dstash[r * 2 * HID + col] = v;
+          c[r * LDB + col] = v;
+        }
+    }
+  }
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// y = LayerNorm(x) per row, a * (x - mean) / (std + 1e-6) + b with the
+// Bessel std, one warp a row (columns lane, lane + 32, lane + 64); also into
+// stash for the real rows where given.
+__device__ __forceinline__ void layer_norm_warp(const float* in, float* out,
+                                                const float* __restrict__ scale,
+                                                const float* __restrict__ shift,
+                                                float* __restrict__ stash, int nreal, int tid) {
+  const int lane = tid & 31;
+  float sc[3], sh[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    sc[j] = __ldg(scale + lane + 32 * j);
+    sh[j] = __ldg(shift + lane + 32 * j);
+  }
+  // two rows at a time, r and r + WARPS, so that their reductions interleave
+  for (int r0 = tid >> 5; r0 < ROWS; r0 += 2 * WARPS) {
+    float v[2][3], mean[2], ss[2] = {0.f, 0.f};
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int r = min(r0 + q * WARPS, ROWS - 1);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) v[q][j] = in[r * LDH + lane + 32 * j];
+      mean[q] = v[q][0] + v[q][1] + v[q][2];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) mean[q] += __shfl_xor_sync(0xffffffffu, mean[q], o);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      mean[q] /= HID;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        v[q][j] -= mean[q];
+        ss[q] = fmaf(v[q][j], v[q][j], ss[q]);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) ss[q] += __shfl_xor_sync(0xffffffffu, ss[q], o);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int r = r0 + q * WARPS;
+      if (r >= ROWS) break;
+      const float den = sqrtf(ss[q] / (HID - 1)) + 1e-6f;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int c = lane + 32 * j;
+        const float o = sc[j] * v[q][j] / den + sh[j];
+        out[r * LDH + c] = o;
+        if (stash != nullptr && r < nreal) stash[r * HID + c] = o;
+      }
+    }
+  }
+}
+
+// dh += d/dx of the LayerNorm scale*(x-mean)/(std+1e-6)+shift (Bessel std,
+// eps outside the root), given the output gradient g (shared memory) and x
+// (the forward's stash in global memory); one warp a real row.
+__device__ __forceinline__ void ln_bwd_add_warp(float* dh, const float* g,
+                                                const float* __restrict__ x,
+                                                const float* __restrict__ scale, int nreal,
+                                                int tid) {
+  const int lane = tid & 31;
+  float scl[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) scl[j] = __ldg(scale + lane + 32 * j);
+  float xn[3];   // the warp's next row of x, loaded one row ahead
+#pragma unroll
+  for (int j = 0; j < 3; ++j) xn[j] = (tid >> 5) < nreal ? __ldg(x + (tid >> 5) * HID + lane + 32 * j) : 0.f;
+  for (int r = tid >> 5; r < nreal; r += WARPS) {
+    float d[3], gs[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      d[j] = xn[j];
+      xn[j] = r + WARPS < nreal ? __ldg(x + (r + WARPS) * HID + lane + 32 * j) : 0.f;
+      gs[j] = g[r * LDH + lane + 32 * j] * scl[j];
+    }
+    const float mean = warp_sum(d[0] + d[1] + d[2]) / HID;
+    float ss = 0.f, s1 = 0.f, sg = 0.f, sc = 0.f;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      d[j] -= mean;
+      ss = fmaf(d[j], d[j], ss);
+      s1 = fmaf(gs[j], d[j], s1);
+      sg += gs[j];
+      sc += d[j];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      sg += __shfl_xor_sync(0xffffffffu, sg, o);
+      sc += __shfl_xor_sync(0xffffffffu, sc, o);
+    }
+    const float sd = sqrtf(ss / (HID - 1));
+    const float rinv = 1.f / (sd + 1e-6f);
+    const float coef = s1 * rinv * rinv / ((HID - 1) * fmaxf(sd, 1e-20f));
+    const float mdc = (sg * rinv - sc * coef) / HID;   // mean of dc over the row
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int c = lane + 32 * j;
+      dh[r * LDH + c] += gs[j] * rinv - d[j] * coef - mdc;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Forward stages
 // ---------------------------------------------------------------------------
 
-// netk::attention with dropout on the probabilities: p * mask * ikp.
+// sum_e val_e * in[b, m_e, k_e*HID + c .. +3] over row n's Chebyshev terms;
+// src = in + b*17*LDB + c.
+__device__ __forceinline__ float4 cheb_mix4(const float* src, int n, const int* ptr,
+                                            const int* idx, const float* val) {
+  float4 v = zero4();
+  for (int e = ptr[n]; e < ptr[n + 1]; ++e) {
+    const int km = idx[e];
+    fma4(v, val[e], ld4(src + (km & 0xff) * LDB + (km >> 8) * HID));
+  }
+  return v;
+}
+
+// The GraphNet sublayer's output and residual, real rows:
+// h += (lap . y + bias) * mask * scale, the new h stashed.
 template <bool PRNG>
-__device__ __forceinline__ void attention_dropout(const float* qkv, float* out,
+__device__ __forceinline__ void lap_residual(const float* y, float* h, const float* lap,
+                                             const float* __restrict__ bias, const Site<PRNG> mask,
+                                             float scale, float* __restrict__ stash_h, int nb,
+                                             int tid) {
+  constexpr int NG = HID / 4;
+  for (int it = tid; it < nb * N_PTS * NG; it += THREADS) {
+    const int r = it / NG;
+    const int c = 4 * (it % NG);
+    const int n = r % N_PTS;
+    const float* src = y + (r / N_PTS) * N_PTS * LDH + c;
+    float4 v = zero4();
+#pragma unroll
+    for (int m = 0; m < N_PTS; ++m) fma4(v, lap[n * N_PTS + m], ld4(src + m * LDH));
+    v = add4(v, ldg4(bias + c));
+    const float4 hv = add4(ld4(h + r * LDH + c), mul4(v, mask.factor(r, c, scale)));
+    st4(h + r * LDH + c, hv);
+    st4(stash_h + r * HID + c, hv);
+  }
+}
+
+// The first Chebyshev conv's mixing and what follows it: v = relu(mix + bias),
+// stashed as rc1; y = v * mask * scale + tp[b], stashed as u (real rows;
+// absent rows get v).
+template <bool PRNG>
+__device__ __forceinline__ void cheb1_dropout_tp(const float* big, float* y, const int* ptr,
+                                                 const int* idx, const float* val,
+                                                 const float* __restrict__ bias,
+                                                 const Site<PRNG> mask, float scale,
+                                                 const float* __restrict__ tp,
+                                                 float* __restrict__ rc1, float* __restrict__ u,
+                                                 int nb, int tid) {
+  constexpr int NG = HID / 4;
+  for (int it = tid; it < ROWS * NG; it += THREADS) {
+    const int r = it / NG;
+    const int c = 4 * (it % NG);
+    const int b = r / N_PTS;
+    float4 v = relu4(add4(cheb_mix4(big + b * N_PTS * LDB + c, r % N_PTS, ptr, idx, val),
+                          ldg4(bias + c)));
+    if (b < nb) {
+      st4(rc1 + r * HID + c, v);
+      v = add4(mul4(v, mask.factor(r, c, scale)), ldg4(tp + b * HID + c));
+      st4(u + r * HID + c, v);
+    }
+    st4(y + r * LDH + c, v);
+  }
+}
+
+// The second Chebyshev conv's mixing and the block's residual, real rows:
+// v = relu(mix + bias), stashed as rd1; h += v * mask * scale.
+template <bool PRNG>
+__device__ __forceinline__ void cheb2_residual(const float* big, float* h, const int* ptr,
+                                               const int* idx, const float* val,
+                                               const float* __restrict__ bias,
+                                               const Site<PRNG> mask, float scale,
+                                               float* __restrict__ rd1, int nb, int tid) {
+  constexpr int NG = HID / 4;
+  for (int it = tid; it < nb * N_PTS * NG; it += THREADS) {
+    const int r = it / NG;
+    const int c = 4 * (it % NG);
+    const float4 v = relu4(add4(
+        cheb_mix4(big + (r / N_PTS) * N_PTS * LDB + c, r % N_PTS, ptr, idx, val), ldg4(bias + c)));
+    st4(rd1 + r * HID + c, v);
+    st4(h + r * LDH + c, add4(ld4(h + r * LDH + c), mul4(v, mask.factor(r, c, scale))));
+  }
+}
+
+// The attention stages run over a query's 17 keys in rolled loops and keep
+// the row's scores in shared memory (srow, 17 floats a thread), so that only
+// one q (or dA, or output) row of DK columns and the loads of two keys are
+// in registers at a time: fully unrolled, the loops' hoisted loads spill.
+
+// a . rows[m] over the head's DK columns, in one chain (as netk::attention).
+__device__ __forceinline__ float head_dot(const float4 (&a)[DK / 4], const float* row) {
+  float acc = 0.f;
+#pragma unroll
+  for (int d = 0; d < DK / 4; ++d) {
+    const float4 kv = ld4(row + 4 * d);
+    acc = fmaf(a[d].x, kv.x, acc);
+    acc = fmaf(a[d].y, kv.y, acc);
+    acc = fmaf(a[d].z, kv.z, acc);
+    acc = fmaf(a[d].w, kv.w, acc);
+  }
+  return acc;
+}
+
+// netk::attention with dropout on the probabilities: p * mask * ikp.
+// scratch: TB * HEADS * 17 rows of 17 floats.
+template <bool PRNG>
+__device__ __forceinline__ void attention_dropout(const float* qkv, float* out, float* scratch,
                                                   const Probs<PRNG> mp, float ikp,
                                                   int nb, int tid) {
   for (int it = tid; it < nb * HEADS * N_PTS; it += THREADS) {
@@ -241,41 +845,33 @@ __device__ __forceinline__ void attention_dropout(const float* qkv, float* out,
     const int hd = (it / N_PTS) % HEADS;
     const int b = it / (N_PTS * HEADS);
     const float* base = qkv + b * N_PTS * LDB + hd * DK;
+    float* srow = scratch + it * N_PTS;
     const unsigned kept = mp.row(b, hd, n);
-    const int mat = mp.at(b, hd, n);
-    float4 q[DK / 4];
+    float mx = -INFINITY;
+    {
+      float4 q[DK / 4];
 #pragma unroll
-    for (int d = 0; d < DK / 4; ++d) q[d] = ld4(base + n * LDB + 4 * d);
-    float s[N_PTS];
-#pragma unroll
-    for (int m = 0; m < N_PTS; ++m) {
-      const float* kr = base + m * LDB + HID;
-      float acc = 0.f;
-#pragma unroll
-      for (int d = 0; d < DK / 4; ++d) {
-        const float4 kv = ld4(kr + 4 * d);
-        acc = fmaf(q[d].x, kv.x, acc);
-        acc = fmaf(q[d].y, kv.y, acc);
-        acc = fmaf(q[d].z, kv.z, acc);
-        acc = fmaf(q[d].w, kv.w, acc);
+      for (int d = 0; d < DK / 4; ++d) q[d] = ld4(base + n * LDB + 4 * d);
+#pragma unroll 1
+      for (int m = 0; m < N_PTS; ++m) {
+        const float sv = head_dot(q, base + m * LDB + HID);
+        srow[m] = sv;
+        mx = fmaxf(mx, sv);
       }
-      s[m] = acc;
     }
-    float mx = s[0];
-#pragma unroll
-    for (int m = 1; m < N_PTS; ++m) mx = fmaxf(mx, s[m]);
     float sum = 0.f;
-#pragma unroll
+#pragma unroll 1
     for (int m = 0; m < N_PTS; ++m) {
-      s[m] = expf(s[m] - mx);
-      sum += s[m];
+      const float e = expf(srow[m] - mx);
+      srow[m] = e;
+      sum += e;
     }
     float4 o[DK / 4];
 #pragma unroll
     for (int d = 0; d < DK / 4; ++d) o[d] = zero4();
-#pragma unroll
+#pragma unroll 1
     for (int m = 0; m < N_PTS; ++m) {
-      const float p = mp.keep(kept, mat, m) ? s[m] / sum * ikp : 0.f;
+      const float p = mp.keep(kept, m) ? srow[m] / sum * ikp : 0.f;
       const float* vr = base + m * LDB + 2 * HID;
 #pragma unroll
       for (int d = 0; d < DK / 4; ++d) fma4(o[d], p, ld4(vr + 4 * d));
@@ -286,41 +882,12 @@ __device__ __forceinline__ void attention_dropout(const float* qkv, float* out,
   }
 }
 
-// h += src * mask * scale over the real rows; optionally stashes src (before
-// the dropout) and the new h.
-template <bool PRNG>
-__device__ __forceinline__ void residual_dropout(float* h, const float* src, int lds,
-                                                 const Site<PRNG> mask, float scale, float* __restrict__ stash_src,
-                                                 float* __restrict__ stash_h, int nb, int tid) {
-  constexpr int NG = HID / 4;
-  for (int it = tid; it < nb * N_PTS * NG; it += THREADS) {
-    const int r = it / NG;
-    const int c = 4 * (it % NG);
-    const float4 v = ld4(src + r * lds + c);
-    if (stash_src != nullptr) st4(stash_src + r * HID + c, v);
-    const float4 hv = add4(ld4(h + r * LDH + c), mul4(v, mask.factor(r, c, scale)));
-    st4(h + r * LDH + c, hv);
-    if (stash_h != nullptr) st4(stash_h + r * HID + c, hv);
-  }
-}
-
-// y = rc1 on entry; stashes rc1, then y = rc1 * mask * scale + tp[b], stashed as u.
-template <bool PRNG>
-__device__ __forceinline__ void cheb_dropout_tp(float* y, const Site<PRNG> mask, float scale, const float* __restrict__ tp,
-                                                float* __restrict__ rc1, float* __restrict__ u,
-                                                int nb, int tid) {
-  constexpr int NG = HID / 4;
-  for (int it = tid; it < nb * N_PTS * NG; it += THREADS) {
-    const int r = it / NG;
-    const int c = 4 * (it % NG);
-    const float4 v = ld4(y + r * LDH + c);
-    st4(rc1 + r * HID + c, v);
-    const float4 uv = add4(mul4(v, mask.factor(r, c, scale)),
-                           ldg4(tp + (r / N_PTS) * HID + c));
-    st4(y + r * LDH + c, uv);
-    st4(u + r * HID + c, uv);
-  }
-}
+// Forward shared memory: h, y, big, the weight ring, lap and the Chebyshev
+// term list.
+constexpr int FWD_SMEM_FLOATS = ACT_FLOATS + FWD_RING + LAP_PAD + 2 * TERMS_PAD + 20;
+constexpr size_t FWD_SMEM_BYTES = sizeof(float) * FWD_SMEM_FLOATS;
+static_assert(FWD_RING >= TB * HEADS * PAIRS, "the attention's scores borrow the ring");
+static_assert(FWD_SMEM_BYTES <= 232448, "forward tile exceeds an SM's shared memory");
 
 template <bool PRNG>
 __global__ void __launch_bounds__(THREADS, 1) train_forward_kernel(const FwdArgs a) {
@@ -328,7 +895,8 @@ __global__ void __launch_bounds__(THREADS, 1) train_forward_kernel(const FwdArgs
   float* h = reinterpret_cast<float*>(smem4);
   float* y = h + ROWS_PAD * LDH;
   float* big = y + ROWS_PAD * LDH;
-  float* lap = big + ROWS_PAD * LDB;
+  float* ring = big + ROWS_PAD * LDB;
+  float* lap = ring + FWD_RING;
   float* cval = lap + LAP_PAD;
   int* cidx = reinterpret_cast<int*>(cval + TERMS_PAD);
   int* cptr = cidx + TERMS_PAD;
@@ -336,6 +904,7 @@ __global__ void __launch_bounds__(THREADS, 1) train_forward_kernel(const FwdArgs
   const int tid = threadIdx.x;
   const int b0 = blockIdx.x * TB;
   const int nb = min(TB, a.batch - b0);
+  const int nreal = nb * N_PTS;
 
   for (int i = tid; i < ACT_FLOATS; i += THREADS) h[i] = 0.f;
   for (int i = tid; i < a.cheb_nnz; i += THREADS) {
@@ -351,63 +920,61 @@ __global__ void __launch_bounds__(THREADS, 1) train_forward_kernel(const FwdArgs
     // first row of this tile in the [L, B*17, .] arrays, and its sample in [L, B, .]
     const size_t smp = static_cast<size_t>(l) * a.batch + b0;
     const size_t row = smp * N_PTS;
+    const size_t wsq = static_cast<size_t>(l) * HID * HID;
 
     // attention sublayer: h += dropout(out_proj(attention_dropout(LN1(h))))
+    tc_prefetch<HID, 3 * HID, FWD_STAGES, FWD_KS>(a.wqkv + 3 * wsq, ring, tid);
     store_rows<HID>(h, LDH, a.ha + row * HID, nb, tid);
-    layer_norm(h, y, a.ln1s + l * HID, a.ln1b + l * HID, tid);
+    layer_norm_warp(h, y, a.ln1s + l * HID, a.ln1b + l * HID, a.y1 + row * HID, nreal, tid);
     for (int i = tid; i < PAIRS; i += THREADS) lap[i] = a.lap[l * PAIRS + i];
     __syncthreads();
-    store_rows<HID>(y, LDH, a.y1 + row * HID, nb, tid);
-    gemm<HID, 3 * HID, LDH, LDB, kStoreBias>(y, a.wqkv + static_cast<size_t>(l) * HID * 3 * HID,
-                                             a.bqkv + l * 3 * HID, big, tid);
+    tc_gemm<HID, 3 * HID, LDH, FWD_STAGES, FWD_KS>(
+        y, a.wqkv + 3 * wsq, ring, EpSmem<LDB, true, false>{big, a.bqkv + l * 3 * HID}, tid);
     __syncthreads();
-    attention_dropout(big, y, probs_of<PRNG>(a.drop, l, b0, smp), a.ikp, nb, tid);
+    attention_dropout(big, y, ring, probs_of<PRNG>(a.drop, l, b0, smp), a.ikp, nb, tid);
     __syncthreads();
+    tc_prefetch<HID, HID, FWD_STAGES, FWD_KS>(a.wao + wsq, ring, tid);
     store_rows<HID>(y, LDH, a.att + row * HID, nb, tid);
-    gemm<HID, HID, LDH, LDB, kStoreBias>(y, a.wao + static_cast<size_t>(l) * HID * HID,
-                                         a.bao + l * HID, big, tid);
-    __syncthreads();
-    residual_dropout(h, big, LDB, site_of<PRNG>(a.drop, 1, l, b0, smp), a.iks, nullptr,
-                     a.hb + row * HID, nb, tid);
+    tc_gemm<HID, HID, LDH, FWD_STAGES, FWD_KS>(
+        y, a.wao + wsq, ring,
+        EpResidual<PRNG>{h, a.bao + l * HID, site_of<PRNG>(a.drop, 1, l, b0, smp), a.iks,
+                         a.hb + row * HID, nreal},
+        tid);
     __syncthreads();
 
     // GraphNet sublayer: h += dropout(lap . (relu(fc1(lap . LN2(h))) @ W_fc2) + b_fc2)
-    layer_norm(h, y, a.ln2s + l * HID, a.ln2b + l * HID, tid);
+    tc_prefetch<HID, 2 * HID, FWD_STAGES, FWD_KS>(a.wfc1 + 2 * wsq, ring, tid);
+    layer_norm_warp(h, y, a.ln2s + l * HID, a.ln2b + l * HID, nullptr, nreal, tid);
     __syncthreads();
     mix<HID, LDH, LDB, kMixStore, true>(y, big, cptr, cidx, cval, lap, nullptr, nullptr, nb, tid);
     __syncthreads();
-    gemm<HID, 2 * HID, LDB, LDB, kReluBias>(big, a.wfc1 + static_cast<size_t>(l) * HID * 2 * HID,
-                                            a.bfc1 + l * 2 * HID, big + HID, tid);
+    tc_gemm<HID, 2 * HID, LDB, FWD_STAGES, FWD_KS>(
+        big, a.wfc1 + 2 * wsq, ring,
+        EpReluStash<2 * HID>{big + HID, a.bfc1 + l * 2 * HID, a.r1 + row * 2 * HID, nreal}, tid);
     __syncthreads();
-    store_rows<2 * HID>(big + HID, LDB, a.r1 + row * 2 * HID, nb, tid);
-    gemm<2 * HID, HID, LDB, LDH, kStore>(big + HID, a.wfc2 + static_cast<size_t>(l) * 2 * HID * HID,
-                                         nullptr, y, tid);
+    tc_prefetch<2 * HID, HID, FWD_STAGES, FWD_KS>(a.wfc2 + 2 * wsq, ring, tid);
+    tc_gemm<2 * HID, HID, LDB, FWD_STAGES, FWD_KS>(big + HID, a.wfc2 + 2 * wsq, ring,
+                                         EpSmem<LDH, false, false>{y, nullptr}, tid);
     __syncthreads();
-    mix<HID, LDH, LDB, kMixStoreBias, true>(y, big, cptr, cidx, cval, lap, a.bfc2 + l * HID,
-                                            nullptr, nb, tid);
-    __syncthreads();
-    residual_dropout(h, big, LDB, site_of<PRNG>(a.drop, 2, l, b0, smp), a.iks, nullptr,
-                     a.hc + row * HID, nb, tid);
+    tc_prefetch<HID, 3 * HID, FWD_STAGES, FWD_KS>(a.wg1 + 3 * wsq, ring, tid);
+    lap_residual(y, h, lap, a.bfc2 + l * HID, site_of<PRNG>(a.drop, 2, l, b0, smp), a.iks,
+                 a.hc + row * HID, nb, tid);
     __syncthreads();
 
     // residual Chebyshev block: h += dropout(relu(cheb2(dropout(relu(cheb1(h))) + tp)))
-    gemm<HID, 3 * HID, LDH, LDB, kStore>(h, a.wg1 + static_cast<size_t>(l) * HID * 3 * HID,
-                                         nullptr, big, tid);
+    tc_gemm<HID, 3 * HID, LDH, FWD_STAGES, FWD_KS>(h, a.wg1 + 3 * wsq, ring,
+                                         EpSmem<LDB, false, false>{big, nullptr}, tid);
     __syncthreads();
-    mix<HID, LDB, LDH, kMixReluBiasTp, false>(big, y, cptr, cidx, cval, lap, a.bg1 + l * HID,
-                                              nullptr, nb, tid);
+    tc_prefetch<HID, 3 * HID, FWD_STAGES, FWD_KS>(a.wg2 + 3 * wsq, ring, tid);
+    cheb1_dropout_tp(big, y, cptr, cidx, cval, a.bg1 + l * HID,
+                     site_of<PRNG>(a.drop, 3, l, b0, smp), a.ikc, a.tp + smp * HID,
+                     a.rc1 + row * HID, a.u + row * HID, nb, tid);
     __syncthreads();
-    cheb_dropout_tp(y, site_of<PRNG>(a.drop, 3, l, b0, smp), a.ikc, a.tp + smp * HID,
-                    a.rc1 + row * HID, a.u + row * HID, nb, tid);
+    tc_gemm<HID, 3 * HID, LDH, FWD_STAGES, FWD_KS>(y, a.wg2 + 3 * wsq, ring,
+                                         EpSmem<LDB, false, false>{big, nullptr}, tid);
     __syncthreads();
-    gemm<HID, 3 * HID, LDH, LDB, kStore>(y, a.wg2 + static_cast<size_t>(l) * HID * 3 * HID,
-                                         nullptr, big, tid);
-    __syncthreads();
-    mix<HID, LDB, LDH, kMixReluBiasTp, false>(big, y, cptr, cidx, cval, lap, a.bg2 + l * HID,
-                                              nullptr, nb, tid);
-    __syncthreads();
-    residual_dropout(h, y, LDH, site_of<PRNG>(a.drop, 4, l, b0, smp), a.ikc, a.rd1 + row * HID,
-                     nullptr, nb, tid);
+    cheb2_residual(big, h, cptr, cidx, cval, a.bg2 + l * HID,
+                   site_of<PRNG>(a.drop, 4, l, b0, smp), a.ikc, a.rd1 + row * HID, nb, tid);
     __syncthreads();
   }
   store_rows<HID>(h, LDH, a.d5 + static_cast<size_t>(b0) * N_PTS * HID, nb, tid);
@@ -419,10 +986,13 @@ __global__ void __launch_bounds__(THREADS, 1) train_forward_kernel(const FwdArgs
 
 constexpr int SP_FLOATS = TB * HEADS * 2 * PAIRS;       // ds and p*mask per (sample, head)
 constexpr int BWD_ACT_FLOATS = 3 * ROWS_PAD * LDH + ROWS_PAD * LDB;
-constexpr int BWD_SMEM_FLOATS =
-    BWD_ACT_FLOATS + SP_FLOATS + LAP_PAD + 2 * TERMS_PAD + TPTR_PAD;
+// sp (attention_bwd only) and the weight ring (the products only) share the
+// last region.
+constexpr int BWD_REGION = SP_FLOATS > BWD_RING ? SP_FLOATS : BWD_RING;
+constexpr int BWD_SMEM_FLOATS = BWD_ACT_FLOATS + LAP_PAD + 2 * TERMS_PAD + TPTR_PAD + BWD_REGION;
 constexpr size_t BWD_SMEM_BYTES = sizeof(float) * BWD_SMEM_FLOATS;
 static_assert(BWD_SMEM_BYTES <= 232448, "backward tile exceeds an SM's shared memory");
+static_assert((BWD_SMEM_FLOATS - BWD_REGION) % 4 == 0, "the ring must be 16-byte aligned");
 
 // out = g * mask * scale, gated by relu_src > 0 where given; written to the
 // d-stash too.  Rows of absent samples get zeros.  out may alias g.
@@ -447,20 +1017,26 @@ __device__ __forceinline__ void dropout_bwd(const float* g, float* out,
 
 // The transposed Chebyshev mixes side by side:
 //   out[b, m, k*HID : (k+1)*HID] = sum_j T_k[j, m] * in[b, j, :]
+// Thread = (order, joint, column group) for all TB samples, so that each
+// term is read once and feeds TB independent sums.
 __device__ __forceinline__ void mix_t(const float* in, float* out, const int* tptr,
                                       const int* tidx, const float* tval, int tid) {
   constexpr int NG = HID / 4;
-  for (int it = tid; it < ROWS * 3 * NG; it += THREADS) {
+  for (int it = tid; it < 3 * N_PTS * NG; it += THREADS) {
     const int c = 4 * (it % NG);
-    const int k = (it / NG) % 3;
-    const int r = it / (3 * NG);
-    const int b = r / N_PTS;
-    const int m = r % N_PTS;
-    const float* src = in + b * N_PTS * LDH + c;
-    float4 v = zero4();
-    for (int e = tptr[k * N_PTS + m]; e < tptr[k * N_PTS + m + 1]; ++e)
-      fma4(v, tval[e], ld4(src + tidx[e] * LDH));
-    st4(out + r * LDB + k * HID + c, v);
+    const int km = it / NG;                  // k * N_PTS + m
+    const int k = km / N_PTS, m = km % N_PTS;
+    float4 v[TB];
+#pragma unroll
+    for (int b = 0; b < TB; ++b) v[b] = zero4();
+    for (int e = tptr[km]; e < tptr[km + 1]; ++e) {
+      const float w = tval[e];
+      const float* src = in + tidx[e] * LDH + c;
+#pragma unroll
+      for (int b = 0; b < TB; ++b) fma4(v[b], w, ld4(src + b * N_PTS * LDH));
+    }
+#pragma unroll
+    for (int b = 0; b < TB; ++b) st4(out + (b * N_PTS + m) * LDB + k * HID + c, v[b]);
   }
 }
 
@@ -492,72 +1068,19 @@ __device__ __forceinline__ void joint_sum(const float* du, float* __restrict__ d
   }
 }
 
-// buf[r, :2*HID] gated by r1 > 0 (ReLU backward) -> df1, stashed.
-__device__ __forceinline__ void relu_gate_wide(float* buf, const float* __restrict__ r1,
-                                               float* __restrict__ df1, int nb, int tid) {
-  constexpr int W = 2 * HID;
-  constexpr int NG = W / 4;
-  for (int it = tid; it < nb * N_PTS * NG; it += THREADS) {
-    const int r = it / NG;
-    const int c = 4 * (it % NG);
-    const float4 v = gate4(ld4(buf + r * LDB + c), ldg4(r1 + r * W + c));
-    st4(buf + r * LDB + c, v);
-    st4(df1 + r * W + c, v);
-  }
-}
-
-// dh += d/dx of the LayerNorm scale*(x-mean)/(std+1e-6)+shift (Bessel std,
-// eps outside the root), given the output gradient g; x in shared memory.
-__device__ __forceinline__ void ln_bwd_add(float* dh, const float* g, const float* xs,
-                                           const float* __restrict__ scale, int nb, int tid) {
-  for (int r = tid; r < nb * N_PTS; r += THREADS) {
-    const float* x = xs + r * LDH;
-    const float* gr = g + r * LDH;
-    float sum = 0.f;
-    for (int c = 0; c < HID; c += 4) {
-      const float4 v = ld4(x + c);
-      sum += v.x; sum += v.y; sum += v.z; sum += v.w;
-    }
-    const float mean = sum / HID;
-    float ss = 0.f, s1 = 0.f, sg = 0.f, sc = 0.f;
-    for (int c = 0; c < HID; c += 4) {
-      const float4 v = ld4(x + c);
-      const float4 gs = mul4(ld4(gr + c), ldg4(scale + c));
-      const float4 d = make_float4(v.x - mean, v.y - mean, v.z - mean, v.w - mean);
-      ss = fmaf(d.x, d.x, ss); ss = fmaf(d.y, d.y, ss); ss = fmaf(d.z, d.z, ss); ss = fmaf(d.w, d.w, ss);
-      s1 = fmaf(gs.x, d.x, s1); s1 = fmaf(gs.y, d.y, s1); s1 = fmaf(gs.z, d.z, s1); s1 = fmaf(gs.w, d.w, s1);
-      sg += gs.x; sg += gs.y; sg += gs.z; sg += gs.w;
-      sc += d.x; sc += d.y; sc += d.z; sc += d.w;
-    }
-    const float sd = sqrtf(ss / (HID - 1));
-    const float rinv = 1.f / (sd + 1e-6f);
-    const float coef = s1 * rinv * rinv / ((HID - 1) * fmaxf(sd, 1e-20f));
-    const float mdc = (sg * rinv - sc * coef) / HID;   // mean of dc over the row
-    float* o = dh + r * LDH;
-    for (int c = 0; c < HID; c += 4) {
-      const float4 v = ld4(x + c);
-      const float4 gs = mul4(ld4(gr + c), ldg4(scale + c));
-      const float4 d = ld4(o + c);
-      st4(o + c, make_float4(d.x + gs.x * rinv - (v.x - mean) * coef - mdc,
-                             d.y + gs.y * rinv - (v.y - mean) * coef - mdc,
-                             d.z + gs.z * rinv - (v.z - mean) * coef - mdc,
-                             d.w + gs.w * rinv - (v.w - mean) * coef - mdc));
-    }
-  }
-}
-
 // Attention backward of one (sample, head) per 17 threads, thread = joint.
 // qkv holds q | k | v (q pre-scaled) and is overwritten by dq | dk | dv;
 // datt is the gradient of the attention output.  Phase 1, thread = query n:
 // recompute the softmax row, ds[n, :] and the dropped probabilities into sp,
-// dq[n] in registers.  Phase 2, thread = key m: dk[m] and dv[m] from the
-// columns of sp.  Phase 3: all three overwrite this head's columns.  The
-// dropout decisions of a query's row are fetched (or drawn) once, in phase 1;
-// phase 2 meets them again in the dropped probabilities of sp.
+// dq[n] into dqs.  Phase 2, thread = key m: dk[m] and dv[m] from the columns
+// of sp, written over k[m] and v[m], which no thread reads any more.  Phase 3:
+// dq[n] over q[n] (dqs is a free HID-wide buffer).  The dropout decisions of
+// a query's row are fetched (or drawn) once, in phase 1; phase 2 meets them
+// again in the dropped probabilities of sp.
 template <bool PRNG>
 __device__ __forceinline__ void attention_bwd(float* qkv, const float* datt,
                                               const Probs<PRNG> mp, float ikp,
-                                              float* sp, int nb, int tid) {
+                                              float* sp, float* dqs, int nb, int tid) {
   const int n = tid % N_PTS;
   const int hd = (tid / N_PTS) % HEADS;
   const int b = tid / (N_PTS * HEADS);
@@ -568,88 +1091,90 @@ __device__ __forceinline__ void attention_bwd(float* qkv, const float* datt,
   float* ds_s = sp + (bs * HEADS + hd) * 2 * PAIRS;
   float* pd_s = ds_s + PAIRS;
 
-  float4 dq[DK / 4], dk[DK / 4], dv[DK / 4];
+  float* dq_row = dqs + (bs * N_PTS + n) * LDH + hd * DK;
   if (live) {
     const unsigned kept = mp.row(b, hd, n);
-    const int mat = mp.at(b, hd, n);
-    float4 q[DK / 4], da[DK / 4];
+    float* prow = pd_s + n * N_PTS;   // scores, then exp, then p * mask
+    float* drow = ds_s + n * N_PTS;   // dp, then dp * mask, then ds
+    float mx = -INFINITY;
+    {
+      float4 q[DK / 4];
 #pragma unroll
-    for (int d = 0; d < DK / 4; ++d) {
-      q[d] = ld4(base + n * LDB + 4 * d);
-      da[d] = ld4(dbase + n * LDH + 4 * d);
-      dq[d] = zero4();
-    }
-    float s[N_PTS], dp[N_PTS];
-#pragma unroll
-    for (int m = 0; m < N_PTS; ++m) {
-      const float* kr = base + m * LDB + HID;
-      const float* vr = base + m * LDB + 2 * HID;
-      float acc = 0.f, accv = 0.f;
-#pragma unroll
-      for (int d = 0; d < DK / 4; ++d) {
-        const float4 kv = ld4(kr + 4 * d);
-        const float4 vv = ld4(vr + 4 * d);
-        acc = fmaf(q[d].x, kv.x, acc); acc = fmaf(q[d].y, kv.y, acc);
-        acc = fmaf(q[d].z, kv.z, acc); acc = fmaf(q[d].w, kv.w, acc);
-        accv = fmaf(da[d].x, vv.x, accv); accv = fmaf(da[d].y, vv.y, accv);
-        accv = fmaf(da[d].z, vv.z, accv); accv = fmaf(da[d].w, vv.w, accv);
+      for (int d = 0; d < DK / 4; ++d) q[d] = ld4(base + n * LDB + 4 * d);
+#pragma unroll 1
+      for (int m = 0; m < N_PTS; ++m) {
+        const float sv = head_dot(q, base + m * LDB + HID);
+        prow[m] = sv;
+        mx = fmaxf(mx, sv);
       }
-      s[m] = acc;
-      dp[m] = accv;
     }
-    float mx = s[0];
+    {
+      float4 da[DK / 4];
 #pragma unroll
-    for (int m = 1; m < N_PTS; ++m) mx = fmaxf(mx, s[m]);
+      for (int d = 0; d < DK / 4; ++d) da[d] = ld4(dbase + n * LDH + 4 * d);
+#pragma unroll 1
+      for (int m = 0; m < N_PTS; ++m) drow[m] = head_dot(da, base + m * LDB + 2 * HID);
+    }
     float sum = 0.f;
-#pragma unroll
+#pragma unroll 1
     for (int m = 0; m < N_PTS; ++m) {
-      s[m] = expf(s[m] - mx);
-      sum += s[m];
+      const float e = expf(prow[m] - mx);
+      prow[m] = e;
+      sum += e;
     }
     float rowdot = 0.f;
-#pragma unroll
+#pragma unroll 1
     for (int m = 0; m < N_PTS; ++m) {
-      const float keep = mp.keep(kept, mat, m) ? ikp : 0.f;
-      s[m] = s[m] / sum;
-      dp[m] *= keep;
-      pd_s[n * N_PTS + m] = s[m] * keep;
-      rowdot = fmaf(s[m], dp[m], rowdot);
+      const float dpk = drow[m] * (mp.keep(kept, m) ? ikp : 0.f);
+      drow[m] = dpk;
+      rowdot = fmaf(prow[m] / sum, dpk, rowdot);
     }
+    float4 dq[DK / 4];
 #pragma unroll
+    for (int d = 0; d < DK / 4; ++d) dq[d] = zero4();
+#pragma unroll 1
     for (int m = 0; m < N_PTS; ++m) {
-      const float dsv = s[m] * (dp[m] - rowdot);
-      ds_s[n * N_PTS + m] = dsv;
+      const float pv = prow[m] / sum;
+      const float dsv = pv * (drow[m] - rowdot);
+      drow[m] = dsv;
+      prow[m] = pv * (mp.keep(kept, m) ? ikp : 0.f);
       const float* kr = base + m * LDB + HID;
 #pragma unroll
       for (int d = 0; d < DK / 4; ++d) fma4(dq[d], dsv, ld4(kr + 4 * d));
     }
+#pragma unroll
+    for (int d = 0; d < DK / 4; ++d) st4(dq_row + 4 * d, dq[d]);
   }
   __syncthreads();
+  // k and v are read no more: dk and dv go straight to their columns
   if (live) {
+    float4 acc[DK / 4];
 #pragma unroll
-    for (int d = 0; d < DK / 4; ++d) {
-      dk[d] = zero4();
-      dv[d] = zero4();
-    }
-#pragma unroll
+    for (int d = 0; d < DK / 4; ++d) acc[d] = zero4();
+#pragma unroll 1
     for (int q = 0; q < N_PTS; ++q) {
       const float dsv = ds_s[q * N_PTS + n];
+#pragma unroll
+      for (int d = 0; d < DK / 4; ++d) fma4(acc[d], dsv, ld4(base + q * LDB + 4 * d));
+    }
+#pragma unroll
+    for (int d = 0; d < DK / 4; ++d) {
+      st4(base + n * LDB + HID + 4 * d, acc[d]);                // dk = dsᵀ q
+      acc[d] = zero4();
+    }
+#pragma unroll 1
+    for (int q = 0; q < N_PTS; ++q) {
       const float pdv = pd_s[q * N_PTS + n];
 #pragma unroll
-      for (int d = 0; d < DK / 4; ++d) {
-        fma4(dk[d], dsv, ld4(base + q * LDB + 4 * d));
-        fma4(dv[d], pdv, ld4(dbase + q * LDH + 4 * d));
-      }
+      for (int d = 0; d < DK / 4; ++d) fma4(acc[d], pdv, ld4(dbase + q * LDH + 4 * d));
     }
+#pragma unroll
+    for (int d = 0; d < DK / 4; ++d) st4(base + n * LDB + 2 * HID + 4 * d, acc[d]);  // dv = (p·mask)ᵀ datt
   }
   __syncthreads();
   if (live) {
 #pragma unroll
-    for (int d = 0; d < DK / 4; ++d) {
-      st4(base + n * LDB + 4 * d, dq[d]);
-      st4(base + n * LDB + HID + 4 * d, dk[d]);
-      st4(base + n * LDB + 2 * HID + 4 * d, dv[d]);
-    }
+    for (int d = 0; d < DK / 4; ++d) st4(base + n * LDB + 4 * d, ld4(dq_row + 4 * d));
   }
 }
 
@@ -660,15 +1185,17 @@ __global__ void __launch_bounds__(THREADS, 1) train_backward_kernel(const BwdArg
   float* ba = dh + ROWS_PAD * LDH;
   float* bb = ba + ROWS_PAD * LDH;
   float* big = bb + ROWS_PAD * LDH;
-  float* sp = big + ROWS_PAD * LDB;
-  float* lap = sp + SP_FLOATS;
+  float* lap = big + ROWS_PAD * LDB;
   float* tval = lap + LAP_PAD;
   int* tidx = reinterpret_cast<int*>(tval + TERMS_PAD);
   int* tptr = tidx + TERMS_PAD;
+  float* ring = reinterpret_cast<float*>(tptr + TPTR_PAD);   // also sp
+  float* sp = ring;
 
   const int tid = threadIdx.x;
   const int b0 = blockIdx.x * TB;
   const int nb = min(TB, a.batch - b0);
+  const int nreal = nb * N_PTS;
 
   for (int i = tid; i < BWD_ACT_FLOATS; i += THREADS) dh[i] = 0.f;
   for (int i = tid; i < a.tnnz; i += THREADS) {
@@ -686,60 +1213,69 @@ __global__ void __launch_bounds__(THREADS, 1) train_backward_kernel(const BwdArg
     const size_t wsq = static_cast<size_t>(l) * HID * HID;
 
     // Chebyshev block: h_out = hc + rd1*m4*ikc, rd1 = relu(cheb2(u)), u = rc1*m3*ikc + tp
+    tc_prefetch<3 * HID, HID, BWD_STAGES, BWD_KS>(a.wg2t + 3 * wsq, ring, tid);
     dropout_bwd(dh, ba, site_of<PRNG>(a.drop, 4, l, b0, smp), a.ikc, a.rd1 + row * HID,
                 a.dc2 + row * HID, nb, tid);
     for (int i = tid; i < PAIRS; i += THREADS) lap[i] = a.lap[l * PAIRS + i];
     __syncthreads();
     mix_t(ba, big, tptr, tidx, tval, tid);
     __syncthreads();
-    gemm<3 * HID, HID, LDB, LDH, kStore>(big, a.wg2t + 3 * wsq, nullptr, ba, tid);   // du
+    // du into ba, dc1 = du * m3 * ikc where rc1 > 0 into bb
+    tc_gemm<3 * HID, HID, LDB, BWD_STAGES, BWD_KS>(
+        big, a.wg2t + 3 * wsq, ring,
+        EpDu<PRNG>{ba, bb, site_of<PRNG>(a.drop, 3, l, b0, smp), a.ikc, a.rc1 + row * HID,
+                   a.dc1 + row * HID, nreal},
+        tid);
     __syncthreads();
+    tc_prefetch<3 * HID, HID, BWD_STAGES, BWD_KS>(a.wg1t + 3 * wsq, ring, tid);
     joint_sum(ba, a.dtp + smp * HID, nb, tid);
+    mix_t(bb, big, tptr, tidx, tval, tid);
     __syncthreads();
-    dropout_bwd(ba, ba, site_of<PRNG>(a.drop, 3, l, b0, smp), a.ikc, a.rc1 + row * HID,
-                a.dc1 + row * HID, nb, tid);
-    __syncthreads();
-    mix_t(ba, big, tptr, tidx, tval, tid);
-    __syncthreads();
-    gemm<3 * HID, HID, LDB, LDH, kAdd>(big, a.wg1t + 3 * wsq, nullptr, dh, tid);     // dh = d hc
+    tc_gemm<3 * HID, HID, LDB, BWD_STAGES, BWD_KS>(big, a.wg1t + 3 * wsq, ring,
+                                         EpSmem<LDH, false, true>{dh, nullptr}, tid);  // dh = d hc
     __syncthreads();
 
     // GraphNet: hc = hb + f2*m2*iks, f2 = lap.(r1 @ W2) + b2, r1 = relu(fc1(lap.LN2(hb)))
+    tc_prefetch<HID, 2 * HID, BWD_STAGES, BWD_KS>(a.wfc2t + 2 * wsq, ring, tid);
     dropout_bwd(dh, ba, site_of<PRNG>(a.drop, 2, l, b0, smp), a.iks, nullptr,
                 a.df2 + row * HID, nb, tid);
     __syncthreads();
     lap_mix_t(ba, bb, lap, tid);
     __syncthreads();
-    gemm<HID, 2 * HID, LDH, LDB, kStore>(bb, a.wfc2t + 2 * wsq, nullptr, big, tid);
+    tc_gemm<HID, 2 * HID, LDH, BWD_STAGES, BWD_KS>(
+        bb, a.wfc2t + 2 * wsq, ring,
+        EpGate{big, a.r1 + row * 2 * HID, a.df1 + row * 2 * HID, nreal}, tid);
     __syncthreads();
-    relu_gate_wide(big, a.r1 + row * 2 * HID, a.df1 + row * 2 * HID, nb, tid);
+    tc_prefetch<2 * HID, HID, BWD_STAGES, BWD_KS>(a.wfc1t + 2 * wsq, ring, tid);
+    tc_gemm<2 * HID, HID, LDB, BWD_STAGES, BWD_KS>(big, a.wfc1t + 2 * wsq, ring,
+                                         EpSmem<LDH, false, false>{ba, nullptr}, tid);  // d g1
     __syncthreads();
-    gemm<2 * HID, HID, LDB, LDH, kStore>(big, a.wfc1t + 2 * wsq, nullptr, ba, tid);  // d g1
-    __syncthreads();
+    tc_prefetch<HID, 3 * HID, BWD_STAGES, BWD_KS>(a.wqkv + 3 * wsq, ring, tid);
     lap_mix_t(ba, bb, lap, tid);                                                     // d y2
     __syncthreads();
-    load_rows<HID>(a.hb + row * HID, ba, LDH, nb, tid);
-    __syncthreads();
-    ln_bwd_add(dh, bb, ba, a.ln2s + l * HID, nb, tid);                               // dh = d hb
+    ln_bwd_add_warp(dh, bb, a.hb + row * HID, a.ln2s + l * HID, nreal, tid);         // dh = d hb
     __syncthreads();
 
     // attention: hb = ha + o1*m1*iks, o1 = att @ Wo + bo; probabilities recomputed from y1
     dropout_bwd(dh, ba, site_of<PRNG>(a.drop, 1, l, b0, smp), a.iks, nullptr,
                 a.do1 + row * HID, nb, tid);
+    load_rows<HID>(a.y1 + row * HID, bb, LDH, nb, tid);
     __syncthreads();
-    gemm<HID, HID, LDH, LDH, kStore>(ba, a.waot + wsq, nullptr, bb, tid);            // d att
+    tc_gemm<HID, 3 * HID, LDH, BWD_STAGES, BWD_KS>(
+        bb, a.wqkv + 3 * wsq, ring, EpSmem<LDB, true, false>{big, a.bqkv + l * 3 * HID}, tid);
     __syncthreads();
-    load_rows<HID>(a.y1 + row * HID, ba, LDH, nb, tid);
+    tc_prefetch<HID, HID, BWD_STAGES, BWD_KS>(a.waot + wsq, ring, tid);
+    tc_gemm<HID, HID, LDH, BWD_STAGES, BWD_KS>(ba, a.waot + wsq, ring,
+                                     EpSmem<LDH, false, false>{bb, nullptr}, tid);     // d att
     __syncthreads();
-    gemm<HID, 3 * HID, LDH, LDB, kStoreBias>(ba, a.wqkv + 3 * wsq, a.bqkv + l * 3 * HID, big, tid);
+    attention_bwd(big, bb, probs_of<PRNG>(a.drop, l, b0, smp), a.ikp, sp, ba, nb, tid);
     __syncthreads();
-    attention_bwd(big, bb, probs_of<PRNG>(a.drop, l, b0, smp), a.ikp, sp, nb, tid);
-    __syncthreads();
+    tc_prefetch<3 * HID, HID, BWD_STAGES, BWD_KS>(a.wqkvt + 3 * wsq, ring, tid);
     store_rows<3 * HID>(big, LDB, a.dqkv + row * 3 * HID, nb, tid);
-    gemm<3 * HID, HID, LDB, LDH, kStore>(big, a.wqkvt + 3 * wsq, nullptr, ba, tid);  // d y1
-    load_rows<HID>(a.ha + row * HID, bb, LDH, nb, tid);
+    tc_gemm<3 * HID, HID, LDB, BWD_STAGES, BWD_KS>(big, a.wqkvt + 3 * wsq, ring,
+                                         EpSmem<LDH, false, false>{ba, nullptr}, tid);  // d y1
     __syncthreads();
-    ln_bwd_add(dh, ba, bb, a.ln1s + l * HID, nb, tid);                               // dh = d ha
+    ln_bwd_add_warp(dh, ba, a.ha + row * HID, a.ln1s + l * HID, nreal, tid);         // dh = d ha
     __syncthreads();
   }
   store_rows<HID>(dh, LDH, a.da0 + static_cast<size_t>(b0) * N_PTS * HID, nb, tid);

@@ -251,9 +251,10 @@ def timestep_projections(w: Weights, t: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _cheb(z, wcat, bias, basis):
-    """``Σ_k T_k·(z @ W_k) + b`` from the side-by-side weights ``[C, (K+1)·D]``."""
-    u = (z @ wcat).unflatten(-1, (basis.shape[0], -1))  # [B, N, K+1, D]
+def _cheb(z, wcat, bias, basis, mm=torch.matmul):
+    """``Σ_k T_k·(z @ W_k) + b`` from the side-by-side weights ``[C, (K+1)·D]``,
+    the channel product ``z @ W`` through ``mm``."""
+    u = mm(z, wcat).unflatten(-1, (basis.shape[0], -1))  # [B, N, K+1, D]
     return torch.einsum("knm,bmkd->bnd", basis, u) + bias
 
 

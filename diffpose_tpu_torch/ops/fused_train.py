@@ -19,18 +19,28 @@ dropout's source), ``csrc/philox.cuh`` (the generator and its keying) and
   as plain ``torch`` products, one batched GEMM per weight (the JAX
   package leaves the same products to XLA, outside its kernels).
 
-Bound on the H100: operations, for both kernels (f32 FMA on CUDA cores).
-Per sample and layer the forward does about 4.7 MFLOP and the backward 5.3
-(five transposed products plus the QKV recompute); the stashes (about 65
-KB per sample and layer written, 46 KB read back) and the ``uint8`` masks
-come second.
+Bound on the H100: operations, for both kernels.  Per sample and layer the
+forward does about 4.7 MFLOP and the backward 5.3 (five transposed products
+plus the QKV recompute), 92–94% of it channel products; the stashes
+(about 65 KB per sample and layer written, 46 KB read back) and the
+``uint8`` masks come second.
 
 Design, and where it differs from the TPU kernels:
 
-* one CTA of 288 threads owns a tile of 4 samples; the residual stream
-  (forward) or its gradient (backward) stays in shared memory across all
-  layers, weights stream from global memory through L2, as in
-  ``net_kernel.cuh`` whose GEMM, mixing and LayerNorm stages are reused;
+* one CTA of 288 threads (9 warps) owns a tile of 4 samples; the residual
+  stream (forward) or its gradient (backward) stays in shared memory across
+  all layers;
+* every channel product runs on the tensor cores, ``mma.sync`` m16n8k8 at
+  3xTF32 (``big·big + big·small + small·big`` of the TF32 splits, f32
+  accumulation; the TPU kernels' ``bf16x3``); :mod:`ops.tf32` is its plain
+  model, and ``layers_forward`` / :func:`stack_bwd_plain` take
+  ``matmul=ops.tf32.matmul_3xtf32`` to run with it on the CPU;
+* weights stream from L2 through a ring of K-slabs in shared memory, filled
+  by ``cp.async`` while the previous slab multiplies and split into TF32
+  parts once per CTA; the next product's first slabs are requested before
+  the stages that precede it;
+* LayerNorms and their backward take a warp a row; dropout, ReLU gates and
+  stashes run in the epilogue of the product or mix that feeds them;
 * everything is batch-major: stashes and d-stashes are ``[L, B·17, C]``,
   so the kernels' stores are contiguous and each weight gradient is one
   ``bmm``;
@@ -38,10 +48,11 @@ Design, and where it differs from the TPU kernels:
   ``[L, B, heads, 17, 17]`` — no head-expanded copy, no segment matrices;
 * the forward also stashes ``hc`` and ``u``, which the TPU masks-mode
   kernel leaves to a recomputation: device memory is not scarce here;
-* backward shared memory (216 KB of 227): the gradient, two H-wide
-  buffers, one 3H-wide buffer that holds in turn the Chebyshev partial
-  mixes, ``df1``, and the recomputed QKV overwritten in place by ``dqkv``,
-  and a 17×17 scratch per (sample, head);
+* backward shared memory (227 KB): the gradient, two H-wide buffers, one
+  3H-wide buffer that holds in turn the Chebyshev partial mixes, ``df1``,
+  and the recomputed QKV overwritten in place by ``dqkv``, and one region
+  that is the weight ring during the products and a 17×17 scratch per
+  (sample, head) during the attention backward;
 * the last tile masks its absent samples itself: any batch ≥ 1;
 * seeded dropout (:func:`stack_fwd_prng`, :func:`stack_bwd_prng`): the TPU's
   generator has no counterpart, so the kernels carry Philox4x32-10, keyed on
@@ -144,21 +155,24 @@ def _ln_bwd(g, x, scale):
     return dc - dc.mean(dim=-1, keepdim=True)
 
 
-def _cheb_bwd_data(dy, wcat, basis):
+def _cheb_bwd_data(dy, wcat, basis, mm=torch.matmul):
     """Input gradient of ``y = Σ_k T_k·(x @ W_k)``: the transposed mixes
     ``T_kᵀ·dy`` side by side, times ``[W_0 | W_1 | W_2]ᵀ``."""
     v = torch.einsum("knm,bnd->bmkd", basis, dy).flatten(-2)
-    return v @ wcat.t()
+    return mm(v, wcat.t())
 
 
 def stack_bwd_plain(w: Weights, masks: DropoutMasks, st: Dict[str, torch.Tensor],
-                    dd5: torch.Tensor, *, rates=None):
+                    dd5: torch.Tensor, *, rates=None, matmul=None):
     """The backward kernel's function in tensor operations.
 
     From the gradient ``dd5 [B, N, H]`` of the stack's output: ``dA0``
     (gradient of the stack's input), ``dtp [L, B, H]`` and the d-stashes
-    ``DSTASH_KEYS``, each ``[L, B, N, width]``.
+    ``DSTASH_KEYS``, each ``[L, B, N, width]``.  ``matmul`` computes the
+    channel products (``torch.matmul`` by default; ``ops/tf32.py:
+    matmul_3xtf32`` gives the kernel's tensor-core products).
     """
+    mm = matmul or torch.matmul
     ikp, iks, ikc = _inv_keep(rates)
     hid, heads, basis = w["hid_dim"], w["num_heads"], w["basis"]
     bsz, n = dd5.shape[:2]
@@ -177,22 +191,22 @@ def stack_bwd_plain(w: Weights, masks: DropoutMasks, st: Dict[str, torch.Tensor]
     for l in reversed(range(num_layers)):
         # Chebyshev block: h_out = hc + rd1·m4·ikc, u = rc1·m3·ikc + tp
         dc2 = dh * (masks.cheb2[l].to(f) * ikc) * (st["rd1"][l] > 0)
-        du = _cheb_bwd_data(dc2, w["wg2"][l], basis)
+        du = _cheb_bwd_data(dc2, w["wg2"][l], basis, mm)
         dtp[l] = du.sum(dim=1)
         dc1 = du * (masks.cheb1[l].to(f) * ikc) * (st["rc1"][l] > 0)
-        d_hc = dh + _cheb_bwd_data(dc1, w["wg1"][l], basis)
+        d_hc = dh + _cheb_bwd_data(dc1, w["wg1"][l], basis, mm)
 
         # GraphNet: hc = hb + f2·m2·iks
         lap_t = w["lap"][l].t()
         df2 = d_hc * (masks.gnet_out[l].to(f) * iks)
-        df1 = ((lap_t @ df2) @ w["wfc2"][l].t()) * (st["r1"][l] > 0)
-        dy2 = lap_t @ (df1 @ w["wfc1"][l].t())
+        df1 = mm(lap_t @ df2, w["wfc2"][l].t()) * (st["r1"][l] > 0)
+        dy2 = lap_t @ mm(df1, w["wfc1"][l].t())
         d_hb = d_hc + _ln_bwd(dy2, st["hb"][l], w["ln2s"][l])
 
         # attention: hb = ha + o1·m1·iks; the probabilities are recomputed
         do1 = d_hb * (masks.attn_out[l].to(f) * iks)
-        datt = split_heads(do1 @ w["wao"][l].t())
-        qkv = st["y1"][l] @ w["wqkv"][l] + w["bqkv"][l]
+        datt = split_heads(mm(do1, w["wao"][l].t()))
+        qkv = mm(st["y1"][l], w["wqkv"][l]) + w["bqkv"][l]
         q, k, v = (split_heads(z) for z in qkv.split(hid, dim=-1))
         p = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
         mp = masks.probs[l].to(f) * ikp
@@ -201,7 +215,7 @@ def stack_bwd_plain(w: Weights, masks: DropoutMasks, st: Dict[str, torch.Tensor]
         dsc = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
         dq, dk = dsc @ k, dsc.transpose(-1, -2) @ q
         dqkv = torch.cat([merge_heads(dq), merge_heads(dk), merge_heads(dv)], dim=-1)
-        dh = d_hb + _ln_bwd(dqkv @ w["wqkv"][l].t(), st["ha"][l], w["ln1s"][l])
+        dh = d_hb + _ln_bwd(mm(dqkv, w["wqkv"][l].t()), st["ha"][l], w["ln1s"][l])
 
         for key, val in zip(DSTASH_KEYS, (dqkv, do1, df1, df2, dc1, dc2)):
             ds[key][l] = val

@@ -91,12 +91,16 @@ def layers_forward(
     *,
     rates=None,
     return_stashes: bool = False,
+    matmul=None,
 ):
     """The L-layer GraAttenLayer + ResChebGCDiff stack in training mode.
 
     Returns the stack's output ``[B, N, H]``, and with ``return_stashes``
-    also the dict of per-layer intermediates ``STASH_KEYS``.
+    also the dict of per-layer intermediates ``STASH_KEYS``.  ``matmul``
+    computes the channel products (``torch.matmul`` by default;
+    ``ops/tf32.py:matmul_3xtf32`` gives the kernels' tensor-core products).
     """
+    mm = matmul or torch.matmul
     p_probs, p_sub, p_cheb = resolve_rates(rates)
     ikp, iks, ikc = 1.0 / (1.0 - p_probs), 1.0 / (1.0 - p_sub), 1.0 / (1.0 - p_cheb)
     w = weights
@@ -109,12 +113,12 @@ def layers_forward(
         stash["ha"].append(h)
         # attention sublayer (q carries 1/√d_k)
         y1 = _layer_norm(h, w["ln1s"][l], w["ln1b"][l])
-        qkv = y1 @ w["wqkv"][l] + w["bqkv"][l]
+        qkv = mm(y1, w["wqkv"][l]) + w["bqkv"][l]
         q, k, v = (z.reshape(bsz, n, heads, -1).transpose(1, 2) for z in qkv.split(hid, dim=-1))
         p = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
         pd = p * (masks.probs[l].to(f) * ikp)
         att = (pd @ v).transpose(1, 2).reshape(bsz, n, hid)
-        o1 = att @ w["wao"][l] + w["bao"][l]
+        o1 = mm(att, w["wao"][l]) + w["bao"][l]
         h = h + o1 * (masks.attn_out[l].to(f) * iks)
         stash["y1"].append(y1)
         stash["att"].append(att)
@@ -123,17 +127,17 @@ def layers_forward(
         # GraphNet sublayer
         lap = w["lap"][l]
         y2 = _layer_norm(h, w["ln2s"][l], w["ln2b"][l])
-        r1 = F.relu((lap @ y2) @ w["wfc1"][l] + w["bfc1"][l])
-        f2 = (lap @ r1) @ w["wfc2"][l] + w["bfc2"][l]
+        r1 = F.relu(mm(lap @ y2, w["wfc1"][l]) + w["bfc1"][l])
+        f2 = mm(lap @ r1, w["wfc2"][l]) + w["bfc2"][l]
         h = h + f2 * (masks.gnet_out[l].to(f) * iks)
         stash["r1"].append(r1)
         stash["hc"].append(h)
 
         # residual Chebyshev block, the timestep projection added after the
         # first conv's dropout
-        rc1 = F.relu(_cheb(h, w["wg1"][l], w["bg1"][l], basis))
+        rc1 = F.relu(_cheb(h, w["wg1"][l], w["bg1"][l], basis, mm))
         u = rc1 * (masks.cheb1[l].to(f) * ikc) + tp[l][:, None, :]
-        rd1 = F.relu(_cheb(u, w["wg2"][l], w["bg2"][l], basis))
+        rd1 = F.relu(_cheb(u, w["wg2"][l], w["bg2"][l], basis, mm))
         h = h + rd1 * (masks.cheb2[l].to(f) * ikc)
         stash["rc1"].append(rc1)
         stash["u"].append(u)
