@@ -19,7 +19,7 @@ cudaError_t launch(const netk::NetArgs& a, cudaStream_t stream) {
                                          static_cast<int>(netk::SMEM_BYTES));
   if (err != cudaSuccess) return err;
   const int grid = (a.batch + netk::TB - 1) / netk::TB;
-  kernel<<<grid, netk::THREADS, netk::SMEM_BYTES, stream>>>(a);
+  kernel<<<grid, netk::NET_THREADS, netk::SMEM_BYTES, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -25,8 +25,9 @@
 //   - every channel product (QKV, out-projection, fc1, fc2, the two
 //     Chebyshev convs, and in the backward their transposes and the QKV
 //     recompute) runs on the tensor cores, mma.sync m16n8k8 at 3xTF32 with
-//     f32 accumulation (tc_gemm; the counterpart of the TPU kernels'
-//     bf16x3 products, pallas_denoiser.py:_dot);
+//     f32 accumulation (tc_gemm.cuh, shared with net_kernel.cuh; the
+//     counterpart of the TPU kernels' bf16x3 products,
+//     pallas_denoiser.py:_dot);
 //   - the weights stream from L2 in K-slabs of 32 rows through a ring in
 //     shared memory (3 stages in the forward, 2 in the backward), filled by
 //     cp.async while the previous slab multiplies, each weight split into
@@ -49,7 +50,6 @@
 
 #include <cmath>
 
-#include "mma_tf32.cuh"
 #include "net_kernel.cuh"
 #include "philox.cuh"
 
@@ -287,194 +287,14 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ src, float* 
 }
 
 // ---------------------------------------------------------------------------
-// Channel products on the tensor cores (3xTF32), LayerNorms a warp a row
+// Tensor-core epilogues of the train pair (tc_gemm and its helpers:
+// tc_gemm.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr int WARPS = THREADS / 32;                      // 9
-static_assert(ROWS_PAD == 9 * 8, "the tile's padded rows are 9 n8 tiles");
-
-// The products run 96 output columns at a time (a "chunk"), so that a warp
-// holds 2 x 3 accumulator tiles whatever the width.  The weight ring: S
-// stages of a slab of KS rows of W's chunk, each as TF32 big and small parts,
-// rows LDR floats apart (== 8 mod 32: conflict-free A fragments).
-constexpr int CW = HID;                                  // columns a chunk
-constexpr int LDR = CW + 8;
 constexpr int FWD_KS = 32, FWD_STAGES = 3;               // rows of W a slab, slabs in the ring
 constexpr int BWD_KS = 32, BWD_STAGES = 2;
-constexpr int FWD_RING = FWD_STAGES * 2 * FWD_KS * LDR;
-constexpr int BWD_RING = BWD_STAGES * 2 * BWD_KS * LDR;
-
-// Slab j of a product of N columns, chunk j / NSK and rows (j % NSK) * KS ..
-// of W [K, N] (global, read-only), into ring stage j % S by cp.async, 16
-// bytes a thread and piece.
-template <int N, int NSK, int S, int KS>
-__device__ __forceinline__ void stage_slab(const float* __restrict__ W, float* ring, int j, int tid) {
-  constexpr int NG = CW / 4;
-  float* dst = ring + (j % S) * 2 * KS * LDR;
-  const float* src = W + static_cast<size_t>(j % NSK) * KS * N + (j / NSK) * CW;
-  for (int it = tid; it < KS * NG; it += THREADS) {
-    const int r = it / NG, c = 4 * (it % NG);
-    tf32::cp_async16(dst + r * LDR + c, src + r * N + c);
-  }
-}
-
-// After the wait: every thread splits the pieces it copied itself (its own
-// cp.async writes are visible to it without a barrier): big in place, small
-// KS rows further on.  So each weight is split once per CTA.
-template <int S, int KS>
-__device__ __forceinline__ void split_slab(float* ring, int j, int tid) {
-  constexpr int NG = CW / 4;
-  float* big = ring + (j % S) * 2 * KS * LDR;
-  for (int it = tid; it < KS * NG; it += THREADS) {
-    float* p = big + (it / NG) * LDR + 4 * (it % NG);
-    const float4 v = ld4(p);
-    uint32_t b[4], sm[4];
-    tf32::split(v.x, b[0], sm[0]);
-    tf32::split(v.y, b[1], sm[1]);
-    tf32::split(v.z, b[2], sm[2]);
-    tf32::split(v.w, b[3], sm[3]);
-    st4(p, make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]), __uint_as_float(b[2]),
-                       __uint_as_float(b[3])));
-    st4(p + KS * LDR, make_float4(__uint_as_float(sm[0]), __uint_as_float(sm[1]),
-                                  __uint_as_float(sm[2]), __uint_as_float(sm[3])));
-  }
-}
-
-// The first S - 1 slabs of the product A @ W (K x N) into the ring, one
-// commit group each: issued as soon as the ring is free (after the barrier
-// that follows the previous product), so that they land during the stages
-// before tc_gemm.  No other cp.async may be issued in between.
-template <int K, int N, int S, int KS>
-__device__ __forceinline__ void tc_prefetch(const float* __restrict__ W, float* ring, int tid) {
-  constexpr int NSK = K / KS, TOTAL = (N / CW) * NSK;
-#pragma unroll
-  for (int j = 0; j < S - 1; ++j) {
-    if (j < TOTAL) stage_slab<N, NSK, S, KS>(W, ring, j, tid);
-    tf32::cp_async_commit();
-  }
-}
-
-// C (epilogue) A[r, :K] @ W[:K, :N] for the tile's 72 padded rows, as
-// Cᵀ = Wᵀ Aᵀ on mma.sync m16n8k8 TF32 at 3xTF32 (big·big + big·small +
-// small·big, f32 accumulation), N / 96 chunks of 96 columns one after the
-// other: a chunk's 96 columns are the M side (6 m16 tiles), the 72 rows the
-// N side (9 n8 tiles); warp w = (w / 3, w % 3) owns m tiles 2 (w / 3) .. +1
-// and n tiles 3 (w % 3) .. +2.  W streams through the S-stage ring in slabs
-// of KS rows of a chunk, S - 1 slabs in flight while one multiplies, one
-// barrier a slab, across chunk boundaries.  A's rows are LDA ≡ 4 (mod 32)
-// floats apart, so its B fragments load without bank conflicts.  After a
-// chunk's last slab the warp hands its accumulators to the epilogue,
-// epi(acc, m0, rb, g, t): acc[mt][nt][i] is column m0 + 16 mt + g + 8 (i >> 1),
-// row rb + 8 nt + 2 t + (i & 1).  C must not overlap A; nothing reads C
-// before the caller's barrier.  The caller brackets the call with barriers:
-// A is complete before it, and the ring is not written again until after
-// the next; tc_prefetch<K, N, S, KS>(W, ...) has been called since that
-// barrier.
-template <int K, int N, int LDA, int S, int KS, class Epi>
-__device__ __forceinline__ void tc_gemm(const float* A, const float* __restrict__ W, float* ring,
-                                        const Epi& epi, int tid) {
-  constexpr int NSK = K / KS, TOTAL = (N / CW) * NSK;
-  static_assert(K % KS == 0 && KS % 8 == 0 && N % CW == 0 && S >= 2, "product shape");
-  static_assert(LDR % 32 == 8, "slab rows must be 8 mod 32 floats apart");
-  static_assert(LDA % 32 == 4, "A's row stride must be 4 mod 32 floats");
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int m_warp = (warp / 3) * 32, rb = (warp % 3) * 24;
-
-  float acc[2][3][4];
-  for (int j = 0; j < TOTAL; ++j) {
-    if (j % NSK == 0) {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 3; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-    }
-    tf32::cp_async_wait<S - 2>();      // slab j has landed (this thread's part)
-    split_slab<S, KS>(ring, j, tid);
-    __syncthreads();                   // slab j split everywhere; slab j - 1 read by all
-    if (j + S - 1 < TOTAL) stage_slab<N, NSK, S, KS>(W, ring, j + S - 1, tid);
-    tf32::cp_async_commit();
-    const float* wb = ring + (j % S) * 2 * KS * LDR;
-    const float* ws = wb + KS * LDR;
-    const float* a0 = A + (rb + g) * LDA + (j % NSK) * KS + t;
-#pragma unroll 1   // unrolled, the k-steps' hoisted fragments outgrow 168 registers
-    for (int kk = 0; kk < KS; kk += 8) {
-      uint32_t bb[3][2], bs[3][2];
-#pragma unroll
-      for (int nt = 0; nt < 3; ++nt) {
-        tf32::split(a0[8 * nt * LDA + kk], bb[nt][0], bs[nt][0]);
-        tf32::split(a0[8 * nt * LDA + kk + 4], bb[nt][1], bs[nt][1]);
-      }
-      // An m tile at a time: its k-step's three passes (the small products
-      // first, then the big one; the three n tiles take turns) go to a fresh
-      // partial sum, added to the accumulator in f32 with round-to-nearest.
-      // The tensor cores' own accumulation truncates; fed the whole K, its
-      // bias grows with K and through the implicit family's solves.
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int o0 = (kk + t) * LDR + m_warp + 16 * mt + g, o1 = o0 + 4 * LDR;
-        const int o[4] = {o0, o0 + 8, o1, o1 + 8};
-        uint32_t ab[4], as[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ab[i] = __float_as_uint(wb[o[i]]);
-          as[i] = __float_as_uint(ws[o[i]]);
-        }
-        float part[3][4] = {};
-#pragma unroll
-        for (int nt = 0; nt < 3; ++nt) tf32::mma(part[nt], ab, bs[nt]);
-#pragma unroll
-        for (int nt = 0; nt < 3; ++nt) tf32::mma(part[nt], as, bb[nt]);
-#pragma unroll
-        for (int nt = 0; nt < 3; ++nt) tf32::mma(part[nt], ab, bb[nt]);
-#pragma unroll
-        for (int nt = 0; nt < 3; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[nt][i];
-      }
-    }
-    if (j % NSK == NSK - 1) epi(acc, (j / NSK) * CW + m_warp, rb, g, t);
-  }
-}
-
-// Epilogues.  Each gathers what it reads from global memory for a group of
-// the warp's elements before it stores anything, so that the loads overlap.
-using Acc = float[2][3][4];
-__device__ __forceinline__ int frag_row(int rb, int nt, int i, int t) { return rb + 8 * nt + 2 * t + (i & 1); }
-__device__ __forceinline__ int frag_col(int m0, int mt, int i, int g) { return m0 + 16 * mt + g + 8 * (i >> 1); }
-
-// The bias of the warp's four columns, [mt][i >> 1].
-__device__ __forceinline__ void frag_bias(const float* __restrict__ bias, int m0, int g,
-                                          float (&b)[2][2]) {
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) b[mt][h] = __ldg(bias + m0 + 16 * mt + g + 8 * h);
-}
-
-// C[r, c] (=, +=) acc (+ bias[c]) for the tile's rows.
-template <int LDC, bool BIAS, bool ADD>
-struct EpSmem {
-  float* c;
-  const float* bias;
-  __device__ __forceinline__ void operator()(const Acc& d, int m0, int rb, int g, int t) const {
-    float b[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    if constexpr (BIAS) frag_bias(bias, m0, g, b);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 3; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = frag_row(rb, nt, i, t), col = frag_col(m0, mt, i, g);
-          if (r >= ROWS) continue;
-          float v = d[mt][nt][i] + b[mt][i >> 1];
-          if constexpr (ADD) v += c[r * LDC + col];
-          c[r * LDC + col] = v;
-        }
-  }
-};
+constexpr int FWD_RING = ring_floats<FWD_STAGES, FWD_KS>();
+constexpr int BWD_RING = ring_floats<BWD_STAGES, BWD_KS>();
 
 // fc1: relu(acc + bias) into C (LDB), stashed (W wide) for the real rows.
 template <int W>
@@ -615,69 +435,6 @@ struct EpGate {
     }
   }
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// y = LayerNorm(x) per row, a * (x - mean) / (std + 1e-6) + b with the
-// Bessel std, one warp a row (columns lane, lane + 32, lane + 64); also into
-// stash for the real rows where given.
-__device__ __forceinline__ void layer_norm_warp(const float* in, float* out,
-                                                const float* __restrict__ scale,
-                                                const float* __restrict__ shift,
-                                                float* __restrict__ stash, int nreal, int tid) {
-  const int lane = tid & 31;
-  float sc[3], sh[3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    sc[j] = __ldg(scale + lane + 32 * j);
-    sh[j] = __ldg(shift + lane + 32 * j);
-  }
-  // two rows at a time, r and r + WARPS, so that their reductions interleave
-  for (int r0 = tid >> 5; r0 < ROWS; r0 += 2 * WARPS) {
-    float v[2][3], mean[2], ss[2] = {0.f, 0.f};
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int r = min(r0 + q * WARPS, ROWS - 1);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) v[q][j] = in[r * LDH + lane + 32 * j];
-      mean[q] = v[q][0] + v[q][1] + v[q][2];
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-      for (int q = 0; q < 2; ++q) mean[q] += __shfl_xor_sync(0xffffffffu, mean[q], o);
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      mean[q] /= HID;
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        v[q][j] -= mean[q];
-        ss[q] = fmaf(v[q][j], v[q][j], ss[q]);
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-      for (int q = 0; q < 2; ++q) ss[q] += __shfl_xor_sync(0xffffffffu, ss[q], o);
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int r = r0 + q * WARPS;
-      if (r >= ROWS) break;
-      const float den = sqrtf(ss[q] / (HID - 1)) + 1e-6f;
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int c = lane + 32 * j;
-        const float o = sc[j] * v[q][j] / den + sh[j];
-        out[r * LDH + c] = o;
-        if (stash != nullptr && r < nreal) stash[r * HID + c] = o;
-      }
-    }
-  }
-}
 
 // dh += d/dx of the LayerNorm scale*(x-mean)/(std+1e-6)+shift (Bessel std,
 // eps outside the root), given the output gradient g (shared memory) and x

@@ -28,10 +28,12 @@
 //   bs   [QT, 2*HID]   q, or the FF hidden layer
 //   part [QT*HEADS, DK + 4]  the second key half's (max, sum, output)
 //
-// Weights stream from global memory (L2), as in net_kernel.cuh; every
-// product is an f32 FMA on CUDA cores with f32 accumulation.  The scratch
-// and (in st_layer_kernel) the spatial phase's output are written inside
-// the launch, so they are read with plain loads, never through __ldg.
+// The spatial phase is net_kernel.cuh's layer (tensor-core products, a
+// cp.async weight ring in the same shared memory).  In the temporal phase
+// weights stream from global memory (L2); every product is an f32 FMA on
+// CUDA cores with f32 accumulation.  The scratch and (in st_layer_kernel)
+// the spatial phase's output are written inside the launch, so they are read
+// with plain loads, never through __ldg.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -78,7 +80,7 @@ enum Epi { kStoreBias, kReluBias, kAddBias };
 
 // C[r, :N] (=, +=) A[r, :K] @ W[K, N] (+ bias) for the QT rows of a tile,
 // W with row stride LDW; rows >= nrows are not stored.  Thread = (column
-// group of 4, row group), as netk::gemm.
+// group of 4, row group).
 template <int K, int N, int LDA, int LDW, int LDC, Epi EPI>
 __device__ __forceinline__ void gemm(const float* A, const float* __restrict__ W,
                                      const float* __restrict__ bias, float* C, int nrows,
@@ -321,24 +323,19 @@ __global__ void __launch_bounds__(THREADS, 1) st_layer_kernel(const netk::NetArg
   // phase S: the spatial block, tiles of TB frames, grid-stride
   {
     namespace nk = netk;
-    float* h = smem;
-    float* y = h + nk::ROWS_PAD * nk::LDH;
-    float* big = y + nk::ROWS_PAD * nk::LDH;
-    float* lap = big + nk::ROWS_PAD * nk::LDB;
-    float* cval = lap + nk::LAP_PAD;
-    int* cidx = reinterpret_cast<int*>(cval + nk::TERMS_PAD);
-    int* cptr = cidx + nk::TERMS_PAD;
-    nk::load_cheb(a, cptr, cidx, cval, tid);
+    const nk::Tile s = nk::carve(smem);
+    nk::load_cheb(a, s, tid);
     const int tiles = (a.batch + nk::TB - 1) / nk::TB;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int b0 = tile * nk::TB;
       const int nb = min(nk::TB, a.batch - b0);
-      for (int i = tid; i < nk::ACT_FLOATS; i += THREADS) h[i] = 0.f;
+      nk::prefetch_layer(a, 0, s.ring, tid);
+      for (int i = tid; i < nk::ACT_FLOATS; i += THREADS) s.h[i] = 0.f;
       __syncthreads();
-      nk::load_tile(a.x + static_cast<size_t>(b0) * N_PTS * HID, h, nb, tid);
+      nk::load_tile(a.x + static_cast<size_t>(b0) * N_PTS * HID, s.h, nb, tid);
       __syncthreads();
-      nk::stack_layer<true>(a, 0, h, y, big, lap, cptr, cidx, cval, b0, nb, tid);
-      nk::store_tile(h, a.out + static_cast<size_t>(b0) * N_PTS * HID, nb, tid);
+      nk::stack_layer<true, 0, THREADS>(a, 0, s, b0, nb, tid);
+      nk::store_tile(s.h, a.out + static_cast<size_t>(b0) * N_PTS * HID, nb, tid);
       __syncthreads();
     }
   }

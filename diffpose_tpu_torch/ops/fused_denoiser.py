@@ -9,21 +9,23 @@ The CUDA source is ``csrc/net_kernel.cuh`` (device code) and
 ``csrc/net_kernel.cu`` (launch).
 
 Bound on the H100: operations.  One forward at hid 96 / 5 layers / 17
-joints costs about 23 MFLOP per sample (QKV, out-projection, fc1/fc2 and
-the Chebyshev products dominate), against about 22 input and output bytes
-per joint plus 2.6 MB of weights for the whole batch: at B=1024 that is
-24 GFLOP, 0.35 ms at the 67 TFLOP/s FP32 CUDA-core peak, while the bytes
-take microseconds.
+joints costs about 23 MFLOP per sample, 94% of it the channel products
+(QKV, out-projection, fc1/fc2 and the residual Chebyshev products), against
+about 22 input and output bytes per joint plus 2.6 MB of weights for the
+whole batch: at B=1024 the products at the 495 TFLOP/s TF32 tensor-core
+peak (three passes) and the rest at 67 TFLOP/s FP32 take 0.16 ms, while the
+bytes take microseconds.
 
-Design: one CTA of 288 threads takes a tile of 4 samples and keeps their
-activations in shared memory through every layer (150 KB), as the TPU
-kernel keeps them in VMEM; the weights do not fit on-chip and are read
-from global memory, where L2 holds them for every CTA.  All products are
-f32 FMAs on CUDA cores with f32 accumulation (the parity grade the TPU
-reaches with bf16x3).  Attention computes each sample's 17x17 scores per
-head directly (no segment matrices), with a max-subtracted softmax in f32;
-the all-ones mask is left out.  The last tile masks its absent samples
-itself (no padding of the batch).
+Design: one CTA of 384 threads (12 warps) takes a tile of 4 samples and
+keeps their activations in shared memory through every layer, as the TPU
+kernel keeps them in VMEM.  Every channel product runs on the tensor cores at 3xTF32
+(``csrc/tc_gemm.cuh``, shared with the train kernels; the parity grade the
+TPU reaches with bf16x3), its weights split into TF32 parts once here
+(:func:`prepare_weights`) and streamed from L2 through a ``cp.async`` ring.
+Attention computes each sample's 17x17 scores per head directly (no segment
+matrices), with a max-subtracted softmax in f32; the all-ones mask is left
+out.  The last tile masks its absent samples itself (no padding of the
+batch).
 
 Outside the kernel, as in the JAX wrapper: the weight prep
 (:func:`prepare_weights`: stacking, the learned Laplacian of each layer,
@@ -38,9 +40,8 @@ which shares the weight prep and the folded-q arithmetic.
 ``wrapper.launches`` counts the kernel launches.
 
 The bare stack does the same work as the whole network less the two
-ChebConvs: at B=1024 about 23.5 GFLOP, again bound by the operations; its
-input and output are 96 wide, 13 MB in all at B=1024, microseconds of
-bandwidth.
+ChebConvs, again bound by the operations; its input and output are 96
+wide, 13 MB in all at B=1024, microseconds of bandwidth.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ import torch.nn.functional as F
 from diffpose_tpu_torch.graph import learned_adjacency_laplacian
 from diffpose_tpu_torch.models.layers import timestep_embedding
 from diffpose_tpu_torch.ops import _build
+from diffpose_tpu_torch.ops.tf32 import split_tf32
 
 Weights = Dict[str, Any]
 
@@ -64,10 +66,14 @@ Weights = Dict[str, Any]
 KERNEL_HID, KERNEL_HEADS, KERNEL_PTS, KERNEL_CHEB_TERMS = 96, 4, 17, 3
 KERNEL_IO = {True: (5, 5), False: (2, 3)}  # has_temb -> (c_in, c_out)
 
+# The channel products' weights [L, K, N], which the kernel takes split into
+# their TF32 parts, [L, 2, K, N] under "<name>_tf32" (prepare_weights).
+SPLIT_KEYS = ("wqkv", "wao", "wfc1", "wfc2", "wg1", "wg2")
+
 # Weight tensors in the order of net_forward's arguments.
 _KERNEL_WEIGHTS = (
-    "win", "bin", "ln1s", "ln1b", "ln2s", "ln2b", "wqkv", "bqkv", "wao", "bao", "lap",
-    "wfc1", "bfc1", "wfc2", "bfc2", "wg1", "bg1", "wg2", "bg2", "wout", "bout",
+    "win", "bin", "ln1s", "ln1b", "ln2s", "ln2b", "wqkv_tf32", "bqkv", "wao_tf32", "bao", "lap",
+    "wfc1_tf32", "bfc1", "wfc2_tf32", "bfc2", "wg1_tf32", "bg1", "wg2_tf32", "bg2", "wout", "bout",
     "cheb_ptr", "cheb_idx", "cheb_val",
 )
 # Those of net_backbone's arguments: no input or output ChebConv.
@@ -158,11 +164,15 @@ def prepare_weights(model, device="cuda", *, differentiable: bool = False) -> We
     timestep MLP (denoiser only); the Chebyshev basis, dense and as a term
     list.  Also the configuration (``has_temb``, ``num_layers``, ...).
 
-    By default the tensors are a detached snapshot (eval).  With
-    ``differentiable=True`` (training; the module already lies on
+    By default the tensors are a detached snapshot (eval), and each channel
+    product's stack ``SPLIT_KEYS`` is also given split into its TF32 parts,
+    ``[L, 2, K, N]`` (``ops/tf32.py:split_tf32``: big, then small), once an
+    evaluation, for the kernel (the plain versions read the f32 stacks).
+    With ``differentiable=True`` (training; the module already lies on
     ``device``) the same arithmetic stays in the autograd graph, so that
     gradients of the stacks reach the module's parameters: ``A_hat``
-    through the learned Laplacian, q's weight and bias through the fold.
+    through the learned Laplacian, q's weight and bias through the fold;
+    no split stacks are made.
     """
     device = resolve_device(device)
     has_temb = hasattr(model.gconv_layers[0], "temb_proj")
@@ -216,6 +226,9 @@ def prepare_weights(model, device="cuda", *, differentiable: bool = False) -> We
         fold[:hid] = 1.0 / math.sqrt(hid // heads)
         w["wqkv"] = w["wqkv"] * fold
         w["bqkv"] = w["bqkv"] * fold
+        if not differentiable:
+            for k in SPLIT_KEYS:
+                w[f"{k}_tf32"] = torch.stack(split_tf32(w[k]), dim=1).contiguous()
         if has_temb:
             dense = model.temb.dense
             w.update(
@@ -265,41 +278,47 @@ def _layer_norm(z, scale, shift):
     return scale * c / (torch.sqrt(var) + 1e-6) + shift
 
 
-def net_plain(w: Weights, x: torch.Tensor, tp: Optional[torch.Tensor] = None) -> torch.Tensor:
+def net_plain(w: Weights, x: torch.Tensor, tp: Optional[torch.Tensor] = None, *,
+              matmul=torch.matmul) -> torch.Tensor:
     """The kernel's function in plain PyTorch: ``x [B, N, C_in]`` (and
-    ``tp [L, B, H]`` for the denoiser) → ``[B, N, C_out]``."""
+    ``tp [L, B, H]`` for the denoiser) → ``[B, N, C_out]``.  ``matmul``
+    computes the stack's channel products (``ops/tf32.py:matmul_3xtf32``
+    gives the kernel's tensor-core products); the input and output
+    ChebConvs are f32, as in the kernel."""
     basis = w["basis"]
-    h = _layers_plain(w, _cheb(x, w["win"], w["bin"], basis), tp)
+    h = _layers_plain(w, _cheb(x, w["win"], w["bin"], basis), tp, matmul)
     return _cheb(h, w["wout"], w["bout"], basis)
 
 
-def backbone_plain(w: Weights, z: torch.Tensor, tp: torch.Tensor) -> torch.Tensor:
+def backbone_plain(w: Weights, z: torch.Tensor, tp: torch.Tensor, *,
+                   matmul=torch.matmul) -> torch.Tensor:
     """The bare layer stack in plain PyTorch: ``z [B, N, H]``, ``tp [L, B, H]``
     → ``[B, N, H]`` (:func:`net_plain` without its two ChebConvs)."""
-    return _layers_plain(w, z, tp)
+    return _layers_plain(w, z, tp, matmul)
 
 
-def _layers_plain(w: Weights, h: torch.Tensor, tp: Optional[torch.Tensor]) -> torch.Tensor:
+def _layers_plain(w: Weights, h: torch.Tensor, tp: Optional[torch.Tensor],
+                  mm=torch.matmul) -> torch.Tensor:
     hid, heads = w["hid_dim"], w["num_heads"]
     bsz, n = h.shape[:2]
     basis = w["basis"]
     for l in range(w["num_layers"]):
         y = _layer_norm(h, w["ln1s"][l], w["ln1b"][l])
-        qkv = y @ w["wqkv"][l] + w["bqkv"][l]
+        qkv = mm(y, w["wqkv"][l]) + w["bqkv"][l]
         q, k, v = (z.reshape(bsz, n, heads, -1).transpose(1, 2) for z in qkv.split(hid, dim=-1))
         probs = torch.softmax(q @ k.transpose(-1, -2), dim=-1)  # q holds 1/√d_k
         att = (probs @ v).transpose(1, 2).reshape(bsz, n, hid)
-        h = h + (att @ w["wao"][l] + w["bao"][l])
+        h = h + (mm(att, w["wao"][l]) + w["bao"][l])
 
         lap = w["lap"][l]
         y = _layer_norm(h, w["ln2s"][l], w["ln2b"][l])
-        y = F.relu((lap @ y) @ w["wfc1"][l] + w["bfc1"][l])
-        h = h + ((lap @ y) @ w["wfc2"][l] + w["bfc2"][l])
+        y = F.relu(mm(lap @ y, w["wfc1"][l]) + w["bfc1"][l])
+        h = h + (mm(lap @ y, w["wfc2"][l]) + w["bfc2"][l])
 
-        u = F.relu(_cheb(h, w["wg1"][l], w["bg1"][l], basis))
+        u = F.relu(_cheb(h, w["wg1"][l], w["bg1"][l], basis, mm))
         if tp is not None:
             u = u + tp[l][:, None, :]
-        h = h + F.relu(_cheb(u, w["wg2"][l], w["bg2"][l], basis))
+        h = h + F.relu(_cheb(u, w["wg2"][l], w["bg2"][l], basis, mm))
     return h
 
 
@@ -318,7 +337,11 @@ def lifter_plain(w: Weights, x: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = _build.load("net_kernel")
+    return bind(_build.load("net_kernel"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/net_kernel.cu``) with its entries typed."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.net_forward.argtypes = [i32] * 9 + [ptr] * (3 + len(_KERNEL_WEIGHTS)) + [i32, ptr]
     lib.net_forward.restype = i32
@@ -331,7 +354,7 @@ def _library() -> ctypes.CDLL:
 
 def _expected_shapes(w: Weights) -> Dict[str, tuple]:
     L, H, n, k1 = w["num_layers"], w["hid_dim"], w["n_pts"], KERNEL_CHEB_TERMS
-    return dict(
+    shapes = dict(
         win=(w["c_in"], k1 * H), bin=(H,), ln1s=(L, H), ln1b=(L, H), ln2s=(L, H), ln2b=(L, H),
         wqkv=(L, H, 3 * H), bqkv=(L, 3 * H), wao=(L, H, H), bao=(L, H), lap=(L, n, n),
         wfc1=(L, H, 2 * H), bfc1=(L, 2 * H), wfc2=(L, 2 * H, H), bfc2=(L, H),
@@ -339,6 +362,8 @@ def _expected_shapes(w: Weights) -> Dict[str, tuple]:
         wout=(H, k1 * w["c_out"]), bout=(w["c_out"],),
         cheb_ptr=(n + 1,), cheb_idx=(w["cheb_nnz"],), cheb_val=(w["cheb_nnz"],),
     )
+    shapes.update({f"{k}_tf32": (L, 2) + shapes[k][1:] for k in SPLIT_KEYS})
+    return shapes
 
 
 def _check_tensor(name: str, t: torch.Tensor, shape: tuple, dtype, device):
@@ -367,6 +392,10 @@ def _check_launch(w: Weights, x: torch.Tensor, tp: Optional[torch.Tensor], c_in:
     if tp is not None:
         _check_tensor("tp", tp, (L, bsz, H), torch.float32, dev)
     shapes = _expected_shapes(w)
+    missing = [name for name in names if name not in w]
+    if missing:
+        raise ValueError(f"the kernel takes the TF32 parts {missing} of prepare_weights(..., "
+                         f"differentiable=False); these weights have none")
     for name in names:
         dtype = torch.int32 if name in ("cheb_ptr", "cheb_idx") else torch.float32
         _check_tensor(name, w[name], shapes[name], dtype, dev)

@@ -61,6 +61,7 @@ from diffpose_tpu_torch.ops.fused_denoiser import (
     _BACKBONE_WEIGHTS,
     KERNEL_HEADS,
     KERNEL_HID,
+    SPLIT_KEYS,
     _check_launch,
     _check_tensor,
     _cheb,
@@ -83,6 +84,7 @@ T_KEYS = ("tln1s", "tln1b", "tln2s", "tln2b", "twqkv", "tbqkv", "twao", "tbao",
 # that only the network's ends read: the I/O ChebConvs and the timestep MLP.
 _LAYER_STACKS = ("ln1s", "ln1b", "ln2s", "ln2b", "wqkv", "bqkv", "wao", "bao", "lap", "wfc1",
                  "bfc1", "wfc2", "bfc2", "wg1", "bg1", "wg2", "bg2", "wtp", "btp")
+_SPLIT_STACKS = tuple(f"{k}_tf32" for k in SPLIT_KEYS)     # eval weights only
 _ENDS = ("win", "bin", "wout", "bout", "t0k", "t0b", "t1k", "t1b")
 
 
@@ -110,10 +112,11 @@ def layer_weights(sw: Weights) -> List[Weights]:
     as a one-layer bare stack, row 3's and the train pair's weight set: its
     slice of every stack, the graph constants and the configuration, none of
     the network's ends."""
-    shared = {k: v for k, v in sw.items() if k not in _LAYER_STACKS + _ENDS}
+    stacks = _LAYER_STACKS + tuple(k for k in _SPLIT_STACKS if k in sw)
+    shared = {k: v for k, v in sw.items() if k not in stacks + _ENDS}
 
     def one(i):
-        w = {k: sw[k][i:i + 1] for k in _LAYER_STACKS}
+        w = {k: sw[k][i:i + 1] for k in stacks}
         w["lap"] = w["lap"].clone()       # a 17×17 slice is not 16-byte aligned
         return {**w, **shared, "num_layers": 1}
 

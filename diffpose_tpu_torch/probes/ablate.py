@@ -58,7 +58,8 @@ VARIANTS = {
 # The TPU probe's other variants, which have no meaning for a single-pass f32
 # CUDA-core kernel: nothing is measured for them.
 NOT_APPLICABLE = {
-    "onepass": "single-pass bf16 MXU products; the kernel makes one f32 FMA pass, no split to drop",
+    "onepass": "single-pass bf16 MXU products; the kernel's 3xTF32 products are its f32 grade, and "
+               "a single pass is a reduced tier (ROADMAP item 14), held by |dP1|, not timed here",
     "full_b32": "a VMEM batch tile of 32; the CUDA family's tile (TB = 4) is a constant of "
                 "every kernel built from net_kernel.cuh",
     "grp4": "segment-GEMM query grouping; the kernel computes scores directly, no segment GEMMs",
