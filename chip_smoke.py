@@ -13,8 +13,9 @@ Phases (each fails loudly; none catches its own failure):
 1. build every CUDA source under ``diffpose_tpu_torch/csrc`` (one nvcc per
    source, all at once) into ``build/``; fail if ptxas reports a spill in
    any train kernel, any build of ``net_forward_kernel`` (rows 1-3 and the
-   probe's six) or row 9; print their registers and the dynamic shared
-   memory of rows 1-3 and 9;
+   probe's six) or rows 9-10; print their registers and the dynamic shared
+   memory of rows 1-3 and 9; build rows 9-10 once more with clock stamps
+   (``probes/video_phases.py``);
 2. hold each kernel against its plain PyTorch version, on the card, at
    full width (hid 96, 5 layers, 4 heads, 17 joints) with seeded weights:
    the lifter and the denoiser (t in {0, 12}) at B=1024, a ragged B=1000
@@ -118,7 +119,10 @@ seeded init:
     ``temporal_layer_plain`` and row 9 (``fused_st_layer``, one whole video
     layer in a cooperative launch) against ``st_layer_plain`` at 16 windows of
     81 frames, a ragged 5 windows and 2 windows of 243 frames; bound 5e-5;
-    print row 9's co-resident grid;
+    print both kernels' occupancy, each phase's work items and waves at
+    every shape (fail if at 16 x 81 the tiles of T1 and T3 are fewer than
+    the co-resident CTAs or T2's warp tasks fewer than their warps), and
+    block 0's ``clock64`` cycles by phase (``probes/video_phases.py``);
 18. hold the three fused eval forwards (``make_video_denoiser_fn`` with torch
     and with kernel temporal blocks, ``make_video_full_fn``) against the
     module at B=16, with their launches (4 row-3; 4 row-3 + 4 row-10; 4
@@ -138,8 +142,8 @@ seeded init:
     ``fused_full`` (8 row-3; 8 row-3 + 8 row-10; 8 row-9 launches an eval
     batch): files, finite losses, the three eval-only P1/P2 equal to each
     other and to the last epoch's to 1e-3 mm;
-21. time rows 9 and 10 at the three shapes beside their bounds (row 9's
-    spatial products at TF32, and its FP32-only bound), row 3 at 1,296 rows
+21. time rows 9 and 10 at the three shapes beside their bounds (every
+    product and the attention at TF32) and FP32-only bounds, row 3 at 1,296 rows
     and 1 layer (both bounds), plain
     versions and, for row 10, ``scaled_dot_product_attention`` on its q/k/v
     and the block from library calls; the inner eval call and the eval step
@@ -190,6 +194,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -224,7 +229,7 @@ from diffpose_tpu_torch.ops.fused_denoiser import (
 from diffpose_tpu_torch.ops import fused_cheb as fc
 from diffpose_tpu_torch.ops import fused_train as ft
 from diffpose_tpu_torch.ops.fused_graformer import make_graformer_fn
-from diffpose_tpu_torch.probes import ablate, batched_dot, tf32_gemm, time_ms
+from diffpose_tpu_torch.probes import ablate, batched_dot, tf32_gemm, time_ms, video_phases
 from diffpose_tpu_torch.ops.fused_denoiser import _cheb, _layer_norm
 from diffpose_tpu_torch.ops.fused_video_full import fused_st_layer, fused_temporal_layer
 from diffpose_tpu_torch.ops.fused_pipeline import lift_and_denoise, make_eval_fn
@@ -1407,12 +1412,17 @@ def seeded_video(basis, dev, gen, frames: int, **kw):
     return model.to(dev).eval()
 
 
-def temporal_flops(rows: int, frames: int, hid: int = 96) -> int:
-    """Multiply-adds (×2) of one TemporalBlock launch: QKV, out-projection and
-    the two feed-forward products per frame, scores and value sums over the
-    window per head."""
-    return 2 * rows * (frames * (3 * hid * hid + hid * hid + 4 * hid * hid)
+def temporal_flops(rows: int, frames: int, hid: int = 96, heads: int = 4):
+    """Operations of one TemporalBlock launch as rows 9-10 compute it, as
+    (tensor-core products, the rest): multiply-adds (×2) of QKV, the
+    out-projection and the two feed-forward products per frame, and of the
+    attention's scores and value sums over the window (``mma.sync``); the
+    softmax at 5 operations a score, the two LayerNorms at 8 an element, the
+    biases, ReLU and residual adds at 11 an element of a frame vector."""
+    prod = 2 * rows * (frames * (3 * hid * hid + hid * hid + 4 * hid * hid)
                        + 2 * frames * frames * hid)
+    rest = rows * (5 * heads * frames * frames + frames * hid * (2 * 8 + 11))
+    return prod, rest
 
 
 def temporal_bytes(rows: int, frames: int, hid: int = 96) -> int:
@@ -1421,14 +1431,27 @@ def temporal_bytes(rows: int, frames: int, hid: int = 96) -> int:
     return weights + 2 * 4 * rows * frames * hid
 
 
+def temporal_bound(rows: int, frames: int):
+    """Row 10's bound, ``tf32_bounds``' ``(ms, by, fp32_ms)``, and its operations."""
+    flops = temporal_flops(rows, frames)
+    return tf32_bounds(flops, temporal_bytes(rows, frames)), sum(flops)
+
+
 def st_bound(w, windows: int, frames: int):
     """Row 9's bound, ``tf32_bounds``' ``(ms, by, fp32_ms)``: row 3's layer at
-    B·F frames (its products on the tensor cores) plus row 10 at B·17 rows
-    (CUDA cores); and its operations and bytes."""
+    B·F frames plus row 10 at B·17 rows, each split as theirs; and its
+    operations and bytes."""
     prod, rest = stack_flops(w, windows * frames)
-    rest += temporal_flops(windows * 17, frames)
+    tprod, trest = temporal_flops(windows * 17, frames)
     by = backbone_bytes(w, windows * frames) + temporal_bytes(windows * 17, frames)
-    return tf32_bounds((prod, rest), by), prod + rest, by
+    return tf32_bounds((prod + tprod, rest + trest), by), prod + tprod + rest + trest, by
+
+
+def video_work(windows: int, frames: int):
+    """Rows 9-10's work items at a shape: the CTA tiles of 68 frame vectors
+    of T1 and T3 (row 9's spatial phase: tiles of 4 frames, as many), the
+    warp tasks of T2 (16 queries of one (window, joint) row and head)."""
+    return -(-windows * frames * 17 // 68), windows * 17 * 4 * -(-frames // 16)
 
 
 def video_windows(n: int, frames: int, seed: int) -> dict:
@@ -1472,13 +1495,33 @@ def video_kernel_phases(dev, basis, gen, g, card):
             kept[(frames, windows)] = (vw, h, tp, ht)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     occupancy = {k: fv.kernel_occupancy(dev, k) for k in ("temporal", "st")}
+    phases = {}
     for name, row in (("temporal", 10), ("st", 9)):
         occ = occupancy[name]
+        ctas = occ["ctas_per_sm"] * sms
+        warps = ctas * occ["threads"] // 32
         print(f"row {row} occupancy: {occ['ctas_per_sm']} CTA an SM x {sms} SMs, "
-              f"{occ['regs']} registers a thread, {occ['smem_bytes']} bytes of shared memory")
-    resident = occupancy["temporal"]["ctas_per_sm"] * sms
-    print(f"row 10 at {VIDEO_BATCH} windows: {VIDEO_BATCH * 17} rows over {resident} co-resident "
-          f"CTAs, {VIDEO_BATCH * 17 / resident:.2f} waves")
+              f"{occ['threads']} threads a CTA, {occ['regs']} registers a thread, "
+              f"{occ['smem_bytes']} bytes of shared memory")
+        for frames, windows in VIDEO_SHAPES:
+            tiles, tasks = video_work(windows, frames)
+            print(f"  row {row} F={frames} windows={windows}: "
+                  f"{'S and ' if row == 9 else ''}T1, T3: {tiles} tiles, "
+                  f"{tiles / ctas:.2f} waves of {ctas} CTAs; T2: {tasks} warp tasks, "
+                  f"{tasks / warps:.2f} waves of {warps} warps")
+            if (frames, windows) == (VIDEO_FRAMES, VIDEO_BATCH):
+                check(tiles >= ctas and tasks >= warps,
+                      f"row {row} at {windows}x{frames}: a phase has fewer work items than "
+                      f"co-resident CTAs (warps in T2)")
+            vw, h, tp, ht = kept[(frames, windows)]
+            launch = ((lambda: fv._launch_temporal(vw["temporal"], ht, 1)) if row == 10 else
+                      (lambda: fv._launch_st(vw["layers"], vw["temporal"], h, tp, 1)))
+            cyc = video_phases.cycles(launch)
+            total = cyc.pop("total")
+            phases[(row, frames, windows)] = dict(cyc, total=total)
+            print(f"    block 0's cycles, {total} in all: " + ", ".join(
+                f"{k} {v} ({100 * v / total:.1f}%)" for k, v in cyc.items()
+                if row == 9 or k != "S"))
 
     # 18. the three eval forwards and the eval step with each, at B=16
     frames, windows = VIDEO_FRAMES, VIDEO_BATCH
@@ -1579,8 +1622,7 @@ def video_kernel_phases(dev, basis, gen, g, card):
             rows = windows_k * 17
             k10 = time_ms(lambda: fv._launch_temporal(tw, ht, 1))
             p10 = time_ms(lambda: fv.temporal_layer_plain(tw, ht, 1), reps=3)
-            fl10 = temporal_flops(rows, frames_k)
-            b10, by10 = bound_of(fl10, temporal_bytes(rows, frames_k))
+            (b10, by10, b10_32), fl10 = temporal_bound(rows, frames_k)
             y = _layer_norm(ht, tw["tln1s"][1], tw["tln1b"][1])
             q, k, v = (y @ tw["twqkv"][1] + tw["tbqkv"][1]).split(96, dim=-1)
             q, k, v = (z.reshape(rows, frames_k, 4, 24).transpose(1, 2).contiguous() for z in (q, k, v))
@@ -1590,15 +1632,18 @@ def video_kernel_phases(dev, basis, gen, g, card):
             p9 = time_ms(lambda: fv.st_layer_plain(lw, tw, h, tp, 1), reps=3)
             (b9, by9, b9_32), fl9, _ = st_bound(lw[1], windows_k, frames_k)
             print(f"row 10 F={frames_k} rows={rows}: kernel {k10:.4f} ms  plain {p10:.4f} ms  bound "
-                  f"{b10:.4f} ms ({by10}; {fl10 / 1e9:.3f} GFLOP)  {fl10 / k10 / 1e9:.2f} TFLOP/s  "
+                  f"{b10:.4f} ms ({by10}; {fl10 / 1e9:.3f} GFLOP; products and attention at TF32; "
+                  f"{100 * b10 / k10:.1f}%)  FP32-only bound {b10_32:.4f} ms "
+                  f"({100 * b10_32 / k10:.1f}%)  {fl10 / k10 / 1e9:.2f} TFLOP/s  "
                   f"library: SDPA on its q/k/v {sdpa:.4f} ms, the block from library calls "
                   f"{lib_block:.4f} ms  [{card}]")
             print(f"row 9 F={frames_k} windows={windows_k}: kernel {k9:.4f} ms  plain {p9:.4f} ms  bound "
-                  f"{b9:.4f} ms ({by9}; {fl9 / 1e9:.3f} GFLOP; the spatial products at TF32)  "
-                  f"FP32-only bound {b9_32:.4f} ms  {fl9 / k9 / 1e9:.2f} TFLOP/s  [{card}]")
-            records[(frames_k, windows_k)] = dict(k10=k10, p10=p10, b10=b10, by10=by10, sdpa=sdpa,
-                                                  lib_block=lib_block, k9=k9, p9=p9, b9=b9, by9=by9,
-                                                  b9_32=b9_32)
+                  f"{b9:.4f} ms ({by9}; {fl9 / 1e9:.3f} GFLOP; every product at TF32; "
+                  f"{100 * b9 / k9:.1f}%)  FP32-only bound {b9_32:.4f} ms ({100 * b9_32 / k9:.1f}%)  "
+                  f"{fl9 / k9 / 1e9:.2f} TFLOP/s  [{card}]")
+            records[(frames_k, windows_k)] = dict(k10=k10, p10=p10, b10=b10, by10=by10,
+                                                  b10_32=b10_32, sdpa=sdpa, lib_block=lib_block,
+                                                  k9=k9, p9=p9, b9=b9, by9=by9, b9_32=b9_32)
             if (frames_k, windows_k) == (VIDEO_FRAMES, VIDEO_BATCH):
                 z = h.reshape(-1, 17, 96)
                 k3 = time_ms(lambda: _launch_backbone(lw[1], z, tp))
@@ -1645,20 +1690,25 @@ def video_kernel_phases(dev, basis, gen, g, card):
 
     r = records[(VIDEO_FRAMES, VIDEO_BATCH)]
     extra = {f"F{f}_B{b}": {k: v for k, v in rec.items()
-                            if k in ("k10", "k9", "b10", "b9", "b9_32", "p10", "p9")}
+                            if k in ("k10", "k9", "b10", "b10_32", "b9", "b9_32", "p10", "p9",
+                                     "sdpa", "lib_block")}
              for (f, b), rec in records.items() if (f, b) != (VIDEO_FRAMES, VIDEO_BATCH)}
     common = dict(route="cuda", source="diffpose_tpu_torch/csrc/video_kernel.cu", batch=VIDEO_BATCH,
                   frames=VIDEO_FRAMES)
     row10 = dict(name="video_kernel[temporal]", replaces="diffpose_tpu/ops/pallas_video_full.py:329",
                  max_abs_err=errs["row10"], ms=r["k10"], plain_ms=r["p10"], bound_ms=r["b10"],
-                 bound_by=r["by10"], library_ms=r["sdpa"],
+                 bound_by=r["by10"], bound_ms_fp32=r["b10_32"], library_ms=r["sdpa"],
                  library_what="scaled_dot_product_attention on the block's q/k/v [272, 4, 81, 24]",
                  library_block_ms=r["lib_block"], other_shapes=extra,
-                 occupancy=occupancy["temporal"], **common)
+                 occupancy=occupancy["temporal"],
+                 cycles={f"F{f}_B{b}": c for (row, f, b), c in phases.items() if row == 10},
+                 **common)
     row9 = dict(name="video_kernel[st_layer]", replaces="diffpose_tpu/ops/pallas_video_full.py:148",
                 max_abs_err=errs["row9"], ms=r["k9"], plain_ms=r["p9"], bound_ms=r["b9"],
                 bound_by=r["by9"], bound_ms_fp32=r["b9_32"], library_ms=None,
-                occupancy=occupancy["st"], **common)
+                occupancy=occupancy["st"],
+                cycles={f"F{f}_B{b}": c for (row, f, b), c in phases.items() if row == 9},
+                **common)
     return row9, row10, masks_launches, row3_video, pair
 
 
@@ -2082,10 +2132,14 @@ def main() -> int:
     t_start = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
-    # 1. build
+    # 1. build (and the clock-stamped build of rows 9-10 that phase 17 reads)
     t0 = time.perf_counter()
-    libs = _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(libs)}")
+    with ThreadPoolExecutor(1) as pool:
+        stamped = pool.submit(video_phases.build)
+        libs = _build.build_all()
+        stamped.result()
+    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(libs)} and rows 9-10 with "
+          f"clock stamps")
     for name in libs:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:

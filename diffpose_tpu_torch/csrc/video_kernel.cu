@@ -1,6 +1,9 @@
 // Host entries of the video layer kernels (video_kernel.cuh), with a plain C
 // interface for ctypes.  Built by diffpose_tpu_torch/ops/_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared -Xcompiler -fPIC
+// Both kernels are cooperative launches of as many CTAs as can be
+// co-resident (at most the work items); where none can, or the device has no
+// cooperative launch, the entry returns the error and launches nothing.
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -16,57 +19,42 @@ bool weights_given(const vidk::TemporalArgs& w) {
   return true;
 }
 
-}  // namespace
-
-// One TemporalBlock (row 10) on x [rows, frames, 96] -> out, one CTA a row;
-// kv is a [rows, frames, 192] scratch.  Returns 0 or the cudaError_t.
-extern "C" int temporal_forward(int device, int rows, int frames, const float* x, float* out,
-                                float* kv, const float* ln1s, const float* ln1b,
-                                const float* ln2s, const float* ln2b, const float* wqkv,
-                                const float* bqkv, const float* wao, const float* bao,
-                                const float* wff1, const float* bff1, const float* wff2,
-                                const float* bff2, void* stream) {
-  const vidk::TemporalArgs w{ln1s, ln1b, ln2s, ln2b, wqkv, bqkv, wao, bao, wff1, bff1, wff2, bff2};
-  if (rows < 1 || frames < 1 || x == nullptr || out == nullptr || kv == nullptr ||
-      !weights_given(w))
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(vidk::temporal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(vidk::SMEM_BYTES));
-  if (err != cudaSuccess) return err;
-  vidk::temporal_kernel<<<rows, vidk::THREADS, vidk::SMEM_BYTES,
-                          static_cast<cudaStream_t>(stream)>>>(w, x, out, kv, frames);
-  return cudaGetLastError();
+bool flow_given(const vidk::Flow& f) {
+  return f.windows >= 1 && f.frames >= 1 && f.x != nullptr && f.qkv != nullptr &&
+         f.att != nullptr && f.out != nullptr;
 }
 
-// One whole video layer (row 9): the spatial block of every frame of h
-// [windows, frames, 17, 96] (one-layer bare-stack weights, timestep
-// projections tp [1, windows * frames, 96]) into `spatial`, then the
-// temporal block of every (window, joint) into out; kv is a
-// [windows * 17, frames, 192] scratch.  One cooperative launch of as many
-// CTAs as can be co-resident (at most the work items); if none can, or the
-// device has no cooperative launch, returns the error and launches nothing.
-extern "C" int st_layer_forward(int device, int windows, int frames, const float* h,
-                                const float* tp, float* spatial, float* out, float* kv,
-                                const float* ln1s, const float* ln1b, const float* ln2s,
-                                const float* ln2b, const float* wqkv, const float* bqkv,
-                                const float* wao, const float* bao, const float* lap,
-                                const float* wfc1, const float* bfc1, const float* wfc2,
-                                const float* bfc2, const float* wg1, const float* bg1,
-                                const float* wg2, const float* bg2, const int* cheb_ptr,
-                                const int* cheb_idx, const float* cheb_val, int cheb_nnz,
-                                const float* tln1s, const float* tln1b, const float* tln2s,
-                                const float* tln2b, const float* twqkv, const float* tbqkv,
-                                const float* twao, const float* tbao, const float* tff1,
-                                const float* tbff1, const float* tff2, const float* tbff2,
-                                void* stream) {
-  const vidk::TemporalArgs w{tln1s, tln1b, tln2s, tln2b, twqkv, tbqkv,
-                             twao,  tbao,  tff1,  tbff1, tff2,  tbff2};
-  if (windows < 1 || frames < 1 || h == nullptr || tp == nullptr || spatial == nullptr ||
-      out == nullptr || kv == nullptr || cheb_nnz < 0 || cheb_nnz > netk::MAX_TERMS ||
-      !weights_given(w))
-    return cudaErrorInvalidValue;
+const void* kernel_of(int which) {
+  return which == 0 ? reinterpret_cast<const void*>(vidk::temporal_kernel)
+                    : reinterpret_cast<const void*>(vidk::st_layer_kernel);
+}
+
+int threads_of(int which) { return which == 0 ? vidk::TEMPORAL_THREADS : vidk::THREADS; }
+
+size_t smem_of(int which) { return which == 0 ? vidk::SMEM_BYTES : vidk::ST_SMEM_BYTES; }
+
+// The kernel's dynamic shared memory set, and its co-resident CTAs an SM.
+cudaError_t configure(int which, int* per_sm) {
+  const void* fn = kernel_of(which);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_of(which)));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, threads_of(which),
+                                                       smem_of(which));
+}
+
+// The work items of the widest phase, in CTAs: the tiles of 68 vectors of
+// T1 and T3 (row 9: of TB frames, the same number), the T2 tasks over the
+// CTA's warps.
+int work_items(int which, const vidk::Flow& f) {
+  const int vectors = f.windows * f.joints * f.frames;
+  const int tiles = (vectors + netk::ROWS - 1) / netk::ROWS;
+  const int tasks = f.windows * f.joints * netk::HEADS * ((f.frames + 15) / 16);
+  const int warps = threads_of(which) / 32;
+  return std::max(tiles, (tasks + warps - 1) / warps);
+}
+
+cudaError_t launch(int which, int device, const vidk::Flow& f, void** args, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   int coop = 0, sms = 0, per_sm = 0;
@@ -75,50 +63,94 @@ extern "C" int st_layer_forward(int device, int windows, int frames, const float
   if (!coop) return cudaErrorNotSupported;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
     return err;
-  const size_t smem = std::max(netk::SMEM_BYTES, vidk::SMEM_BYTES);
-  auto kernel = vidk::st_layer_kernel;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, vidk::THREADS, smem);
-  if (err != cudaSuccess) return err;
+  if ((err = configure(which, &per_sm)) != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int batch = windows * frames;
-  const int work = std::max((batch + netk::TB - 1) / netk::TB, windows * netk::N_PTS);
-  const int grid = std::min(per_sm * sms, work);
-
-  netk::NetArgs a{h,    tp,   spatial, nullptr, nullptr, ln1s,     ln1b,     ln2s,
-                  ln2b, wqkv, bqkv,    wao,     bao,     lap,      wfc1,     bfc1,
-                  wfc2, bfc2, wg1,     bg1,     wg2,     bg2,      nullptr,  nullptr,
-                  cheb_ptr, cheb_idx, cheb_val, cheb_nnz, batch, 1};
-  void* args[] = {&a, const_cast<vidk::TemporalArgs*>(&w), &out, &kv, &windows, &frames};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
-                                    dim3(vidk::THREADS), args, smem,
-                                    static_cast<cudaStream_t>(stream));
+  const int grid = std::min(per_sm * sms, work_items(which, f));
+  err = cudaLaunchCooperativeKernel(kernel_of(which), dim3(grid), dim3(threads_of(which)), args,
+                                    smem_of(which), static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// The co-resident CTAs per SM, the dynamic shared memory in bytes and the
-// registers a thread of temporal_kernel (kernel 0) or st_layer_kernel
-// (kernel 1), as their launches configure them, for the wrapper's report.
-extern "C" int video_occupancy(int device, int kernel, int* per_sm, int* smem_bytes, int* regs) {
+}  // namespace
+
+// One TemporalBlock (row 10) on x [rows, frames, 96] -> out; qkv
+// [rows * frames, 288] and att [rows * frames, 96] are scratch; the four
+// products' weights are TF32 parts [2, K, N].  Returns 0 or the cudaError_t.
+extern "C" int temporal_forward(int device, int rows, int frames, const float* x, float* out,
+                                float* qkv, float* att, const float* ln1s, const float* ln1b,
+                                const float* ln2s, const float* ln2b, const float* wqkv,
+                                const float* bqkv, const float* wao, const float* bao,
+                                const float* wff1, const float* bff1, const float* wff2,
+                                const float* bff2, void* stream) {
+  const vidk::TemporalArgs w{ln1s, ln1b, ln2s, ln2b, wqkv, bqkv, wao, bao, wff1, bff1, wff2, bff2};
+  vidk::Flow f{x, qkv, att, out, rows, 1, frames};
+  if (!flow_given(f) || !weights_given(w)) return cudaErrorInvalidValue;
+  void* args[] = {const_cast<vidk::TemporalArgs*>(&w), &f};
+  return launch(0, device, f, args, stream);
+}
+
+// One whole video layer (row 9): the spatial block of every frame of h
+// [windows, frames, 17, 96] (one-layer bare-stack weights, timestep
+// projections tp [1, windows * frames, 96]) into `spatial`, then the
+// temporal block of every (window, joint) into out; qkv [windows * frames *
+// 17, 288] and att [windows * frames * 17, 96] are scratch.
+extern "C" int st_layer_forward(int device, int windows, int frames, const float* h,
+                                const float* tp, float* spatial, float* out, float* qkv,
+                                float* att, const float* ln1s, const float* ln1b,
+                                const float* ln2s, const float* ln2b, const float* wqkv,
+                                const float* bqkv, const float* wao, const float* bao,
+                                const float* lap, const float* wfc1, const float* bfc1,
+                                const float* wfc2, const float* bfc2, const float* wg1,
+                                const float* bg1, const float* wg2, const float* bg2,
+                                const int* cheb_ptr, const int* cheb_idx, const float* cheb_val,
+                                int cheb_nnz, const float* tln1s, const float* tln1b,
+                                const float* tln2s, const float* tln2b, const float* twqkv,
+                                const float* tbqkv, const float* twao, const float* tbao,
+                                const float* tff1, const float* tbff1, const float* tff2,
+                                const float* tbff2, void* stream) {
+  const vidk::TemporalArgs w{tln1s, tln1b, tln2s, tln2b, twqkv, tbqkv,
+                             twao,  tbao,  tff1,  tbff1, tff2,  tbff2};
+  vidk::Flow f{spatial, qkv, att, out, windows, netk::N_PTS, frames};
+  if (!flow_given(f) || h == nullptr || tp == nullptr || cheb_nnz < 0 ||
+      cheb_nnz > netk::MAX_TERMS || !weights_given(w))
+    return cudaErrorInvalidValue;
+  netk::NetArgs a{h,    tp,   spatial, nullptr, nullptr, ln1s,     ln1b,     ln2s,
+                  ln2b, wqkv, bqkv,    wao,     bao,     lap,      wfc1,     bfc1,
+                  wfc2, bfc2, wg1,     bg1,     wg2,     bg2,      nullptr,  nullptr,
+                  cheb_ptr, cheb_idx, cheb_val, cheb_nnz, windows * frames, 1};
+  void* args[] = {&a, const_cast<vidk::TemporalArgs*>(&w), &f};
+  return launch(1, device, f, args, stream);
+}
+
+// The co-resident CTAs per SM, the dynamic shared memory in bytes, the
+// registers a thread and the threads a CTA of temporal_kernel (kernel 0) or
+// st_layer_kernel (kernel 1), as their launches configure them.
+extern "C" int video_occupancy(int device, int kernel, int* per_sm, int* smem_bytes, int* regs,
+                               int* threads) {
   if (kernel != 0 && kernel != 1) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const void* fn = kernel == 0 ? reinterpret_cast<const void*>(vidk::temporal_kernel)
-                               : reinterpret_cast<const void*>(vidk::st_layer_kernel);
-  const size_t smem = kernel == 0 ? vidk::SMEM_BYTES : std::max(netk::SMEM_BYTES, vidk::SMEM_BYTES);
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  if ((err = configure(kernel, per_sm)) != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  if ((err = cudaFuncGetAttributes(&attr, fn)) != cudaSuccess) return err;
-  *smem_bytes = static_cast<int>(smem);
+  if ((err = cudaFuncGetAttributes(&attr, kernel_of(kernel))) != cudaSuccess) return err;
+  *smem_bytes = static_cast<int>(smem_of(kernel));
   *regs = attr.numRegs;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, vidk::THREADS, smem);
+  *threads = threads_of(kernel);
+  return cudaSuccess;
 }
 
 extern "C" const char* video_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+#ifdef VIDK_STAMPS
+// Block 0's cycles by phase since the last reset (video_kernel.cuh), and the reset.
+extern "C" int video_cycles(long long* out) {
+  return cudaMemcpyFromSymbol(out, vidk_cycles, sizeof(vidk_cycles));
+}
+extern "C" int video_cycles_reset() {
+  const long long zero[8] = {};
+  return cudaMemcpyToSymbol(vidk_cycles, zero, sizeof(zero));
+}
+#endif

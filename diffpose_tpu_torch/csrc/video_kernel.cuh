@@ -1,39 +1,51 @@
 // The video denoiser's layer kernels (hid 96, 4 heads, 17 joints):
 //
-// * temporal_kernel: one TemporalBlock on [N, F, HID] rows, N = windows x
-//   joints: x += out_proj(MHA over the F frames(LN1(x))), then
+// * temporal_kernel (row 10): one TemporalBlock on [N, F, HID] rows, N =
+//   windows x joints: x += out_proj(MHA over the F frames(LN1(x))), then
 //   x += ff2(relu(ff1(LN2(x)))).  Counterpart of
 //   diffpose_tpu/ops/pallas_video_full.py:_temporal_only_kernel.
-// * st_layer_kernel: one whole video layer, the spatial block of every frame
-//   (the bare-stack layer of net_kernel.cuh) and then the temporal block of
-//   every (window, joint), as one cooperative launch with a grid-wide barrier
-//   between the two phases.  Counterpart of pallas_video_full.py:_st_kernel.
+// * st_layer_kernel (row 9): one whole video layer, the spatial block of
+//   every frame (the bare-stack layer of net_kernel.cuh) and then the
+//   temporal block of every (window, joint).  Counterpart of
+//   pallas_video_full.py:_st_kernel.
 //
-// One CTA of 288 threads owns one (window, joint) row of F frames in the
-// temporal phase and walks over it in tiles of QT = 36 frames, so that any F
-// fits (81 and 243 are the published windows):
+// Bound on the H100: operations, 8 HID^2 multiply-adds of channel products a
+// frame vector and 2 F HID of attention products, all on the tensor cores.
+// The design starts from one fact: every LayerNorm, product, bias, ReLU and
+// residual of the block acts on one frame vector; only the attention needs a
+// (window, joint) row.  So the block runs as three phases over work items
+// that fill the card, with a grid-wide barrier between them (both kernels
+// are cooperative launches of as many CTAs as can be co-resident):
 //
-//   pass A  per tile: LN1, then K|V = LN1(x) @ W_kv + b_kv, stored to a
-//           global scratch [F, 2*HID] of the row (L2-resident);
-//   pass B  per tile: LN1 again, q = LN1(x) @ W_q + b_q (q carries 1/sqrt(DK)),
-//           attention of each (query, head) over all F keys of the scratch
-//           with an online softmax in chunks of KCH keys, split in two
-//           halves of the keys whose partial sums are merged in shared
-//           memory; out-projection + residual; LN2, FF 96->192 (ReLU) ->96 +
-//           residual; the tile is stored.
+//   T1  tiles of 68 frame vectors (tile.cuh's tile, padded to 72) of the
+//       flat [N F, HID] input: LN1 a warp a row, then Q|K|V = LN1(x) W_qkv +
+//       b into a global scratch [N F, 3 HID] (L2-resident).  In row 9, T1
+//       follows the spatial layer on the same 4-frame tile while it is still
+//       in shared memory; the spatial output is stored once, as the
+//       residual.
+//   T2  attention, one warp a task of 16 queries of one (row, head): the
+//       warp's Q fragments in registers, the row's K and V streamed through
+//       the warp's own shared-memory buffers in chunks of KEYS keys by
+//       cp.async (two buffers, the next chunk in flight), S = Q K^T and
+//       O = P V on mma.sync m16n8k8 at 3xTF32 with per-k-step partials, an
+//       online softmax over the chunks in f32 (keys past F masked, their
+//       V rows zero), O divided by the row sum at the end.  P goes from the
+//       accumulator layout to the A-operand layout without a shuffle: an
+//       A column t (t + 4) of a key tile is its key 2t (2t + 1), and V's
+//       B-fragment rows follow the same order.  Output to a scratch
+//       [N F, HID].  The warps take the tasks grid-wide; no barrier.
+//   T3  tiles of 68 frame vectors: x += O W_ao + b, LN2, relu(ff1), x += ff2,
+//       stored to out.
 //
-// Shared memory of the temporal phase (73 KB):
-//   xs   [QT, HID]     the tile's residual stream
-//   ys   [QT, HID]     LayerNorm output / attention output
-//   bs   [QT, 2*HID]   q, or the FF hidden layer
-//   part [QT*HEADS, DK + 4]  the second key half's (max, sum, output)
+// Every channel product runs through tc_gemm (tc_gemm.cuh: 3xTF32 mma.sync,
+// per-k-step partials, weights split into TF32 parts once on the host and
+// streamed through a cp.async ring).  Frame f of row n is the flat vector
+// (n / J) F J + f J + n % J: J = 1 for row 10's [N, F, HID], J = 17 for row
+// 9's [B, F, 17, HID].  Scratch written inside the launch is read through
+// L2 only (cp.async.cg, __ldcg), never through __ldg.
 //
-// The spatial phase is net_kernel.cuh's layer (tensor-core products, a
-// cp.async weight ring in the same shared memory).  In the temporal phase
-// weights stream from global memory (L2); every product is an f32 FMA on
-// CUDA cores with f32 accumulation.  The scratch and (in st_layer_kernel)
-// the spatial phase's output are written inside the launch, so they are read
-// with plain loads, never through __ldg.
+// With VIDK_STAMPS defined, thread 0 of block 0 sums clock64() cycles by
+// phase into vidk_cycles (probes/video_phases.py builds that variant).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -42,313 +54,428 @@
 
 #include "net_kernel.cuh"
 
+#ifdef VIDK_STAMPS
+__device__ long long vidk_cycles[8];
+#define VIDK_CLOCK_START long long vidk_last = clock64()
+#define VIDK_MARK(k)                                                         \
+  do {                                                                       \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {                               \
+      const long long now_ = clock64();                                      \
+      vidk_cycles[k] += now_ - vidk_last;                                    \
+      vidk_last = now_;                                                      \
+    }                                                                        \
+  } while (0)
+#else
+#define VIDK_CLOCK_START do {} while (0)
+#define VIDK_MARK(k) do {} while (0)
+#endif
+
 namespace vidk {
 
 using netk::DK;
 using netk::HEADS;
 using netk::HID;
+using netk::LDH;
 using netk::N_PTS;
+using netk::NET_KS;
+using netk::NET_RING;
+using netk::NET_STAGES;
+using netk::ROWS;
+using netk::ROWS_PAD;
 using netk::THREADS;
-using netk::add4;
-using netk::fma4;
 using netk::ld4;
-using netk::ldg4;
-using netk::relu4;
 using netk::st4;
 using netk::zero4;
 
-constexpr int QT = 36;                  // frames per tile: QT * HEADS * 2 == THREADS
-constexpr int KCH = 16;                 // keys per online-softmax chunk
-constexpr int LDH = HID + 4;
-constexpr int LDF = 2 * HID + 4;
-constexpr int LDP = DK + 4;             // m, l, o[DK], padded to a float4 multiple
-constexpr int KV = 2 * HID;             // a scratch row: K | V
-constexpr int SMEM_FLOATS = 2 * QT * LDH + QT * LDF + QT * HEADS * LDP;
-constexpr size_t SMEM_BYTES = sizeof(float) * SMEM_FLOATS;
-static_assert(QT * HEADS * 2 == THREADS, "one (query, head, key half) per thread");
+constexpr int QKV = 3 * HID;                // a scratch row: Q | K | V
+constexpr int LDF = 2 * HID + 4;            // the feed-forward hidden rows (== 4 mod 32)
+constexpr int KEYS = 32;                    // keys a chunk of T2
+constexpr int KT = KEYS / 8;                // key tiles a chunk
+constexpr int LDK = DK + 4;                 // K and V rows in a warp's buffer
+constexpr int BUF_FLOATS = 2 * KEYS * LDK;  // one buffer: K, then V
+constexpr int WARP_FLOATS = 2 * BUF_FLOATS; // two buffers a warp
+constexpr int TEMPORAL_THREADS = netk::NET_THREADS;  // row 10: 12 warps; row 9: THREADS
+constexpr int T_ACT_FLOATS = 2 * ROWS_PAD * LDH + ROWS_PAD * LDF;
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+// Row 10: its tile and ring, or T2's warp buffers; row 9: the spatial tile
+// (which T1 and T3 share), or T2's warp buffers.
+constexpr size_t SMEM_BYTES =
+    sizeof(float) * cmax(T_ACT_FLOATS + NET_RING, (TEMPORAL_THREADS / 32) * WARP_FLOATS);
+constexpr size_t ST_SMEM_BYTES =
+    sizeof(float) * cmax(netk::SMEM_FLOATS, (THREADS / 32) * WARP_FLOATS);
+static_assert(SMEM_BYTES <= 232448 && ST_SMEM_BYTES <= 232448, "shared memory of an SM");
+static_assert(T_ACT_FLOATS % 4 == 0 && WARP_FLOATS % 4 == 0, "16-byte alignment");
 
 struct TemporalArgs {
   const float* ln1s; const float* ln1b; const float* ln2s; const float* ln2b;  // [HID]
-  const float* wqkv;   // [HID, 3*HID], q columns pre-scaled by 1/sqrt(DK)
+  // The channel products' weights W [K, N] as TF32 parts [2, K, N]: big, then small.
+  const float* wqkv;   // [2, HID, 3*HID], q columns pre-scaled by 1/sqrt(DK)
   const float* bqkv;   // [3*HID], q part pre-scaled
-  const float* wao; const float* bao;    // [HID, HID], [HID]
-  const float* wff1; const float* bff1;  // [HID, 2*HID], [2*HID]
-  const float* wff2; const float* bff2;  // [2*HID, HID], [HID]
+  const float* wao; const float* bao;    // [2, HID, HID], [HID]
+  const float* wff1; const float* bff1;  // [2, HID, 2*HID], [2*HID]
+  const float* wff2; const float* bff2;  // [2, 2*HID, HID], [HID]
 };
 
-enum Epi { kStoreBias, kReluBias, kAddBias };
+// Where the three phases meet: the layer's input (row 9: the spatial output,
+// written in the launch), Q|K|V and the attention output, all flat over the
+// N F frame vectors, and the geometry.
+struct Flow {
+  const float* x;     // [V, HID]
+  float* qkv;         // [V, 3*HID]
+  float* att;         // [V, HID]
+  float* out;         // [V, HID]
+  int windows, joints, frames;  // N = windows * joints rows of F frames
+};
 
-// C[r, :N] (=, +=) A[r, :K] @ W[K, N] (+ bias) for the QT rows of a tile,
-// W with row stride LDW; rows >= nrows are not stored.  Thread = (column
-// group of 4, row group).
-template <int K, int N, int LDA, int LDW, int LDC, Epi EPI>
-__device__ __forceinline__ void gemm(const float* A, const float* __restrict__ W,
-                                     const float* __restrict__ bias, float* C, int nrows,
-                                     int tid) {
-  constexpr int NG = N / 4;
-  static_assert(N % 4 == 0 && K % 4 == 0 && THREADS % NG == 0, "column groups must tile the block");
-  constexpr int G = THREADS / NG;
-  constexpr int RPT = (QT + G - 1) / G;
-  static_assert(RPT * G == QT, "row groups must tile the frame tile");
-  const int cg = tid % NG;
-  const int rg = tid / NG;
-  const float* wc = W + 4 * cg;
-  float4 acc[RPT];
+__device__ __forceinline__ int vectors(const Flow& f) { return f.windows * f.joints * f.frames; }
+
+// C[r, c] = acc + bias[c] for the tile's first nreal rows, C in global memory.
+template <int LDC>
+struct EpGlobal {
+  float* c;
+  const float* bias;
+  int nreal;
+  __device__ __forceinline__ void operator()(const netk::Acc& d, int m0, int rb, int g, int t,
+                                             int nts = 3) const {
+    float b[2][2];
+    netk::frag_bias(bias, m0, g, b);
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i] = zero4();
-#pragma unroll 2
-  for (int k = 0; k < K; k += 4) {
-    const float4 w0 = ldg4(wc + (k + 0) * LDW);
-    const float4 w1 = ldg4(wc + (k + 1) * LDW);
-    const float4 w2 = ldg4(wc + (k + 2) * LDW);
-    const float4 w3 = ldg4(wc + (k + 3) * LDW);
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const float4 a = ld4(A + (rg + i * G) * LDA + k);
-      fma4(acc[i], a.x, w0);
-      fma4(acc[i], a.y, w1);
-      fma4(acc[i], a.z, w2);
-      fma4(acc[i], a.w, w3);
-    }
+      for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = netk::frag_row(rb, nt, i, t), col = netk::frag_col(m0, mt, i, g);
+          if (nt >= nts || r >= nreal) continue;
+          c[static_cast<size_t>(r) * LDC + col] = d[mt][nt][i] + b[mt][i >> 1];
+        }
   }
-  const float4 b = ldg4(bias + 4 * cg);
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = rg + i * G;
-    if (r >= nrows) continue;
-    float* c = C + static_cast<size_t>(r) * LDC + 4 * cg;
-    float4 v = add4(acc[i], b);
-    if constexpr (EPI == kReluBias) v = relu4(v);
-    if constexpr (EPI == kAddBias) v = add4(ld4(c), v);
-    st4(c, v);
+};
+
+// The first nreal vectors of a tile of src [., HID] into dst's rows (LDH
+// apart); rows nreal .. ROWS - 1 become zeros.  Read through L2.
+template <int NT>
+__device__ __forceinline__ void load_vectors(const float* src, float* dst, int nreal, int tid) {
+  for (int i = tid; i < ROWS * (HID / 4); i += NT) {
+    const int r = i / (HID / 4), c = 4 * (i % (HID / 4));
+    st4(dst + r * LDH + c,
+        r < nreal ? __ldcg(reinterpret_cast<const float4*>(src + static_cast<size_t>(r) * HID + c))
+                  : zero4());
   }
 }
 
-// out = a * (in - mean) / (std + 1e-6) + b per row of the tile, Bessel std.
-__device__ __forceinline__ void layer_norm(const float* in, float* out,
-                                           const float* __restrict__ scale,
-                                           const float* __restrict__ shift, int tid) {
-  for (int r = tid; r < QT; r += THREADS) {
-    const float* x = in + r * LDH;
-    float sum = 0.f;
-    for (int c = 0; c < HID; c += 4) {
-      const float4 v = ld4(x + c);
-      sum += v.x; sum += v.y; sum += v.z; sum += v.w;
-    }
-    const float mean = sum / HID;
-    float ss = 0.f;
-    for (int c = 0; c < HID; c += 4) {
-      const float4 v = ld4(x + c);
-      const float dx = v.x - mean, dy = v.y - mean, dz = v.z - mean, dw = v.w - mean;
-      ss = fmaf(dx, dx, ss); ss = fmaf(dy, dy, ss); ss = fmaf(dz, dz, ss); ss = fmaf(dw, dw, ss);
-    }
-    const float den = sqrtf(ss / (HID - 1)) + 1e-6f;
-    float* o = out + r * LDH;
-    for (int c = 0; c < HID; c += 4) {
-      const float4 v = ld4(x + c);
-      const float4 s = ldg4(scale + c);
-      const float4 t = ldg4(shift + c);
-      st4(o + c, make_float4(s.x * (v.x - mean) / den + t.x, s.y * (v.y - mean) / den + t.y,
-                             s.z * (v.z - mean) / den + t.z, s.w * (v.w - mean) / den + t.w));
-    }
-  }
+template <int NT>
+__device__ __forceinline__ void zero_floats(float* p, int n, int tid) {
+  for (int i = tid; i < n / 4; i += NT) st4(p + 4 * i, zero4());
 }
 
-// Attention of the tile's nrows queries (q in bs) over the frames keys and
-// values of the row's scratch kv [frames, K | V]; output to ys.  Thread =
-// (query, head, key half); the halves meet in part.
-__device__ __forceinline__ void attention(const float* bs, const float* kv, float* ys,
-                                          float* part, int frames, int nrows, int tid) {
-  const int half = tid & 1;
-  const int hd = (tid >> 1) % HEADS;
-  const int qi = tid / (2 * HEADS);
-  const int split = (frames + 1) / 2;
-  const int k0 = half ? split : 0;
-  const int k1 = half ? frames : split;
-  float m = -INFINITY, l = 0.f;
-  float4 o[DK / 4];
-#pragma unroll
-  for (int d = 0; d < DK / 4; ++d) o[d] = zero4();
-  if (qi < nrows) {
-    float4 q[DK / 4];
-#pragma unroll
-    for (int d = 0; d < DK / 4; ++d) q[d] = ld4(bs + qi * LDF + hd * DK + 4 * d);
-    for (int c0 = k0; c0 < k1; c0 += KCH) {
-      float s[KCH];
-      float cm = -INFINITY;
-#pragma unroll
-      for (int u = 0; u < KCH; ++u) {
-        s[u] = -INFINITY;
-        if (c0 + u < k1) {
-          const float* kr = kv + static_cast<size_t>(c0 + u) * KV + hd * DK;
-          float acc = 0.f;
-#pragma unroll
-          for (int d = 0; d < DK / 4; ++d) {
-            const float4 kk = ld4(kr + 4 * d);
-            acc = fmaf(q[d].x, kk.x, acc);
-            acc = fmaf(q[d].y, kk.y, acc);
-            acc = fmaf(q[d].z, kk.z, acc);
-            acc = fmaf(q[d].w, kk.w, acc);
-          }
-          s[u] = acc;
-          cm = fmaxf(cm, acc);
-        }
-      }
-      const float mn = fmaxf(m, cm);
-      const float alpha = expf(m - mn);   // 0 on the first chunk (m = -inf)
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < DK / 4; ++d) {
-        o[d].x *= alpha; o[d].y *= alpha; o[d].z *= alpha; o[d].w *= alpha;
-      }
-#pragma unroll
-      for (int u = 0; u < KCH; ++u) {
-        if (c0 + u < k1) {
-          const float p = expf(s[u] - mn);
-          l += p;
-          const float* vr = kv + static_cast<size_t>(c0 + u) * KV + HID + hd * DK;
-#pragma unroll
-          for (int d = 0; d < DK / 4; ++d) fma4(o[d], p, ld4(vr + 4 * d));
-        }
-      }
-      m = mn;
-    }
-    if (half) {
-      float* p = part + (qi * HEADS + hd) * LDP;
-      p[0] = m;
-      p[1] = l;
-#pragma unroll
-      for (int d = 0; d < DK / 4; ++d) st4(p + 4 + 4 * d, o[d]);
-    }
+// The first slabs of W_qkv into the ring, which must be free.
+template <int NT>
+__device__ __forceinline__ void tc_prefetch_qkv(const TemporalArgs& w, float* ring, int tid) {
+  netk::tc_prefetch<HID, QKV, NET_STAGES, NET_KS, QKV, true, NT>(w.wqkv, ring, tid);
+}
+
+// T1 on a tile whose residual stream xs holds its nreal vectors (the rest
+// finite): ys = LN1(xs), qkv[r] = ys[r] W_qkv + b for r < nreal.  Starts
+// after the barrier that completes xs and after tc_prefetch_qkv since the
+// ring was last free; ends on a barrier.
+template <int NT>
+__device__ __forceinline__ void qkv_tile(const TemporalArgs& w, const float* xs, float* ys,
+                                         float* ring, float* qkv, int nreal, int tid) {
+  netk::layer_norm_warp<NT / 32>(xs, ys, w.ln1s, w.ln1b, nullptr, 0, tid);
+  __syncthreads();
+  netk::tc_gemm<HID, QKV, LDH, NET_STAGES, NET_KS, QKV, true, NT>(
+      ys, w.wqkv, ring, EpGlobal<QKV>{qkv, w.bqkv, nreal}, tid);
+  __syncthreads();
+}
+
+// T3 on one tile of 68 vectors from v0: xs = x + att W_ao + b_ao, then
+// xs += relu(LN2(xs) W_ff1 + b_ff1) W_ff2 + b_ff2, stored to out.  hid is
+// the [72, LDHID] hidden tile.  Starts and ends on a barrier; the padded
+// rows of ys and hid hold zeros.
+template <int NT, int LDHID>
+__device__ __forceinline__ void ffn_tile(const TemporalArgs& w, const Flow& f, int v0, float* xs,
+                                         float* ys, float* hid, float* ring, int tid) {
+  constexpr int S = NET_STAGES, KS = NET_KS;
+  const int nreal = min(ROWS, vectors(f) - v0);
+  netk::tc_prefetch<HID, HID, S, KS, HID, true, NT>(w.wao, ring, tid);
+  load_vectors<NT>(f.x + static_cast<size_t>(v0) * HID, xs, nreal, tid);
+  load_vectors<NT>(f.att + static_cast<size_t>(v0) * HID, ys, nreal, tid);
+  __syncthreads();
+  netk::tc_gemm<HID, HID, LDH, S, KS, HID, true, NT>(
+      ys, w.wao, ring, netk::EpSmem<LDH, true, true>{xs, w.bao}, tid);
+  __syncthreads();
+  netk::tc_prefetch<HID, 2 * HID, S, KS, 2 * HID, true, NT>(w.wff1, ring, tid);
+  netk::layer_norm_warp<NT / 32>(xs, ys, w.ln2s, w.ln2b, nullptr, 0, tid);
+  __syncthreads();
+  netk::tc_gemm<HID, 2 * HID, LDH, S, KS, 2 * HID, true, NT>(
+      ys, w.wff1, ring, netk::EpSmem<LDHID, true, false, true>{hid, w.bff1}, tid);
+  __syncthreads();
+  netk::tc_prefetch<2 * HID, HID, S, KS, HID, true, NT>(w.wff2, ring, tid);
+  netk::tc_gemm<2 * HID, HID, LDHID, S, KS, HID, true, NT>(
+      hid, w.wff2, ring, netk::EpSmem<LDH, true, true>{xs, w.bff2}, tid);
+  __syncthreads();
+  float* out = f.out + static_cast<size_t>(v0) * HID;
+  for (int i = tid; i < nreal * (HID / 4); i += NT) {
+    const int r = i / (HID / 4), c = 4 * (i % (HID / 4));
+    st4(out + static_cast<size_t>(r) * HID + c, ld4(xs + r * LDH + c));
   }
   __syncthreads();
-  if (!half && qi < nrows) {
-    const float* p = part + (qi * HEADS + hd) * LDP;
-    const float m1 = p[0], l1 = p[1];
-    const float mx = fmaxf(m, m1);
-    const float a0 = expf(m - mx), a1 = expf(m1 - mx);
-    const float inv = 1.f / (l * a0 + l1 * a1);
-    float* dst = ys + qi * LDH + hd * DK;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// d += a b at 3xTF32 as a fresh partial: the small products, then the big one
+// (ops/tf32.py:matmul_3xtf32's order).
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], const uint32_t (&bb)[2],
+                                     const uint32_t (&bs)[2]) {
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  tf32::mma(part, as, bb);
+  tf32::mma(part, ab, bs);
+  tf32::mma(part, ab, bb);
 #pragma unroll
-    for (int d = 0; d < DK / 4; ++d) {
-      const float4 o1 = ld4(p + 4 + 4 * d);
-      st4(dst + 4 * d, make_float4((o[d].x * a0 + o1.x * a1) * inv, (o[d].y * a0 + o1.y * a1) * inv,
-                                   (o[d].z * a0 + o1.z * a1) * inv, (o[d].w * a0 + o1.w * a1) * inv));
+  for (int i = 0; i < 4; ++i) d[i] += part[i];
+}
+
+// Keys k0 .. k0 + KEYS - 1 of head hd of a row (frame f at vector base + f J)
+// into the warp's buffer: K rows, then V rows, LDK apart; keys past F zero.
+__device__ __forceinline__ void stage_keys(const Flow& f, size_t base, int hd, int k0, float* buf,
+                                           int lane) {
+  constexpr int PIECES = DK / 4;
+  for (int it = lane; it < KEYS * PIECES; it += 32) {
+    const int r = it / PIECES, p = 4 * (it % PIECES), key = k0 + r;
+    float* kd = buf + r * LDK + p;
+    if (key < f.frames) {
+      const float* src = f.qkv + (base + static_cast<size_t>(key) * f.joints) * QKV + hd * DK + p;
+      tf32::cp_async16(kd, src + HID);
+      tf32::cp_async16(kd + KEYS * LDK, src + 2 * HID);
+    } else {
+      st4(kd, zero4());
+      st4(kd + KEYS * LDK, zero4());
     }
   }
 }
 
-// The tile's frames t0 .. t0 + nrows - 1 of a row (frame stride `stride`
-// floats) into xs; the absent rows are zeros (finite through LayerNorm).
-__device__ __forceinline__ void load_frames(const float* x, size_t stride, float* xs, int nrows,
-                                            int tid) {
-  for (int i = tid; i < QT * (HID / 4); i += THREADS) {
-    const int r = i / (HID / 4);
-    const int c = 4 * (i % (HID / 4));
-    st4(xs + r * LDH + c, r < nrows ? ld4(x + r * stride + c) : zero4());
-  }
-}
-
-// One TemporalBlock on one (window, joint) row of `frames` frames: x and out
-// at frame stride `stride` (out may be x), kv the row's [frames, 2*HID]
-// scratch.  Starts and ends on a __syncthreads().
-__device__ __forceinline__ void temporal_row(const TemporalArgs& w, const float* x, float* out,
-                                             size_t stride, float* kv, int frames, float* smem,
-                                             int tid) {
-  float* xs = smem;
-  float* ys = xs + QT * LDH;
-  float* bs = ys + QT * LDH;
-  float* part = bs + QT * LDF;
-
-  // pass A: K and V of every frame
-  for (int t0 = 0; t0 < frames; t0 += QT) {
-    const int nrows = min(QT, frames - t0);
-    load_frames(x + t0 * stride, stride, xs, nrows, tid);
-    __syncthreads();
-    layer_norm(xs, ys, w.ln1s, w.ln1b, tid);
-    __syncthreads();
-    gemm<HID, KV, LDH, 3 * HID, KV, kStoreBias>(ys, w.wqkv + HID, w.bqkv + HID,
-                                               kv + static_cast<size_t>(t0) * KV, nrows, tid);
-    __syncthreads();
-  }
-
-  // pass B: each tile's queries against every key, then the feed-forward
-  for (int t0 = 0; t0 < frames; t0 += QT) {
-    const int nrows = min(QT, frames - t0);
-    load_frames(x + t0 * stride, stride, xs, nrows, tid);
-    __syncthreads();
-    layer_norm(xs, ys, w.ln1s, w.ln1b, tid);
-    __syncthreads();
-    gemm<HID, HID, LDH, 3 * HID, LDF, kStoreBias>(ys, w.wqkv, w.bqkv, bs, QT, tid);
-    __syncthreads();
-    attention(bs, kv, ys, part, frames, nrows, tid);
-    __syncthreads();
-    gemm<HID, HID, LDH, HID, LDH, kAddBias>(ys, w.wao, w.bao, xs, QT, tid);
-    __syncthreads();
-    layer_norm(xs, ys, w.ln2s, w.ln2b, tid);
-    __syncthreads();
-    gemm<HID, 2 * HID, LDH, 2 * HID, LDF, kReluBias>(ys, w.wff1, w.bff1, bs, QT, tid);
-    __syncthreads();
-    gemm<2 * HID, HID, LDF, HID, LDH, kAddBias>(bs, w.wff2, w.bff2, xs, QT, tid);
-    __syncthreads();
-    for (int i = tid; i < nrows * (HID / 4); i += THREADS) {
-      const int r = i / (HID / 4);
-      const int c = 4 * (i % (HID / 4));
-      st4(out + (t0 + r) * stride + c, ld4(xs + r * LDH + c));
+// One T2 task: queries q0 .. q0 + 15 of head hd of a row against all its
+// keys, by one warp, with buf its two buffers.
+__device__ __forceinline__ void attention_task(const Flow& f, size_t base, int hd, int q0,
+                                               float* buf, int lane) {
+  const int g = lane >> 2, t = lane & 3, frames = f.frames;
+  stage_keys(f, base, hd, 0, buf, lane);   // the first chunk lands while Q loads
+  tf32::cp_async_commit();
+  // Q fragments (A operand, 16 queries x DK), split once
+  uint32_t qb[DK / 8][4], qs[DK / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < DK / 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + g + 8 * (i & 1), col = 8 * kk + t + 4 * (i >> 1);
+      const float v =
+          row < frames
+              ? __ldcg(f.qkv + (base + static_cast<size_t>(row) * f.joints) * QKV + hd * DK + col)
+              : 0.f;
+      tf32::split(v, qb[kk][i], qs[kk][i]);
     }
-    __syncthreads();
+  float o[DK / 8][4] = {}, m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const int chunks = (frames + KEYS - 1) / KEYS;
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) stage_keys(f, base, hd, (c + 1) * KEYS, buf + ((c + 1) & 1) * BUF_FLOATS, lane);
+    tf32::cp_async_commit();
+    tf32::cp_async_wait<1>();
+    __syncwarp();
+    const float* ks = buf + (c & 1) * BUF_FLOATS;
+    const float* vs = ks + KEYS * LDK;
+    const int k0 = c * KEYS, nkt = (min(KEYS, frames - k0) + 7) / 8;
+
+    // S = Q K^T for the chunk's key tiles
+    float s[KT][4];
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+      if (j >= nkt) continue;
+#pragma unroll
+      for (int kk = 0; kk < DK / 8; ++kk) {
+        uint32_t bb[2], bs[2];
+        tf32::split(ks[(8 * j + g) * LDK + 8 * kk + t], bb[0], bs[0]);
+        tf32::split(ks[(8 * j + g) * LDK + 8 * kk + t + 4], bb[1], bs[1]);
+        mma3(s[j], qb[kk], qs[kk], bb, bs);
+      }
+    }
+    // online softmax: rows g (entries 0, 1) and g + 8 (2, 3); key 8 j + 2 t + (i & 1)
+    float mn[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (j < nkt && k0 + 8 * j + 2 * t + (i & 1) < frames) mn[i >> 1] = fmaxf(mn[i >> 1], s[j][i]);
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mn[h] = quad_max(mn[h]);
+      alpha[h] = expf(m[h] - mn[h]);   // 0 on the first chunk (m = -inf)
+      m[h] = mn[h];
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool real = j < nkt && k0 + 8 * j + 2 * t + (i & 1) < frames;
+        s[j][i] = real ? expf(s[j][i] - mn[i >> 1]) : 0.f;
+        l[i >> 1] += s[j][i];
+      }
+    // O_chunk = P V: A column t (t + 4) of key tile j is key 8 j + 2 t (+ 1)
+    float oc[DK / 8][4] = {};
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      if (j >= nkt) continue;
+      uint32_t pb[4], ps[4];
+      tf32::split(s[j][0], pb[0], ps[0]);
+      tf32::split(s[j][2], pb[1], ps[1]);
+      tf32::split(s[j][1], pb[2], ps[2]);
+      tf32::split(s[j][3], pb[3], ps[3]);
+#pragma unroll
+      for (int n = 0; n < DK / 8; ++n) {
+        uint32_t bb[2], bs[2];
+        tf32::split(vs[(8 * j + 2 * t) * LDK + 8 * n + g], bb[0], bs[0]);
+        tf32::split(vs[(8 * j + 2 * t + 1) * LDK + 8 * n + g], bb[1], bs[1]);
+        mma3(oc[n], pb, ps, bb, bs);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < DK / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[n][i] = o[n][i] * alpha[i >> 1] + oc[n][i];
+    __syncwarp();   // every lane is done with this buffer before it is staged again
+  }
+  tf32::cp_async_wait<0>();
+  const float den[2] = {quad_sum(l[0]), quad_sum(l[1])};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + g + 8 * h;
+    if (row >= frames) continue;
+    float* dst = f.att + (base + static_cast<size_t>(row) * f.joints) * HID + hd * DK + 2 * t;
+#pragma unroll
+    for (int n = 0; n < DK / 8; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(o[n][2 * h] / den[h], o[n][2 * h + 1] / den[h]);
   }
 }
 
-// Row 10: CTA n runs the TemporalBlock of row n of x [N, F, HID].
-__global__ void __launch_bounds__(THREADS) temporal_kernel(const TemporalArgs w, const float* x,
-                                                           float* out, float* kv, int frames) {
+// T2: the tasks (row, head, 16-query tile), query tile fastest, over every
+// warp of the grid.  smem holds the NT / 32 warps' buffers.
+template <int NT>
+__device__ __forceinline__ void attention_phase(const Flow& f, float* smem, int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  const int qtiles = (f.frames + 15) / 16;
+  const int tasks = f.windows * f.joints * HEADS * qtiles;
+  float* buf = smem + warp * WARP_FLOATS;
+  for (int task = blockIdx.x * (NT / 32) + warp; task < tasks; task += gridDim.x * (NT / 32)) {
+    const int qt = task % qtiles, hd = (task / qtiles) % HEADS, n = task / (qtiles * HEADS);
+    const size_t base =
+        static_cast<size_t>(n / f.joints) * f.frames * f.joints + n % f.joints;
+    attention_task(f, base, hd, 16 * qt, buf, lane);
+  }
+}
+
+// T3 over every tile, grid-stride, in the tile xs | ys | hid | ring.
+template <int NT, int LDHID>
+__device__ __forceinline__ void ffn_phase(const TemporalArgs& w, const Flow& f, float* xs,
+                                          float* ys, float* hid, float* ring, int tid) {
+  zero_floats<NT>(xs, 2 * ROWS_PAD * LDH, tid);     // xs and ys, adjacent
+  zero_floats<NT>(hid, ROWS_PAD * LDHID, tid);
+  __syncthreads();
+  const int tiles = (vectors(f) + ROWS - 1) / ROWS;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+    ffn_tile<NT, LDHID>(w, f, tile * ROWS, xs, ys, hid, ring, tid);
+}
+
+// Row 10: the TemporalBlock of x [N, F, HID] (f.joints == 1, f.windows == N).
+__global__ void __launch_bounds__(TEMPORAL_THREADS, 1) temporal_kernel(const TemporalArgs w,
+                                                                       const Flow f) {
+  constexpr int NT = TEMPORAL_THREADS;
   extern __shared__ float4 smem4[];
-  const size_t n = blockIdx.x;
-  temporal_row(w, x + n * frames * HID, out + n * frames * HID, HID, kv + n * frames * KV,
-               frames, reinterpret_cast<float*>(smem4), threadIdx.x);
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* xs = smem;
+  float* ys = xs + ROWS_PAD * LDH;
+  float* hid = ys + ROWS_PAD * LDH;
+  float* ring = smem + T_ACT_FLOATS;
+  const int tid = threadIdx.x;
+  VIDK_CLOCK_START;
+
+  // T1
+  zero_floats<NT>(smem, T_ACT_FLOATS, tid);
+  __syncthreads();
+  const int tiles = (vectors(f) + ROWS - 1) / ROWS;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int v0 = tile * ROWS, nreal = min(ROWS, vectors(f) - v0);
+    tc_prefetch_qkv<NT>(w, ring, tid);
+    load_vectors<NT>(f.x + static_cast<size_t>(v0) * HID, xs, nreal, tid);
+    __syncthreads();
+    qkv_tile<NT>(w, xs, ys, ring, f.qkv + static_cast<size_t>(v0) * QKV, nreal, tid);
+  }
+  VIDK_MARK(1);
+  cooperative_groups::this_grid().sync();
+  VIDK_MARK(2);
+  attention_phase<NT>(f, smem, tid);
+  VIDK_MARK(3);
+  cooperative_groups::this_grid().sync();
+  VIDK_MARK(4);
+  ffn_phase<NT, LDF>(w, f, xs, ys, hid, ring, tid);
+  VIDK_MARK(5);
 }
 
 // Row 9: one video layer.  `a` describes the spatial block as a one-layer
 // bare stack over the B*F frames (a.x the layer's input [B, F, 17, HID],
-// a.out the spatial output, a scratch of the same shape, a.tp [1, B*F, HID]);
-// `out` receives the temporal block's output, `kv` holds B*17 rows' K | V.
+// a.out the spatial output, a.tp [1, B*F, HID]); f.x is a.out, f.out the
+// layer's output (f.joints == 17).
 __global__ void __launch_bounds__(THREADS, 1) st_layer_kernel(const netk::NetArgs a,
-                                                              const TemporalArgs w, float* out,
-                                                              float* kv, int windows, int frames) {
+                                                              const TemporalArgs w, const Flow f) {
+  namespace nk = netk;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x;
+  const nk::Tile s = nk::carve(smem);
+  VIDK_CLOCK_START;
 
-  // phase S: the spatial block, tiles of TB frames, grid-stride
-  {
-    namespace nk = netk;
-    const nk::Tile s = nk::carve(smem);
-    nk::load_cheb(a, s, tid);
-    const int tiles = (a.batch + nk::TB - 1) / nk::TB;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int b0 = tile * nk::TB;
-      const int nb = min(nk::TB, a.batch - b0);
-      nk::prefetch_layer(a, 0, s.ring, tid);
-      for (int i = tid; i < nk::ACT_FLOATS; i += THREADS) s.h[i] = 0.f;
-      __syncthreads();
-      nk::load_tile(a.x + static_cast<size_t>(b0) * N_PTS * HID, s.h, nb, tid);
-      __syncthreads();
-      nk::stack_layer<true, 0, THREADS>(a, 0, s, b0, nb, tid);
-      nk::store_tile(s.h, a.out + static_cast<size_t>(b0) * N_PTS * HID, nb, tid);
-      __syncthreads();
-    }
+  // phase S and T1: the spatial block of a tile of TB frames, then LN1 and
+  // QKV of its 68 vectors, grid-stride
+  nk::load_cheb(a, s, tid);
+  const int tiles = (a.batch + nk::TB - 1) / nk::TB;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int b0 = tile * nk::TB;
+    const int nb = min(nk::TB, a.batch - b0);
+    nk::prefetch_layer(a, 0, s.ring, tid);
+    for (int i = tid; i < nk::ACT_FLOATS; i += THREADS) s.h[i] = 0.f;
+    __syncthreads();
+    nk::load_tile(a.x + static_cast<size_t>(b0) * N_PTS * HID, s.h, nb, tid);
+    __syncthreads();
+    nk::stack_layer<true, 0, THREADS>(a, 0, s, b0, nb, tid);
+    VIDK_MARK(0);
+    tc_prefetch_qkv<THREADS>(w, s.ring, tid);
+    nk::store_tile(s.h, a.out + static_cast<size_t>(b0) * N_PTS * HID, nb, tid);
+    qkv_tile<THREADS>(w, s.h, s.y, s.ring, f.qkv + static_cast<size_t>(b0) * N_PTS * QKV,
+                      nb * N_PTS, tid);
+    VIDK_MARK(1);
   }
   cooperative_groups::this_grid().sync();
-
-  // phase T: the temporal block of every (window, joint) row, grid-stride;
-  // frame f of row (b, j) lies at ((b * F + f) * 17 + j) * HID
-  const size_t stride = static_cast<size_t>(N_PTS) * HID;
-  for (int n = blockIdx.x; n < windows * N_PTS; n += gridDim.x) {
-    const size_t base = (static_cast<size_t>(n / N_PTS) * frames * N_PTS + n % N_PTS) * HID;
-    temporal_row(w, a.out + base, out + base, stride, kv + static_cast<size_t>(n) * frames * KV,
-                 frames, smem, tid);
-  }
+  VIDK_MARK(2);
+  attention_phase<THREADS>(f, smem, tid);
+  VIDK_MARK(3);
+  cooperative_groups::this_grid().sync();
+  VIDK_MARK(4);
+  ffn_phase<THREADS, nk::LDB>(w, f, s.h, s.y, s.big, s.ring, tid);
+  VIDK_MARK(5);
 }
 
 }  // namespace vidk

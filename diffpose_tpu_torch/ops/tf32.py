@@ -78,9 +78,12 @@ def _mma(c: torch.Tensor, p: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
 
 
 def _products(a: torch.Tensor, b: torch.Tensor):
-    """``a [..., M, S, 8]`` times ``b [S, 8, N]`` term by term, exact (TF32
-    operands), and the exponent sums: each ``[..., M, S, 8, N]``."""
+    """``a [..., M, S, 8]`` times ``b [S, 8, N]`` (or ``b [..., S, 8, N]``,
+    batched as ``a``) term by term, exact (TF32 operands), and the exponent
+    sums: each ``[..., M, S, 8, N]``."""
     a, b = a.double(), b.double()
+    if b.dim() > 3:
+        b = b.unsqueeze(-4)
     return a.unsqueeze(-1) * b, _exponent(a).unsqueeze(-1) + _exponent(b)
 
 
@@ -102,12 +105,13 @@ def mma_chain(c0: Optional[torch.Tensor], a: torch.Tensor, b: torch.Tensor) -> t
 
 
 def matmul_3xtf32(a: torch.Tensor, w: torch.Tensor, accumulate: str = "kstep") -> torch.Tensor:
-    """``a [..., M, K] @ w [K, N]`` (float32, K % 8 == 0) at 3xTF32 as the
-    train kernels' tensor cores compute it (``accumulate="kstep"``), or as
-    the design they replaced did (``"whole_k"``); see the module's text."""
+    """``a [..., M, K] @ w [K, N]`` (or ``w [..., K, N]`` with ``a``'s batch
+    dimensions; float32, K % 8 == 0) at 3xTF32 as the kernels' tensor cores
+    compute it (``accumulate="kstep"``), or as the design they replaced did
+    (``"whole_k"``); see the module's text."""
     if accumulate not in ("kstep", "whole_k"):
         raise ValueError(f"accumulate must be 'kstep' or 'whole_k', got {accumulate!r}")
-    (ab, as_), (wb, ws) = split_tf32(_steps(a, -1)), split_tf32(_steps(w, 0))
+    (ab, as_), (wb, ws) = split_tf32(_steps(a, -1)), split_tf32(_steps(w, -2))
     passes = [_products(x, y) for x, y in ((as_, wb), (ab, ws), (ab, wb))]
     if accumulate == "kstep":
         part = passes[0][0].new_zeros(passes[0][0].shape[:-2] + passes[0][0].shape[-1:])

@@ -113,8 +113,9 @@ def test_layer_weights_slice_one_weight_prep():
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
-    """hid 32 weights, or a width the kernels are not built for, raise before
-    any library is loaded (this host builds none)."""
+    """CPU tensors, hid 32 weights, weights without the products' TF32 parts
+    or with a part of the wrong shape, and an absent layer raise before any
+    library is loaded (this host builds none)."""
     _, _, tm = video_pair(7)
     vw = fv.prepare_video_weights(tm, "cpu")
     ht = torch.zeros(2, 5, 96)
@@ -127,3 +128,14 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
                       torch.zeros(1, 5, 96), 0)
     with pytest.raises(ValueError, match="temporal_impl"):
         make_video_denoiser_fn(tm, temporal_impl="xla")
+    # at the kernels' width: the products' TF32 parts, and only them, in their shape
+    _, _, wide = video_pair(7, hid_dim=96, num_layers=1)
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="TF32 parts"):
+        fv._temporal_ptrs(fv.temporal_weight_stacks(wide, "cpu"), 0, cpu)
+    tw = fv.prepare_video_weights(wide, "cpu")["temporal"]
+    assert len(fv._temporal_ptrs(tw, 0, cpu)) == len(fv._T_KERNEL)
+    with pytest.raises(ValueError, match="twqkv_tf32"):
+        fv._temporal_ptrs(dict(tw, twqkv_tf32=tw["twqkv"]), 0, cpu)
+    with pytest.raises(ValueError, match="layer 1 of a 1-layer"):
+        fv._temporal_ptrs(tw, 1, cpu)
