@@ -158,19 +158,26 @@ seeded init) and the probes:
     ``fused_cheb_conv``) against the module at B=1024, with and without two
     joints masked (bound 2e-4; 10 row-4 launches a forward); row 4 against
     ``cheb_conv_plain`` at GraFormer's 2->128, 128->128 and 128->3 at 21
-    joints (B=1024) and 17 joints (B=1000, ragged), and at the video
-    family's I/O shapes (1,296 rows, 5->96 and 96->5); bound 5e-5; each
-    shape's kernel, plain and ``torch.einsum`` ms beside its bound, the
-    module's and the fused forward's, and from ``torch.profiler`` the
-    device time of row 4's launches inside the fused forward and of the
+    joints (B=1024) and 17 joints (B=1000, ragged), at the video family's
+    I/O shapes (1,296 rows, 5->96 and 96->5) and, untimed, at the wide
+    path's other widths of ``CHEB_MORE``; bound 5e-5; the wide path's
+    shapes also against its TF32 model (``cheb_conv_plain`` with
+    ``matmul_3xtf32``, on the host, on ``CHEB_MODEL_SAMPLES`` samples); each
+    shape's kernel (``cheb_plan``: wide, mix or proj; CTAs), ms (wrapper
+    calls) and device ms (``torch.profiler``), plain and ``torch.einsum`` ms
+    beside its bound (the wide path's products at the TF32 peak, three
+    passes) and FP32-only bound; the kernels' ptxas registers (no spills);
+    the module's and the fused forward's ms, and from ``torch.profiler``
+    the device time of row 4's launches inside the fused forward and of the
     module's ChebConvs inside its own;
 23. kernel row 11 (``probes/ablate.py``): the probe's SKIP = 0 build
     bit-equal to row 1's production kernel with the same ptxas resources;
     the five variants within 5e-5 of ``net_plain_ablated``; ms per variant
     at B=1024 and the share of each part;
 24. kernel row 12 (``probes/batched_dot.py``): TF32 tensor-core attention,
-    1x and 3x, against f32 at T=136 and 1088 (F=81, dk=24), ms beside
-    ``scaled_dot_product_attention``; 3xTF32 within 5e-5 at T=136; and
+    1x and 3x, against f32 at T=136 and 1088 (F=81, dk=24), ms and device
+    ms beside ``scaled_dot_product_attention``, both bounds, the grid and
+    ptxas registers (no spills); 3xTF32 within 5e-5 at both shapes; and
     ``ops/tf32.py``, the plain model of the train kernels' products, bit
     for bit equal to ``mma.sync`` (``probes/tf32_gemm.py``: one mma, a
     chain, 3xTF32 with k-step partials as ``tc_gemm`` and over the whole K).
@@ -229,8 +236,10 @@ from diffpose_tpu_torch.ops.fused_denoiser import (
 from diffpose_tpu_torch.ops import fused_cheb as fc
 from diffpose_tpu_torch.ops import fused_train as ft
 from diffpose_tpu_torch.ops.fused_graformer import make_graformer_fn
-from diffpose_tpu_torch.probes import ablate, batched_dot, tf32_gemm, time_ms, video_phases
+from diffpose_tpu_torch.probes import (ablate, batched_dot, device_ms, profiled, tf32_gemm, time_ms,
+                                       video_phases)
 from diffpose_tpu_torch.ops.fused_denoiser import _cheb, _layer_norm
+from diffpose_tpu_torch.ops.tf32 import matmul_3xtf32
 from diffpose_tpu_torch.ops.fused_video_full import fused_st_layer, fused_temporal_layer
 from diffpose_tpu_torch.ops.fused_pipeline import lift_and_denoise, make_eval_fn
 from diffpose_tpu_torch.ops.philox import philox_masks
@@ -315,6 +324,13 @@ VIDEO_STEPS = 3
 # family's I/O ChebConv shapes (B·F rows).
 GRAFORMER_BATCH, GRAFORMER_RAGGED = 1024, 1000
 VIDEO_IO = ((5, 96), (96, 5))       # models/video.py: gconv_input, gconv_output
+# Row 4's wide path at widths no model has (a partial slab and column chunk,
+# several column chunks, the video's hidden width, more than one wave), held
+# to cheb_conv_plain untimed: (joints, batch, C, D).
+CHEB_MORE = ((21, 7, 40, 136), (17, 333, 24, 264), (17, VIDEO_BATCH * VIDEO_FRAMES, 96, 96),
+             (21, 5000, 128, 128))
+# Samples of a shape that the wide path's TF32 model (float64 on the host) takes.
+CHEB_MODEL_SAMPLES = 8
 # H100 SXM peaks (NVIDIA data sheet): FP32 on CUDA cores, dense TF32 on the
 # tensor cores, HBM3.
 PEAK_FP32 = 67e12
@@ -1820,61 +1836,81 @@ def video_cli_phases(card):
 # ---------------------------------------------------------------------------
 
 
-def cheb_bound(bsz: int, n: int, c: int, d: int, k1: int, nnz: int):
-    """Row 4's least time: the channel product and the sparse joint mix, x and
-    w read once, y written once."""
-    flops = 2 * bsz * (n * k1 * c * d + nnz * c)
+def cheb_bound(bsz: int, n: int, c: int, d: int, k1: int, nnz: int, wide: bool):
+    """Row 4's least times, ``(ms, by, fp32_ms)``: the channel product and the
+    sparse joint mix and bias, x and w read once, y written once.  The wide
+    path (``wide``) counts its channel product at the TF32 tensor-core peak,
+    three passes, and the mix and bias at the FP32 peak (``tf32_bounds``);
+    the narrow paths, all on the CUDA cores, every operation at the FP32
+    peak, as ``fp32_ms`` counts it for both."""
+    prod, rest = 2 * bsz * n * k1 * c * d, 2 * bsz * nnz * c + bsz * n * d
     nbytes = 4 * (bsz * n * (c + d) + k1 * c * d + d) + 8 * nnz + 4 * (n + 1)
-    return bound_of(flops, nbytes)
+    if wide:
+        return tf32_bounds((prod, rest), nbytes)
+    ms, by = bound_of(prod + rest, nbytes)
+    return ms, by, ms
 
 
 def cheb_shape(name, x, w, b, gconst, card, timed=True):
-    """Row 4 against ``cheb_conv_plain`` on one shape (bound 5e-5), and its,
-    the plain version's and ``torch.einsum``'s times beside the bound."""
+    """Row 4 against ``cheb_conv_plain`` on one shape (bound 5e-5), the wide
+    path also against its TF32 model on a few samples, and its ms (wrapper
+    calls), device ms, the plain version's and ``torch.einsum``'s ms beside
+    both bounds."""
     bsz, n, c = x.shape
     k1, _, d = w.shape
+    plan = fc.kernel_plan(x.device, bsz, n, c, d, k1)
     with torch.no_grad():
         got = fc.fused_cheb_conv(x, w, b, gconst)
         torch.cuda.synchronize()
         err = max_err(got, fc.cheb_conv_plain(x, w, b, gconst["basis"]))
-    tile = fc._library().cheb_tile(n, c, k1)
-    print(f"row 4 {name:>9s} {c:3d}->{d:3d} N={n} B={bsz:5d} ({tile} samples a CTA): "
-          f"max|kernel-plain| {err:.3e}")
+        model_err = None
+        if plan["kernel"] == "wide":
+            few = slice(0, CHEB_MODEL_SAMPLES)
+            model = fc.cheb_conv_plain(x[few].cpu(), w.cpu(), b.cpu(), gconst["basis"].cpu(),
+                                       matmul=matmul_3xtf32)
+            model_err = max_err(got[few].cpu(), model)
+    print(f"row 4 {name:>9s} {c:3d}->{d:3d} N={n} B={bsz:5d} ({plan['kernel']}, {plan['tb']} samples "
+          f"a CTA, {plan['ctas']} x {plan['chunks']} CTAs): max|kernel-plain| {err:.3e}"
+          + ("" if model_err is None else f"  max|kernel-TF32 model| {model_err:.3e}"))
     check(err <= TOL_KERNEL, f"row 4 {name} {c}->{d} N={n} B={bsz}: {err}")
-    rec = dict(c_in=c, d_out=d, n_pts=n, batch=bsz, max_abs_err=err)
+    rec = dict(c_in=c, d_out=d, n_pts=n, batch=bsz, max_abs_err=err, plan=plan,
+               max_abs_err_tf32_model=model_err)
     if not timed:
         return rec
     basis = gconst["basis"]
     with torch.no_grad():
         rec["ms"] = time_ms(lambda: fc._launch(x, w, b, gconst))
+        rec["device_ms"] = device_ms(lambda: fc._launch(x, w, b, gconst), "cheb_kernel")
         rec["plain_ms"] = time_ms(lambda: fc.cheb_conv_plain(x, w, b, basis))
         rec["library_ms"] = time_ms(lambda: torch.einsum("knm,bmc,kcd->bnd", basis, x, w) + b)
-    rec["bound_ms"], rec["bound_by"] = cheb_bound(bsz, n, c, d, k1, gconst["cheb_nnz"])
-    print(f"row 4 {name:>9s} {c:3d}->{d:3d} N={n} B={bsz:5d}: kernel {rec['ms']:.4f} ms  plain "
-          f"{rec['plain_ms']:.4f} ms  einsum {rec['library_ms']:.4f} ms  bound {rec['bound_ms']:.4f} "
-          f"ms ({rec['bound_by']}, {100 * rec['bound_ms'] / rec['ms']:.1f}%)  [{card}]")
+    rec["bound_ms"], rec["bound_by"], rec["bound_ms_fp32"] = cheb_bound(
+        bsz, n, c, d, k1, gconst["cheb_nnz"], plan["kernel"] == "wide")
+    print(f"row 4 {name:>9s} {c:3d}->{d:3d} N={n} B={bsz:5d}: kernel {rec['ms']:.4f} ms (device "
+          f"{rec['device_ms']:.4f})  plain {rec['plain_ms']:.4f} ms  einsum {rec['library_ms']:.4f} "
+          f"ms  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+          f"{100 * rec['bound_ms'] / rec['device_ms']:.1f}% of the device time)  FP32-only bound "
+          f"{rec['bound_ms_fp32']:.4f} ms ({100 * rec['bound_ms_fp32'] / rec['device_ms']:.1f}%)  "
+          f"[{card}]")
     return rec
 
 
 def chebconv_device_ms(fn, model, x, per_call: int, reps: int = 5):
-    """Device time a forward, from ``torch.profiler`` over ``reps`` calls: of
-    row 4's kernels inside the fused forward ``fn(x)``, and of the kernels
-    that the module's ChebGraphConvs launch inside ``model(x)`` (each
-    ChebGraphConv's call is a ``record_function`` range, set by hooks)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    """Device time a forward, from ``torch.profiler`` (``probes.profiled``)
+    over ``reps`` calls: of row 4's kernels inside the fused forward
+    ``fn(x)``, and of the kernels that the module's ChebGraphConvs launch
+    inside ``model(x)`` (each ChebGraphConv's call is a ``record_function``
+    range, set by hooks)."""
+    from torch.profiler import record_function
 
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with torch.no_grad():
-        fn(x)
-        torch.cuda.synchronize()
-        with profile(activities=activities) as prof:
+    def run(f):
+        def calls():
             for _ in range(reps):
-                fn(x)
-            torch.cuda.synchronize()
-    row4 = [e for e in prof.events()
-            if e.device_type.name == "CUDA" and "cheb_kernel" in e.name]
-    check(len(row4) == per_call * reps,
-          f"the profiler saw {len(row4)} row-4 kernels in {reps} fused forwards")
+                f(x)
+        return calls
+
+    with torch.no_grad():
+        row4 = profiled(run(fn), lambda e: e.device_type.name == "CUDA" and "cheb_kernel" in e.name,
+                        per_call * reps)
     fused_ms = sum(e.device_time_total for e in row4) / 1e3 / reps
 
     ranges, hooks = [], []
@@ -1891,19 +1927,11 @@ def chebconv_device_ms(fn, model, x, per_call: int, reps: int = 5):
             hooks += [m.register_forward_pre_hook(enter), m.register_forward_hook(leave)]
     try:
         with torch.no_grad():
-            model(x)
-            torch.cuda.synchronize()
-            with profile(activities=activities) as prof:
-                for _ in range(reps):
-                    model(x)
-                torch.cuda.synchronize()
+            convs = profiled(run(model), lambda e: e.device_type.name == "CPU" and e.name == "ChebGraphConv",
+                             per_call * reps, cpu=True)
     finally:
         for h in hooks:
             h.remove()
-    convs = [e for e in prof.events()
-             if e.device_type.name == "CPU" and e.name == "ChebGraphConv"]
-    check(len(convs) == per_call * reps,
-          f"the profiler saw {len(convs)} ChebGraphConv calls in {reps} module forwards")
     module_ms = sum(e.device_time_total for e in convs) / 1e3 / reps
     check(fused_ms > 0 and module_ms > 0, "the profiler recorded no device time")
     return fused_ms, module_ms
@@ -1956,6 +1984,16 @@ def graformer_phases(dev, gen, g, card):
         xin = torch.randn((VIDEO_BATCH * VIDEO_FRAMES, 17, c), generator=g, device=dev)
         shapes[(f"video{c}->{d}", 17)] = cheb_shape(
             "video", xin, conv.weight.detach()[:, 0], conv.bias.detach().reshape(-1), gconst, card)
+    more = {}
+    for n, b, c, d in CHEB_MORE:
+        gc = fc.graph_constants(basis21 if n == 21 else basis17, dev)
+        w = torch.randn((3, c, d), generator=g, device=dev) / (3 * c) ** 0.5
+        more[f"{c}->{d}_N{n}_B{b}"] = cheb_shape(
+            "wide", torch.randn((b, n, c), generator=g, device=dev), w,
+            torch.randn((d,), generator=g, device=dev), gc, card, timed=False)
+    usage, spills = ptxas_usage("cheb_kernel"), ptxas_usage("cheb_kernel", "spill")
+    for entry, used in sorted(usage.items()):
+        print(f"  ptxas cheb_kernel {entry}: {used}; {spills[entry]}")
 
     with torch.no_grad():
         module_ms = time_ms(lambda: model(x), reps=5)
@@ -1964,24 +2002,33 @@ def graformer_phases(dev, gen, g, card):
     row4 = {k: shapes[(k, 21)] for k in convs}
     counts = {"input": 1, "residual": 2 * model.num_layers, "output": 1}
     launch_bound = sum(counts[k] * row4[k]["bound_ms"] for k in convs)
+    launch_bound_fp32 = sum(counts[k] * row4[k]["bound_ms_fp32"] for k in convs)
     print(f"GraFormer forward B={bsz}: module {module_ms:.4f} ms, fused {fused_ms:.4f} ms "
           f"({bsz / fused_ms * 1e3:.1f} poses/s); device time a forward (torch.profiler): "
           f"its {per_call} row-4 launches {launch_ms:.4f} ms against a bound of "
-          f"{launch_bound:.4f} ms, the module's {per_call} ChebGraphConvs {module_conv_ms:.4f} ms"
-          f"  [{card}]")
+          f"{launch_bound:.4f} ms (FP32-only {launch_bound_fp32:.4f}), the module's {per_call} "
+          f"ChebGraphConvs {module_conv_ms:.4f} ms  [{card}]")
     mid = row4["residual"]
-    others = {f"{k[0]}_N{k[1]}": {f: v[f] for f in ("c_in", "d_out", "batch", "ms", "plain_ms",
-                                                     "library_ms", "bound_ms", "bound_by")}
+    others = {f"{k[0]}_N{k[1]}": {f: v[f] for f in ("c_in", "d_out", "batch", "ms", "device_ms",
+                                                     "plain_ms", "library_ms", "bound_ms",
+                                                     "bound_by", "bound_ms_fp32", "plan",
+                                                     "max_abs_err")}
               for k, v in shapes.items() if k != ("residual", 21)}
+    every = [*shapes.values(), *more.values()]
+    model_errs = [v["max_abs_err_tf32_model"] for v in every if v["max_abs_err_tf32_model"] is not None]
     return dict(name="cheb_kernel", route="cuda", source="diffpose_tpu_torch/csrc/cheb_kernel.cu",
                 replaces="diffpose_tpu/ops/pallas_cheb.py:48", launches=launches,
-                max_abs_err=max(v["max_abs_err"] for v in shapes.values()), ms=mid["ms"],
-                plain_ms=mid["plain_ms"], bound_ms=mid["bound_ms"], bound_by=mid["bound_by"],
-                library_ms=mid["library_ms"],
+                max_abs_err=max(v["max_abs_err"] for v in every), ms=mid["ms"],
+                device_ms=mid["device_ms"], plain_ms=mid["plain_ms"], bound_ms=mid["bound_ms"],
+                bound_by=mid["bound_by"], bound_ms_fp32=mid["bound_ms_fp32"],
+                library_ms=mid["library_ms"], plan=mid["plan"],
+                ptxas={k: f"{v}; {spills[k]}" for k, v in usage.items()},
+                max_abs_err_tf32_model=max(model_errs), wide_checked_untimed=sorted(more),
                 library_what="torch.einsum('knm,bmc,kcd->bnd', basis, x, w) + b",
                 batch=bsz, n_pts=21, c_in=128, d_out=128, forward_launches_device_ms=launch_ms,
                 module_chebconvs_device_ms=module_conv_ms,
-                forward_bound_ms=launch_bound, module_forward_ms=module_ms,
+                forward_bound_ms=launch_bound, forward_bound_ms_fp32=launch_bound_fp32,
+                module_forward_ms=module_ms,
                 fused_forward_ms=fused_ms, max_err_forward=max(e_fwd, e_mask), other_shapes=others,
                 main_path=f"make_graformer_fn forward, B={bsz}")
 
@@ -2073,35 +2120,44 @@ def ablate_phases(dev, wd, g, card):
 
 
 def attention_bound(rows: int, frames: int, dk: int, passes: int = 3):
-    """Row 12's least time in its 3xTF32 mode: the two products on the tensor
-    cores at the TF32 peak, ``passes`` times over; the softmax on the CUDA
-    cores at the f32 peak; q, k and v read and the output written once."""
-    mma_ms = 1e3 * passes * 4 * rows * frames * frames * dk / PEAK_TF32
-    softmax_ms = 1e3 * 5 * rows * frames * frames / PEAK_FP32
-    ops_ms, bytes_ms = mma_ms + softmax_ms, 1e3 * 16 * rows * frames * dk / PEAK_BYTES
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    """Row 12's least times in its 3xTF32 mode, ``(ms, by, fp32_ms)``: the two
+    products on the tensor cores at the TF32 peak, ``passes`` times over;
+    the softmax on the CUDA cores at the f32 peak; q, k and v read and the
+    output written once.  ``fp32_ms``: every operation at the FP32 peak
+    against the bytes."""
+    prod, softmax = 4 * rows * frames * frames * dk, 5 * rows * frames * frames
+    ops_ms = 1e3 * (passes * prod / PEAK_TF32 + softmax / PEAK_FP32)
+    bytes_ms = 1e3 * 16 * rows * frames * dk / PEAK_BYTES
+    ms, by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    return ms, by, max(1e3 * (prod + softmax) / PEAK_FP32, bytes_ms)
 
 
 def attention_probe_phases(card):
-    """Phase 24: row 12.  Both TF32 modes' max |Δ| against the f32 plain twin
-    and ms at the JAX probe's shape and row 10's, beside SDPA; 3xTF32 must be
-    within 5e-5 at T=136.  Then ``ops/tf32.py`` must equal ``mma.sync`` bit
-    for bit in every case of ``probes/tf32_gemm.py``.  Returns row 12's
+    """Phase 24: row 12.  Both TF32 modes' max |Δ| against the f32 plain twin,
+    ms (wrapper calls) and device ms at the JAX probe's shape and row 10's,
+    beside SDPA and both bounds; 3xTF32 must be within 5e-5 at both; the
+    grid and ptxas registers.  Then ``ops/tf32.py`` must equal ``mma.sync``
+    bit for bit in every case of ``probes/tf32_gemm.py``.  Returns row 12's
     record."""
     batched_dot.batched_attention.launches = 0
     res = batched_dot.run()
     launches = batched_dot.batched_attention.launches
     check(launches > 0, "the attention probe's run launched no kernel")
     for shape, rec in res.items():
-        bms, by = attention_bound(*shape)
-        rec["bound_ms"], rec["bound_by"] = bms, by
-        print(f"row 12 T,F,dk={shape}: 3xTF32 max|Δ| {rec['3xtf32']['max_abs_err']:.3e} "
-              f"{rec['3xtf32']['ms']:.4f} ms; 1xTF32 max|Δ| {rec['1xtf32']['max_abs_err']:.3e} "
-              f"{rec['1xtf32']['ms']:.4f} ms; plain {rec['plain_ms']:.4f} ms; SDPA "
-              f"{rec['library_ms']:.4f} ms; bound {bms:.4f} ms ({by})  [{card}]")
-    first = res[batched_dot.SHAPES[0]]
-    check(first["3xtf32"]["max_abs_err"] <= TOL_KERNEL,
-          f"3xTF32 attention at {batched_dot.SHAPES[0]}: {first['3xtf32']['max_abs_err']}")
+        bms, by, fp32 = attention_bound(*shape)
+        rec["bound_ms"], rec["bound_by"], rec["bound_ms_fp32"] = bms, by, fp32
+        three, one = rec["3xtf32"], rec["1xtf32"]
+        print(f"row 12 T,F,dk={shape} ({three['ctas']} CTAs, {three['ctas_an_sm']} an SM): 3xTF32 "
+              f"max|Δ| {three['max_abs_err']:.3e} {three['ms']:.4f} ms (device "
+              f"{three['device_ms']:.4f}); 1xTF32 max|Δ| {one['max_abs_err']:.3e} {one['ms']:.4f} "
+              f"ms (device {one['device_ms']:.4f}); plain {rec['plain_ms']:.4f} ms; SDPA "
+              f"{rec['library_ms']:.4f} ms; bound {bms:.4f} ms ({by}, "
+              f"{100 * bms / three['device_ms']:.1f}% of 3xTF32's device time), FP32-only bound "
+              f"{fp32:.4f} ms  [{card}]")
+        check(three["max_abs_err"] <= TOL_KERNEL, f"3xTF32 attention at {shape}: {three['max_abs_err']}")
+    usage, spills = ptxas_usage("probe_attention"), ptxas_usage("probe_attention", "spill")
+    for entry, used in sorted(usage.items()):
+        print(f"  ptxas probe_attention {entry}: {used}; {spills[entry]}")
     tf32_gemm.gemm.launches = 0
     model_check = tf32_gemm.run()
     check(tf32_gemm.gemm.launches == len(model_check), "the TF32 probe launched no kernel")
@@ -2109,14 +2165,17 @@ def attention_probe_phases(card):
         print(f"ops/tf32.py against mma.sync, {name}: {rec['differing']} of {rec['of']} elements "
               f"differ (max |Δ| {rec['max_abs_diff']:.3e})")
         check(rec["differing"] == 0, f"the plain TF32 model differs from mma.sync: {name}")
+    first = res[batched_dot.SHAPES[0]]
     return dict(name="probe_attention[3xtf32]", route="cuda",
                 source="diffpose_tpu_torch/csrc/probe_attention.cu",
                 replaces="scripts/probe_batched_dot.py:22", launches=launches,
-                max_abs_err=first["3xtf32"]["max_abs_err"], ms=first["3xtf32"]["ms"],
+                max_abs_err=max(r["3xtf32"]["max_abs_err"] for r in res.values()),
+                ms=first["3xtf32"]["ms"], device_ms=first["3xtf32"]["device_ms"],
                 plain_ms=first["plain_ms"], bound_ms=first["bound_ms"], bound_by=first["bound_by"],
-                library_ms=first["library_ms"],
+                bound_ms_fp32=first["bound_ms_fp32"], library_ms=first["library_ms"],
                 library_what="scaled_dot_product_attention(q, k, v, scale=1.0)",
                 shape=list(batched_dot.SHAPES[0]),
+                ptxas={k: f"{v}; {spills[k]}" for k, v in usage.items()},
                 other={str(list(s)): r for s, r in res.items()},
                 main_path="probes/batched_dot.run (phase 24)")
 
@@ -2147,9 +2206,10 @@ def main() -> int:
     spills = [l for l in _build.build_log("train_kernel").splitlines() if "spill" in l]
     check(len(spills) == 4 and all("0 bytes spill stores, 0 bytes spill loads" in l for l in spills),
           f"the train kernels spill registers: {spills}")
-    # every build of net_forward_kernel (rows 1-3 and the probe's six) and
-    # row 9, whose spatial phase is its layer (registers: the lines above)
-    for name, entries in (("net_kernel", 3), ("probe_kernel", 6), ("video_kernel", 2)):
+    # every build of net_forward_kernel (rows 1-3 and the probe's six), row 9,
+    # whose spatial phase is its layer, and rows 4 and 12 (registers: the lines above)
+    for name, entries in (("net_kernel", 3), ("probe_kernel", 6), ("video_kernel", 2),
+                          ("cheb_kernel", 7), ("probe_attention", 2)):
         check_no_spills(name, entries)
     print(f"  dynamic shared memory of every net_forward_kernel build and of row 9: "
           f"{ablate._library().probe_smem_bytes()} bytes")

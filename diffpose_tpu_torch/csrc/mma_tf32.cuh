@@ -1,16 +1,18 @@
 // TF32 tensor-core products and asynchronous copies, in inline PTX, shared by
-// the attention probe (probe_attention.cu) and the train kernels
-// (train_kernel.cuh).
+// every tensor-core kernel (tc_gemm.cuh, the ChebConv, the video kernels'
+// attention and the attention probe).
 //
 //   to_tf32 / split : an f32 operand as TF32 parts, big = tf32(x) and
 //                     small = tf32(x - big), rounded as cvt.rna.tf32.f32
 //                     rounds (to nearest, ties away from zero);
 //                     diffpose_tpu_torch/ops/tf32.py is the plain version;
 //   mma             : d += A B for one m16n8k8 TF32 tile, f32 accumulation;
-//   mma_f32<MODE>   : the same from f32 fragments, 1xTF32 (MODE 1) or 3xTF32
-//                     (MODE 3: big*big + big*small + small*big, the Hopper
-//                     counterpart of the bf16x3 split of
-//                     diffpose_tpu/ops/pallas_denoiser.py:_dot);
+//   mma3            : d += A B at 3xTF32 from split operands, the three passes
+//                     (small*big, big*small, big*big: the Hopper counterpart
+//                     of the bf16x3 split of
+//                     diffpose_tpu/ops/pallas_denoiser.py:_dot) into a fresh
+//                     partial added to d in f32;
+//   quad_max / quad_sum : over the 4 lanes of a quad (one accumulator row);
 //   cp_async16 / cp_async_commit / cp_async_wait<N> : 16-byte global ->
 //                     shared copies that bypass the registers (cp.async.cg),
 //                     grouped, and the wait for this thread's older groups.
@@ -45,19 +47,27 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// d += A B for a 16x8 tile from f32 fragments (layouts above).
-template <int MODE>
-__device__ __forceinline__ void mma_f32(float (&d)[4], const float (&a)[4], const float (&b)[2]) {
-  uint32_t ab[4], as[4], bb[2], bs[2];
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// d += a b at 3xTF32 as a fresh partial: the small products, then the big one
+// (ops/tf32.py:matmul_3xtf32's order).
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], const uint32_t (&bb)[2],
+                                     const uint32_t (&bs)[2]) {
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  mma(part, as, bb);
+  mma(part, ab, bs);
+  mma(part, ab, bb);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) split(a[i], ab[i], as[i]);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) split(b[i], bb[i], bs[i]);
-  if constexpr (MODE == 3) {  // the small products first, then the big one
-    mma(d, ab, bs);
-    mma(d, as, bb);
-  }
-  mma(d, ab, bb);
+  for (int i = 0; i < 4; ++i) d[i] += part[i];
 }
 
 // 16 bytes from global memory (16-byte aligned, read-only for the launch)

@@ -86,6 +86,9 @@ using netk::THREADS;
 using netk::ld4;
 using netk::st4;
 using netk::zero4;
+using tf32::mma3;
+using tf32::quad_max;
+using tf32::quad_sum;
 
 constexpr int QKV = 3 * HID;                // a scratch row: Q | K | V
 constexpr int LDF = 2 * HID + 4;            // the feed-forward hidden rows (== 4 mod 32)
@@ -221,29 +224,6 @@ __device__ __forceinline__ void ffn_tile(const TemporalArgs& w, const Flow& f, i
     st4(out + static_cast<size_t>(r) * HID + c, ld4(xs + r * LDH + c));
   }
   __syncthreads();
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// d += a b at 3xTF32 as a fresh partial: the small products, then the big one
-// (ops/tf32.py:matmul_3xtf32's order).
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4], const uint32_t (&bb)[2],
-                                     const uint32_t (&bs)[2]) {
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
-  tf32::mma(part, as, bb);
-  tf32::mma(part, ab, bs);
-  tf32::mma(part, ab, bb);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += part[i];
 }
 
 // Keys k0 .. k0 + KEYS - 1 of head hd of a row (frame f at vector base + f J)

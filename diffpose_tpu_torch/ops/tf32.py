@@ -104,6 +104,17 @@ def mma_chain(c0: Optional[torch.Tensor], a: torch.Tensor, b: torch.Tensor) -> t
     return c.float()
 
 
+def _chain(passes) -> torch.Tensor:
+    """Every pass's k-steps into one accumulator, k-step by k-step, the
+    passes in turn within a k-step."""
+    p0 = passes[0][0]
+    c = p0.new_zeros(p0.shape[:-3] + p0.shape[-1:])
+    for s in range(p0.shape[-3]):
+        for p, e in passes:
+            c = _mma(c, p[..., s, :, :], e[..., s, :, :])
+    return c.float()
+
+
 def matmul_3xtf32(a: torch.Tensor, w: torch.Tensor, accumulate: str = "kstep") -> torch.Tensor:
     """``a [..., M, K] @ w [K, N]`` (or ``w [..., K, N]`` with ``a``'s batch
     dimensions; float32, K % 8 == 0) at 3xTF32 as the kernels' tensor cores
@@ -113,17 +124,20 @@ def matmul_3xtf32(a: torch.Tensor, w: torch.Tensor, accumulate: str = "kstep") -
         raise ValueError(f"accumulate must be 'kstep' or 'whole_k', got {accumulate!r}")
     (ab, as_), (wb, ws) = split_tf32(_steps(a, -1)), split_tf32(_steps(w, -2))
     passes = [_products(x, y) for x, y in ((as_, wb), (ab, ws), (ab, wb))]
-    if accumulate == "kstep":
-        part = passes[0][0].new_zeros(passes[0][0].shape[:-2] + passes[0][0].shape[-1:])
-        for p, e in passes:   # every k-step's partial at once: [..., M, K / 8, N]
-            part = _mma(part, p, e)
-        part = part.float()
-        acc = torch.zeros_like(part[..., 0, :])
-        for s in range(part.shape[-2]):
-            acc = acc + part[..., s, :]
-        return acc
-    c = passes[0][0].new_zeros(passes[0][0].shape[:-3] + passes[0][0].shape[-1:])
-    for s in range(passes[0][0].shape[-3]):
-        for p, e in passes:
-            c = _mma(c, p[..., s, :, :], e[..., s, :, :])
-    return c.float()
+    if accumulate == "whole_k":
+        return _chain(passes)
+    part = passes[0][0].new_zeros(passes[0][0].shape[:-2] + passes[0][0].shape[-1:])
+    for p, e in passes:   # every k-step's partial at once: [..., M, K / 8, N]
+        part = _mma(part, p, e)
+    part = part.float()
+    acc = torch.zeros_like(part[..., 0, :])
+    for s in range(part.shape[-2]):
+        acc = acc + part[..., s, :]
+    return acc
+
+
+def matmul_1xtf32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` (shapes as :func:`matmul_3xtf32`) with both operands rounded
+    to TF32 and one accumulator through K / 8 ``mma.sync`` in order: the
+    1xTF32 mode of the attention probe (``csrc/probe_attention.cu``)."""
+    return _chain([_products(_steps(round_tf32(a), -1), _steps(round_tf32(w), -2))])
