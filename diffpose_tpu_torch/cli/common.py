@@ -13,6 +13,7 @@ and ``--device`` chooses where the run lies.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import shutil
@@ -69,7 +70,11 @@ def add_common_flags(parser: argparse.ArgumentParser):
     parser.add_argument("--device", default="cuda", type=str,
                         help="where the run lies: cuda (the default) or cpu")
     parser.add_argument("--data_parallel", action="store_true",
-                        help="shard batches over all local devices (not ported yet: raises)")
+                        help="shard batches over every rank of the job (a 1-D data mesh): "
+                        "launch one process a rank with torchrun (e.g. torchrun "
+                        "--nproc_per_node 2 -m diffpose_tpu_torch.cli.main_frame ...); "
+                        "nccl over --device cuda (rank r on cuda:LOCAL_RANK), gloo over "
+                        "--device cpu; without a launcher, a world of one rank")
     parser.add_argument("--use_ema_eval", action="store_true",
                         help="evaluate the EMA shadow weights instead of the live weights")
     parser.add_argument("--synthetic_frames", default=0, type=int,
@@ -80,8 +85,9 @@ def add_common_flags(parser: argparse.ArgumentParser):
                         help="optimizer steps per call over a device-resident dataset "
                         "(the host sends one index array per call)")
     parser.add_argument("--hypothesis_parallel", default=0, type=int, metavar="H",
-                        help="shard test_times hypotheses over a second mesh axis "
-                        "(not ported yet: raises)")
+                        help="shard test_times hypotheses over a second mesh axis of H ranks: "
+                        "a (world // H, H) data x hypothesis grid, launched and backed as "
+                        "--data_parallel; the world size must divide by H")
     parser.add_argument("--train_impl", default="module",
                         choices=("module", "plain", "fused", "pallas"),
                         help="training fwd+bwd implementation: the nn.Module under "
@@ -97,17 +103,19 @@ def add_common_flags(parser: argparse.ArgumentParser):
                         "identical; on the CPU the same bits from numpy)")
     parser.add_argument("--matmul_precision", default="float32",
                         choices=("float32", "BF16_BF16_F32_X3", "default"),
-                        help="matmul grade for train and module eval: float32 "
-                        "(strict parity, TF32 off).  The reduced tiers are not "
-                        "ported yet: they raise")
+                        help="matmul grade of the torch operations around the kernels "
+                        "(train and module eval): float32 (strict parity, TF32 off).  "
+                        "The reduced tiers are not ported yet: they raise")
     parser.add_argument("--exec_cache", action="store_true",
                         help="accepted for the JAX package's command lines: the "
                         "kernels' build cache under build/ plays its part")
     parser.add_argument("--kernel_precision", default="bf16x3",
                         choices=("bf16x3", "bf16", "default"),
                         help="kernel matmul grade: bf16x3 names the parity (f32) "
-                        "grade, which the CUDA kernels compute in f32 FMA.  The "
-                        "reduced tiers are not ported yet: they raise")
+                        "grade, which the CUDA kernels compute as 3xTF32 on the tensor "
+                        "cores (rows 1-3, 5-10 and row 4's wide path; row 4's narrow "
+                        "paths in f32 FMA).  The reduced tiers are not ported yet: they "
+                        "raise")
     parser.add_argument("--denoiser_impl", default="module",
                         choices=("module", "fused", "pallas", "fused_st", "pallas_st",
                                  "fused_full", "pallas_full"),
@@ -125,8 +133,12 @@ def resolve_impl(value: str) -> str:
 
 
 def setup_experiment(args):
-    """Log dir + logging + config; returns the loaded Config."""
+    """Log dir + logging + config; returns the loaded Config.  On a rank
+    other than 0 of a process group (a sharded run) nothing is written: no
+    log dir, config snapshot or log file, and only warnings reach the
+    console."""
     from diffpose_tpu_torch.config import load_config, save_config
+    from diffpose_tpu_torch.parallel.mesh import is_main_rank
 
     args.log_path = os.path.join(args.exp, args.doc)
 
@@ -143,7 +155,8 @@ def setup_experiment(args):
     if args.n_epochs is not None:
         config.training.n_epochs = args.n_epochs
 
-    if args.train and not args.resume:
+    main_rank = is_main_rank()   # of a sharded run, rank 0 alone writes the log dir
+    if main_rank and args.train and not args.resume:
         if os.path.exists(args.log_path):
             overwrite = args.ni or _ask_overwrite()
             if not overwrite:
@@ -152,25 +165,25 @@ def setup_experiment(args):
             shutil.rmtree(args.log_path)
         os.makedirs(args.log_path, exist_ok=True)
         save_config(config, os.path.join(args.log_path, "config.yml"))
-    else:
+    elif main_rank:
         os.makedirs(args.log_path, exist_ok=True)
 
     level = getattr(logging, args.verbose.upper(), None)
     if not isinstance(level, int):
         raise ValueError(f"level {args.verbose} not supported")
-    handler1 = logging.StreamHandler()
-    handler2 = logging.FileHandler(os.path.join(args.log_path, "stdout.txt"))
+    handlers = [logging.StreamHandler()]
+    if main_rank:
+        handlers.append(logging.FileHandler(os.path.join(args.log_path, "stdout.txt")))
     formatter = logging.Formatter(
         "%(levelname)s - %(filename)s - %(asctime)s - %(message)s"
     )
-    handler1.setFormatter(formatter)
-    handler2.setFormatter(formatter)
     logger = logging.getLogger()
     for h in list(logger.handlers):
         logger.removeHandler(h)
-    logger.addHandler(handler1)
-    logger.addHandler(handler2)
-    logger.setLevel(level)
+    for h in handlers:
+        h.setFormatter(formatter)
+        logger.addHandler(h)
+    logger.setLevel(level if main_rank else max(level, logging.WARNING))
 
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
@@ -182,14 +195,39 @@ def _ask_overwrite() -> bool:
     return response.upper() == "Y"
 
 
+@contextlib.contextmanager
 def make_mesh_if_requested(args):
-    """No mesh exists in this package yet: the two flags that ask for one raise."""
+    """The ``DeviceMesh`` that ``--data_parallel`` / ``--hypothesis_parallel H``
+    ask for (``diffpose_tpu/cli/common.py:182-194``), or None, for the body
+    of a ``with``.
+
+    Joins the process group first (``parallel.distributed_init``: the ranks
+    of a ``torchrun`` launch, a world of one, or the group the calling
+    process is in already): ``--data_parallel`` gives a 1-D data mesh over
+    the world, ``--hypothesis_parallel H`` a ``(world // H, H)`` data x
+    hypothesis grid.  A world that does not divide by H raises.  A group
+    joined here is left again when the ``with`` ends, however it ends."""
     hyp = getattr(args, "hypothesis_parallel", 0)
     if not getattr(args, "data_parallel", False) and not hyp:
-        return None
-    raise NotImplementedError(
-        "--data_parallel and --hypothesis_parallel need the torch.distributed port of "
-        "diffpose_tpu/parallel (ROADMAP queue 1 item 12), which is not written yet")
+        yield None
+        return
+    import torch.distributed as dist
+
+    from diffpose_tpu_torch.parallel.mesh import distributed_init, distributed_shutdown, make_mesh
+
+    joined = not dist.is_initialized()
+    _, world = distributed_init(device=args.device)
+    device_type = torch.device(args.device).type
+    try:
+        if hyp:
+            if world % hyp:
+                raise ValueError(f"{world} ranks not divisible by hypothesis_parallel={hyp}")
+            yield make_mesh((world // hyp, hyp), ("data", "hypothesis"), device_type=device_type)
+        else:
+            yield make_mesh(device_type=device_type)
+    finally:
+        if joined:
+            distributed_shutdown()
 
 
 def resolve_action_filter(args):

@@ -23,6 +23,7 @@ from diffpose_tpu_torch.cli.common import (
     resolve_impl,
     setup_experiment,
 )
+from diffpose_tpu_torch.parallel.mesh import barrier
 
 
 def parse_args(argv=None):
@@ -34,7 +35,13 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    with make_mesh_if_requested(args) as mesh:   # before the log dir: only rank 0 writes it
+        return _run(args, mesh)
+
+
+def _run(args, mesh) -> int:
     config = setup_experiment(args)
+    barrier()   # every rank sees the log dir rank 0 made
 
     from diffpose_tpu_torch.config import ImplicitConfig
     from diffpose_tpu_torch.data.synthetic import make_synthetic_dataset
@@ -43,7 +50,6 @@ def main(argv=None) -> int:
 
     if config.implicit is None:
         config.implicit = ImplicitConfig()
-    mesh = make_mesh_if_requested(args)   # raises: no mesh exists in this package yet
 
     results = {}
     for name, cls, kwargs in (("diffusion", DiffposeRunner, {}),

@@ -9,6 +9,10 @@ Train:
 Eval:
     python -m diffpose_tpu_torch.cli.main_frame --config configs/human36m_diffpose_uvxyz_cpn.yml \
         --doc eval1 --model_diff_path ckpt.pth --model_pose_path gcn.pth --ni
+Data-parallel over two GPUs (one process a rank, nccl); add --hypothesis_parallel 2
+for a data x hypothesis grid, and --device cpu for gloo on the CPU:
+    torchrun --nproc_per_node 2 -m diffpose_tpu_torch.cli.main_frame --train --data_parallel \
+        --config configs/human36m_diffpose_uvxyz_cpn.yml --doc run2 --batch_size 1024 --ni
 Smoke (no dataset files needed):
     python -m diffpose_tpu_torch.cli.main_frame --config configs/human36m_diffpose_uvxyz_gt.yml \
         --doc smoke --train --synthetic_frames 2048 --batch_size 256 --ni \
@@ -29,6 +33,7 @@ from diffpose_tpu_torch.cli.common import (
     resolve_impl,
     setup_experiment,
 )
+from diffpose_tpu_torch.parallel.mesh import barrier
 
 
 def parse_args(argv=None):
@@ -39,13 +44,18 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    with make_mesh_if_requested(args) as mesh:   # before the log dir: only rank 0 writes it
+        return _run(args, mesh)
+
+
+def _run(args, mesh) -> int:
     config = setup_experiment(args)
+    barrier()   # every rank sees the log dir rank 0 made
     logging.info("Writing log file to %s", args.log_path)
     logging.info("Exp instance id = %s", args.doc)
 
     from diffpose_tpu_torch.train.trainer import DiffposeRunner
 
-    mesh = make_mesh_if_requested(args)   # raises: no mesh exists in this package yet
     try:
         runner = DiffposeRunner(
             config,

@@ -34,6 +34,7 @@ from diffpose_tpu_torch.cli.common import (
     resolve_impl,
     setup_experiment,
 )
+from diffpose_tpu_torch.parallel.mesh import barrier
 
 _IGNORED = ("use_memory_efficient", "use_dynamic_chunks", "expandable_segments",
             "process_chunk_size", "min_chunk_size", "max_chunk_size", "target_memory_usage")
@@ -67,7 +68,13 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    with make_mesh_if_requested(args) as mesh:   # before the log dir: only rank 0 writes it
+        return _run(args, mesh)
+
+
+def _run(args, mesh) -> int:
     config = setup_experiment(args)
+    barrier()   # every rank sees the log dir rank 0 made
     logging.info("Writing log file to %s", args.log_path)
 
     from diffpose_tpu_torch.config import ImplicitConfig
@@ -92,7 +99,6 @@ def main(argv=None) -> int:
     if args.use_implicit and args.eval_sweep > 1:
         logging.warning("--eval_sweep has no effect with --use_implicit")
 
-    mesh = make_mesh_if_requested(args)   # raises: no mesh exists in this package yet
     try:
         runner = ImplicitRunner(
             config,

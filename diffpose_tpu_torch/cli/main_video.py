@@ -3,9 +3,9 @@
 cuda`` unless told ``--device cpu``.
 
 The frame CLI's flags, plus ``--frames`` (window length) and
-``--synthetic_windows``.  ``--context_parallel`` and ``--data_parallel``
-need the port of ``diffpose_tpu/parallel`` (ROADMAP queue 1 item 12) and
-raise.  ``--model_diff_path`` loads a checkpoint ``.pth`` of this CLI for
+``--synthetic_windows``.  ``--context_parallel``, ``--data_parallel`` and
+``--hypothesis_parallel`` need the video family's sharded steps (ROADMAP
+queue 1 item 12c) and raise.  ``--model_diff_path`` loads a checkpoint ``.pth`` of this CLI for
 an eval-only run.
 
 Train, resume, eval-only (no dataset files needed):
@@ -27,7 +27,6 @@ import traceback
 
 from diffpose_tpu_torch.cli.common import (
     add_common_flags,
-    make_mesh_if_requested,
     resolve_impl,
     setup_experiment,
 )
@@ -40,7 +39,8 @@ def parse_args(argv=None):
     parser.add_argument("--frames", type=int, default=None,
                         help="override video.frames (window length, e.g. 81/243)")
     parser.add_argument("--context_parallel", type=int, default=0, metavar="N",
-                        help="shard the frame axis over N devices (not ported yet: raises)")
+                        help="shard the frame axis over N devices (not ported yet: raises, "
+                        "ROADMAP item 12c)")
     parser.add_argument("--synthetic_windows", default=0, type=int,
                         help="use a synthetic dataset of N windows (smoke runs)")
     return parser.parse_args(argv)
@@ -48,10 +48,11 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.context_parallel > 0:
+    if args.context_parallel > 0 or args.data_parallel or args.hypothesis_parallel:
         raise NotImplementedError(
-            "--context_parallel needs the torch.distributed port of diffpose_tpu/parallel "
-            "(ROADMAP queue 1 item 12), which is not written yet")
+            "--context_parallel, --data_parallel and --hypothesis_parallel of the video family "
+            "need its sharded steps and the K/V all-gather (ROADMAP queue 1 item 12c), which "
+            "are not written yet")
     config = setup_experiment(args)
 
     from diffpose_tpu_torch.config import VideoConfig
@@ -67,14 +68,12 @@ def main(argv=None) -> int:
         if getattr(args, flag) != default:
             logging.warning("--%s is not supported by the video runner; ignored", flag)
 
-    mesh = make_mesh_if_requested(args)   # raises: no mesh exists in this package yet
     try:
         runner = VideoRunner(
             config,
             seed=args.seed,
             skip_type=args.skip_type,
             eta=args.eta,
-            mesh=mesh,
             log_dir=args.log_path,
             use_ema_eval=args.use_ema_eval,
             denoiser_impl=resolve_impl(args.denoiser_impl),

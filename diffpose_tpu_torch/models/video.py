@@ -16,7 +16,7 @@ then ``num_layers`` alternations of
 and a per-frame output ChebConv.  ``x`` is ``[B, F, J, C]``, ``t`` ``[B]``.
 
 Dropout follows ``module.training``.  Context parallelism (``cp_axis``) has
-no counterpart yet: constructing with one raises (ROADMAP queue 1 item 12).
+no counterpart yet: constructing with one raises (ROADMAP queue 1 item 12c).
 """
 
 from __future__ import annotations
@@ -42,8 +42,8 @@ from diffpose_tpu_torch.models.layers import (
 def _no_context_axis(cp_axis):
     if cp_axis is not None:
         raise NotImplementedError(
-            f"cp_axis={cp_axis!r}: context parallelism needs the torch.distributed port of "
-            "diffpose_tpu/parallel (ROADMAP queue 1 item 12), which is not written yet")
+            f"cp_axis={cp_axis!r}: context parallelism (the K/V all-gather under autograd) "
+            "is not ported yet (ROADMAP queue 1 item 12c)")
 
 
 class TemporalAttention(nn.Module):

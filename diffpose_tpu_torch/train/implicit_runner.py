@@ -12,6 +12,12 @@ other value the module's training forward; ``denoiser_impl="fused"`` runs
 the eval's lift and every solver iteration through the whole-network kernel
 (``ops/fused_igcn.py``).  Checkpoints hold the BatchNorm's running buffers
 with the parameters; the EMA shadow covers the parameters only.
+
+Over a ``mesh`` the implicit steps are ``parallel/sharding.py``'s: each rank
+solves its own slice (the eval's convergence, the Anderson history and the
+warm-start carry are per rank), and the train step averages the BatchNorm
+buffers it writes (``diffpose_tpu/train/implicit_runner.py:117-127,
+233-241, 334-341``).
 """
 
 from __future__ import annotations
@@ -26,6 +32,12 @@ import torch
 from diffpose_tpu_torch.config import Config, ImplicitConfig
 from diffpose_tpu_torch.metrics import ActionErrorAccumulator
 from diffpose_tpu_torch.models.igcn import IGCN
+from diffpose_tpu_torch.parallel.sharding import (
+    make_sharded_implicit_eval_step,
+    make_sharded_implicit_train_step,
+    make_sharded_implicit_train_sweep_step,
+    mean_over,
+)
 from diffpose_tpu_torch.train.implicit_steps import (
     make_implicit_eval_step,
     make_implicit_train_step,
@@ -76,11 +88,15 @@ class ImplicitRunner(DiffposeRunner):
         optimizer = self._optimizer(steps_per_epoch)
         ema_mu = self.config.model.ema_rate if self.config.model.ema else None
         imp = self.implicit
-        self._raw_step = make_implicit_train_step(
-            self.model_diff, optimizer, self.betas,
-            impl="fused" if self.train_impl == "fused" else "module", ema_mu=ema_mu,
-            use_warm_start=imp.use_warm_start, tol_schedule=self._tol_schedule(),
-            device=self.device, dropout=self.dropout_impl)
+        kwargs = dict(impl="fused" if self.train_impl == "fused" else "module", ema_mu=ema_mu,
+                      use_warm_start=imp.use_warm_start, tol_schedule=self._tol_schedule(),
+                      device=self.device, dropout=self.dropout_impl)
+        if self.mesh is not None:
+            self._raw_step = make_sharded_implicit_train_step(
+                self.model_diff, optimizer, self.betas, self.mesh, **kwargs)
+        else:
+            self._raw_step = make_implicit_train_step(self.model_diff, optimizer, self.betas,
+                                                      **kwargs)
         step = self._raw_step
         if imp.use_warm_start:
             step = self._wrap_warm_start(step, imp.warm_start_momentum)
@@ -92,9 +108,13 @@ class ImplicitRunner(DiffposeRunner):
         if not self.use_implicit:
             return super()._build_sweep_fn(optimizer, n, base_step)
         imp = self.implicit
-        fn = make_implicit_train_sweep_step(
-            self.model_diff, optimizer, self.betas, sweep=n, base_step=self._raw_step,
-            use_warm_start=imp.use_warm_start, warm_start_momentum=imp.warm_start_momentum)
+        kwargs = dict(sweep=n, base_step=self._raw_step, use_warm_start=imp.use_warm_start,
+                      warm_start_momentum=imp.warm_start_momentum)
+        if self.mesh is not None:
+            fn = make_sharded_implicit_train_sweep_step(self.model_diff, optimizer, self.betas,
+                                                        self.mesh, **kwargs)
+        else:
+            fn = make_implicit_train_sweep_step(self.model_diff, optimizer, self.betas, **kwargs)
         if imp.use_warm_start:
             fn = self._wrap_warm_start_sweep(fn, imp.warm_start_momentum)
         return fn
@@ -132,8 +152,8 @@ class ImplicitRunner(DiffposeRunner):
             carry = self._sweep_warm_carry = {"z0": None, "w": 0.0}
 
         def step(state, data, idx, generator):
-            if carry["z0"] is None:
-                carry["z0"] = self._zeros_like_carry(idx.shape[1])
+            if carry["z0"] is None:   # this rank's columns of the global index array
+                carry["z0"] = self._zeros_like_carry(idx.shape[1] // self._data.size)
             state, metrics = raw_sweep(state, data, idx, generator, carry["z0"], carry["w"])
             carry["z0"], carry["w"] = metrics.pop("fixed_point"), momentum
             return state, metrics
@@ -161,10 +181,15 @@ class ImplicitRunner(DiffposeRunner):
         if fn is None:
             self._eval_builds += 1
             t_cfg = self.config.testing
-            fn = self._eval_cache[key] = make_implicit_eval_step(
-                self.model_diff, self.model_pose, t_infer=t_cfg.test_num_diffusion_timesteps,
-                test_times=t_cfg.test_times, use_ema=self.use_ema_eval, use_warm_start=warm,
-                impl=self.denoiser_impl, device=self.device)
+            kwargs = dict(t_infer=t_cfg.test_num_diffusion_timesteps,
+                          test_times=t_cfg.test_times, use_ema=self.use_ema_eval,
+                          use_warm_start=warm, impl=self.denoiser_impl, device=self.device)
+            if self.mesh is not None:   # frames over data, every hypothesis on each rank
+                fn = make_sharded_implicit_eval_step(self.model_diff, self.model_pose, self.mesh,
+                                                     **kwargs)
+            else:
+                fn = make_implicit_eval_step(self.model_diff, self.model_pose, **kwargs)
+            self._eval_cache[key] = fn
         return fn
 
     def _evaluate_implicit(self, is_train: bool = False,
@@ -180,7 +205,7 @@ class ImplicitRunner(DiffposeRunner):
         eval_fn = self._get_implicit_eval_fn(warm)
         prepared = eval_fn.prepare(state, self.pose_params)
         was_training = self.model_diff.training
-        loader = self._make_loader(self.test_data, shuffle=False)
+        loader = self._make_loader(self.test_data, shuffle=False, keyed=False)
         acc = ActionErrorAccumulator(self.test_data.actions, num_joints=self.config.model.n_pts,
                                      reference_compat=self.reference_compat)
         self.inference_times, self.fp_iterations = [], []
@@ -190,17 +215,21 @@ class ImplicitRunner(DiffposeRunner):
         z0, z0_w = None, 0.0
         for batch in loader.epoch(0):
             t0 = time.time()
+            local = self._local_batch(batch)
             if warm:
                 if z0 is None:
-                    z0 = self._zeros_like_carry(batch["poses_3d"].shape[0] * t_cfg.test_times)
-                p1, p2, _, iters, z0 = eval_fn(state, self.pose_params, batch, self.generator,
+                    z0 = self._zeros_like_carry(local["poses_3d"].shape[0] * t_cfg.test_times)
+                p1, p2, _, iters, z0 = eval_fn(state, self.pose_params, local, self.generator,
                                                z0, z0_w, prepared=prepared)
                 z0_w = imp.warm_start_momentum
             else:
-                p1, p2, _, iters = eval_fn(state, self.pose_params, batch, self.generator,
+                p1, p2, _, iters = eval_fn(state, self.pose_params, local, self.generator,
                                            prepared=prepared)
-            p1, p2 = p1.cpu().numpy(), p2.cpu().numpy()       # waits for the batch
+            p1, p2 = self._gathered(p1, p2)       # waits for the batch
             self.inference_times.append(time.time() - t0)
+            if self.mesh is not None:   # the data ranks' mean count
+                iters = mean_over(torch.as_tensor(iters, dtype=torch.float32,
+                                                  device=self.device).reshape(()), self._data)
             self.fp_iterations.append(float(iters))
             acc.add(batch, p1, p2)
         self.model_diff.train(was_training)

@@ -10,6 +10,11 @@ Differences from the frame family's steps (reference ``runners/implicit_pose.py`
 
 A train step is ``draw`` then ``apply``, as in ``train/steps.py``; the
 module's parameters, buffers, optimizer and EMA shadow are updated in place.
+With ``axis`` (one rank of a mesh, ``parallel/sharding.py``) the draws are
+keyed by the rank's coordinate, and the gradients, the loss and the
+BatchNorm running buffers are averaged over the axis, ``fp_iterations``
+averaged and ``fp_residual`` the maximum
+(``diffpose_tpu/train/implicit_steps.py:95-102``).
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from diffpose_tpu_torch.models.igcn import bn_state
 from diffpose_tpu_torch.ops.fused_denoiser import fused_lifter, prepare_weights, resolve_device
 from diffpose_tpu_torch.ops.fused_igcn import make_igcn_fn
 from diffpose_tpu_torch.ops.fused_igcn_train import make_igcn_train_fn
+from diffpose_tpu_torch.parallel.mesh import MeshAxis
+from diffpose_tpu_torch.parallel.sharding import all_reduce_mean_grads, max_over
 from diffpose_tpu_torch.train.state import TrainState
 from diffpose_tpu_torch.train.steps import (
     DROPOUTS,
@@ -38,6 +45,7 @@ from diffpose_tpu_torch.train.steps import (
 )
 
 IMPLS = ("module", "fused")
+BN_BUFFERS = ("running_mean", "running_var")
 
 
 def progressive_tolerance(step: int, tol_schedule: Tuple[float, float, int]) -> float:
@@ -59,7 +67,8 @@ def make_implicit_train_step(model, optimizer, betas, *, impl: str = "module",
                              ema_mu: Optional[float] = 0.999, mask=None,
                              use_warm_start: bool = False,
                              tol_schedule: Optional[Tuple[float, float, int]] = None,
-                             device="cuda", dropout: str = "masks", remat: bool = False):
+                             device="cuda", dropout: str = "masks", remat: bool = False,
+                             axis: Optional[MeshAxis] = None):
     """Build ``train_step(state, batch, generator, z0=None, z0_weight=None)
     → (state, metrics)`` for an :class:`~diffpose_tpu_torch.models.IGCN`.
 
@@ -75,7 +84,8 @@ def make_implicit_train_step(model, optimizer, betas, *, impl: str = "module",
     ``metrics["fixed_point"]`` carries the solution (detached) for the next
     step.  ``tol_schedule=(init_tol, final_tol, decay_steps)``: the
     progressive tolerance, from ``state.step``.  ``remat`` (fused only):
-    recompute each iteration's stack in the backward.
+    recompute each iteration's stack in the backward.  ``axis``: one rank of
+    a mesh (the module's docstring).
 
     ``metrics``: ``loss``, ``grad_norm``, ``fp_iterations``, ``fp_residual``
     (tensors on the device), plus ``fp_tolerance`` and ``fixed_point`` where
@@ -92,7 +102,7 @@ def make_implicit_train_step(model, optimizer, betas, *, impl: str = "module",
     fused = impl == "fused"
     draw = make_draw(betas, device, num_layers=model.num_layers, num_heads=model.num_heads,
                      hid_dim=model.hid_dim, dropout=dropout,
-                     masks_dtype=torch.uint8 if fused else torch.float32)
+                     masks_dtype=torch.uint8 if fused else torch.float32, axis=axis)
     forward = make_igcn_train_fn(model, dropout=dropout, remat=remat) if fused else None
 
     def apply(state: TrainState, draws: StepDraws, z0=None, z0_weight=None):
@@ -105,21 +115,32 @@ def make_implicit_train_step(model, optimizer, betas, *, impl: str = "module",
         if fused:
             drop = draws.seed if dropout == "prng" else draws.masks
             eps, aux, running = forward(draws.x_t, t, drop, z0, z0_weight, tol)
-            with torch.no_grad():
-                model.batch_norm.running_mean.copy_(running["running_mean"])
-                model.batch_norm.running_var.copy_(running["running_var"])
         else:   # the module moves its running buffers itself
             eps, aux = model(draws.x_t, t, masks=draws.masks, z0=z0, z0_weight=z0_weight,
                              tolerance_override=tol)
+            running = {k: getattr(model.batch_norm, k) for k in BN_BUFFERS}
         loss = diffusion_loss(eps, draws.e)
         loss.backward()
+        iterations = aux["iterations"].to(torch.float32)
+        residual = aux["residual"].detach()
+        if axis is not None:
+            # one all_reduce: the gradients, the loss, the mean iteration count
+            # and the running buffers this step wrote (each rank's solve
+            # converges on its own slice); the residual's maximum
+            loss, iterations, *bn = all_reduce_mean_grads(
+                model.parameters(), axis, loss, iterations, *running.values())
+            running = dict(zip(BN_BUFFERS, bn))
+            residual = max_over(residual, axis)
+        if fused or axis is not None:
+            with torch.no_grad():
+                for k, v in running.items():
+                    getattr(model.batch_norm, k).copy_(v)
         grad_norm = optimizer.step()
         if state.ema_params is not None and ema_mu is not None:
             ema_update(state.ema_params, model, ema_mu)
         state.step += 1
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
-                   "fp_iterations": aux["iterations"].to(torch.float32),
-                   "fp_residual": aux["residual"].detach()}
+                   "fp_iterations": iterations, "fp_residual": residual}
         if tol is not None:
             metrics["fp_tolerance"] = torch.tensor(tol, dtype=torch.float32)
         if use_warm_start:

@@ -12,6 +12,11 @@ The step is split in two so that a caller can supply the random draws:
 ``train_step.draw(batch, generator)`` and ``train_step.apply(state, draws)``;
 ``train_step(state, batch, generator)`` is one after the other.  The state's
 model, optimizer and EMA shadow are updated in place.
+
+``axis`` (a ``parallel.mesh.MeshAxis``) is set when the step runs on one rank
+of a mesh (``parallel/sharding.py``): its draws are then keyed by the rank's
+coordinate on the axis, and its gradients and loss averaged over the axis's
+group, as ``axis_name`` does inside ``shard_map`` in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ from diffpose_tpu_torch.ops.fused_denoiser import (
 from diffpose_tpu_torch.ops.fused_train import build_train_stack, fused_train_forward
 from diffpose_tpu_torch.ops.philox import philox_masks
 from diffpose_tpu_torch.ops.train_ref import DropoutMasks, make_dropout_masks, train_forward
+from diffpose_tpu_torch.parallel.mesh import MeshAxis
+from diffpose_tpu_torch.parallel.sharding import all_reduce_mean_grads, fold_in, sum_over
 from diffpose_tpu_torch.train.state import TrainState
 
 IMPLS = ("fused", "plain", "module")
@@ -62,9 +69,11 @@ def diffusion_loss(eps: torch.Tensor, target_noise: torch.Tensor) -> torch.Tenso
 
 
 def make_draw(betas, device: torch.device, *, num_layers: int, num_heads: int, hid_dim: int,
-              dropout: str, masks_dtype):
+              dropout: str, masks_dtype, axis: Optional[MeshAxis] = None):
     """Build ``draw(batch, generator) → StepDraws``: GMM kernel, antithetic
-    timesteps, scaled noise, q-sample, then the dropout's draw.  ``dropout
+    timesteps, scaled noise, q-sample, then the dropout's draw, all from
+    ``generator`` folded with ``axis``'s coordinate where an axis is given
+    (``parallel/sharding.py:fold_in``; that includes the Philox seed).  ``dropout
     ="masks"``: ``DropoutMasks`` of ``masks_dtype`` (``None``: no masks, the
     module's ``nn.Dropout`` draws its own); ``"prng"``: an int32 seed, and
     where the consumer takes explicit float masks (``masks_dtype`` float32)
@@ -74,6 +83,8 @@ def make_draw(betas, device: torch.device, *, num_layers: int, num_heads: int, h
     cfg = dict(num_layers=num_layers, num_heads=num_heads, hid_dim=hid_dim)
 
     def draw(batch: dict, generator: torch.Generator) -> StepDraws:
+        if axis is not None:
+            generator = fold_in(generator, axis.index)
         gmm = torch.as_tensor(batch["poses_2d_gmm"], device=device)
         uvxyz, noise_scale, _ = sample_gmm_batch(
             generator, gmm, torch.as_tensor(batch["poses_3d"], device=device))
@@ -97,7 +108,8 @@ def make_draw(betas, device: torch.device, *, num_layers: int, num_heads: int, h
 
 
 def make_train_step(model, optimizer, betas, *, impl: str = "fused",
-                    ema_mu: Optional[float] = 0.999, device="cuda", dropout: str = "masks"):
+                    ema_mu: Optional[float] = 0.999, device="cuda", dropout: str = "masks",
+                    axis: Optional[MeshAxis] = None):
     """Build ``train_step(state, batch, generator) → (state, metrics)``.
 
     ``impl``: ``"fused"`` runs the denoiser's layers through the CUDA
@@ -114,6 +126,8 @@ def make_train_step(model, optimizer, betas, *, impl: str = "fused",
     ``train.optim.make_optimizer``'s.  ``batch``: ``poses_3d [B, J, 3]`` and
     ``poses_2d_gmm [B, J, K, 5]``.  ``metrics``: ``loss`` and ``grad_norm``
     (the global norm before the clip), scalar tensors on ``device``.
+    ``axis``: the step runs on one rank of a mesh; gradients and loss are
+    averaged over the axis before the clip (the module's docstring).
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
@@ -130,7 +144,8 @@ def make_train_step(model, optimizer, betas, *, impl: str = "fused",
     basis = model.gconv_input.basis.detach().cpu().numpy()
     stack_fn = build_train_stack(basis, **cfg, dropout=dropout) if impl == "fused" else None
     draw = make_draw(betas, device, **cfg, dropout=dropout,
-                     masks_dtype={"fused": torch.uint8, "plain": torch.float32}.get(impl))
+                     masks_dtype={"fused": torch.uint8, "plain": torch.float32}.get(impl),
+                     axis=axis)
 
     def apply(state: TrainState, draws: StepDraws):
         if state.model is not model or state.optimizer is not optimizer:
@@ -147,6 +162,8 @@ def make_train_step(model, optimizer, betas, *, impl: str = "fused",
             eps = model(draws.x_t, t)
         loss = diffusion_loss(eps, draws.e)
         loss.backward()
+        if axis is not None:
+            loss, = all_reduce_mean_grads(model.parameters(), axis, loss)
         grad_norm = optimizer.step()
         if state.ema_params is not None and ema_mu is not None:
             ema_update(state.ema_params, model, ema_mu)
@@ -212,7 +229,8 @@ def _swapped_in(model, params):
 
 def make_eval_step(diff_model, pose_model, betas, seq: Sequence[int], *, test_times: int = 1,
                    eta: float = 0.0, add_start_noise: bool = False, use_ema: bool = False,
-                   gmm_base_seed: int = 0, impl: str = "module", device="cuda"):
+                   gmm_base_seed: int = 0, impl: str = "module", device="cuda",
+                   hyp_axis: Optional[MeshAxis] = None):
     """Build the evaluation step (lift → DDIM loop → hypothesis mean).
     Counterpart of ``diffpose_tpu/train/steps.py:make_eval_step``.
 
@@ -230,6 +248,14 @@ def make_eval_step(diff_model, pose_model, betas, seq: Sequence[int], *, test_ti
     weights.  The GMM draw is keyed per sample by ``batch["seeds"]`` from a
     fixed base seed, so results do not depend on batch grouping.
 
+    ``hyp_axis``: hypothesis parallelism (survey §2.6).  On one rank of a
+    ``(data, hypothesis)`` mesh the step computes ``test_times / hyp_axis.size``
+    hypotheses, draws its start noise and DDIM noise from the generator
+    folded with its hypothesis coordinate, and the hypothesis mean is a sum
+    over the axis's group divided by ``test_times``.  The deterministic
+    protocol (no start noise, η=0: the reference eval) gives the same result
+    at any split.
+
     Returns ``eval_step(state, pose_model, batch, generator, prepared=None)
     → (p1 [B], p2 [B], pred_xyz [B, J, 3])``, tensors on ``device``.
     ``eval_step.prepare(state, pose_model)`` stacks the weights of the
@@ -241,6 +267,10 @@ def make_eval_step(diff_model, pose_model, betas, seq: Sequence[int], *, test_ti
         raise ValueError(f"impl must be one of {EVAL_IMPLS}, got {impl!r}")
     device = resolve_device(device)
     seq = tuple(int(s) for s in seq)
+    if hyp_axis is not None and test_times % hyp_axis.size:
+        raise ValueError(f"test_times {test_times} does not split over {hyp_axis.size} "
+                         "hypothesis ranks")
+    tt_local = test_times // hyp_axis.size if hyp_axis is not None else test_times
 
     def ema_of(state):
         return state.ema_params if use_ema and state.ema_params is not None else None
@@ -278,15 +308,22 @@ def make_eval_step(diff_model, pose_model, betas, seq: Sequence[int], *, test_ti
 
         xyz = lift(input_2d)
         xyz = xyz - xyz[:, :1, :]
-        uvxyz = torch.cat([input_2d, xyz], dim=-1).repeat(test_times, 1, 1)
+        uvxyz = torch.cat([input_2d, xyz], dim=-1).repeat(tt_local, 1, 1)
+        if hyp_axis is not None and generator is not None and (add_start_noise or eta):
+            generator = fold_in(generator, hyp_axis.index)
         if add_start_noise:
             e = torch.randn(uvxyz.shape, generator=generator, device=device,
-                            dtype=uvxyz.dtype) * noise_scale.repeat(test_times, 1, 1)
+                            dtype=uvxyz.dtype) * noise_scale.repeat(tt_local, 1, 1)
             t0 = torch.full((uvxyz.shape[0],), seq[-1], dtype=torch.int64, device=device)
             uvxyz = q_sample(uvxyz, t0, e, betas)
         with swap:
             out = ddim_sample(denoise, uvxyz, seq, betas, eta=eta, generator=generator)
-        out = out.reshape(test_times, -1, out.shape[1], out.shape[2]).mean(dim=0)
+        out = out.reshape(tt_local, -1, out.shape[1], out.shape[2])
+        if hyp_axis is not None:
+            # the hypothesis mean across the axis: local sum, then a sum over its group
+            out = sum_over(out.sum(dim=0), hyp_axis) / test_times
+        else:
+            out = out.mean(dim=0)
 
         pred_xyz = out[..., 2:]
         pred_xyz = pred_xyz - pred_xyz[:, :1, :]

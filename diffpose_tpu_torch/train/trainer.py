@@ -12,6 +12,13 @@ On the card the denoiser's training forward and backward
 are hand-written CUDA kernels; losses stay on the device and are read once
 an epoch; checkpoints are ``torch.save`` files with full resume.  What has
 no counterpart in this package yet raises and names its ROADMAP item.
+
+``mesh`` (a ``DeviceMesh`` from ``parallel.make_mesh``, this process one of
+its ranks): the train loader is keyed by the rank's ``data`` coordinate and
+the steps are ``parallel/sharding.py``'s; each eval batch is split over
+``data`` (and its hypotheses over ``hypothesis``) and the per-sample errors
+gathered before they are accumulated; only rank 0 writes logs, ``log.tsv``
+and checkpoints, and every rank loads on resume.
 """
 
 from __future__ import annotations
@@ -35,6 +42,14 @@ from diffpose_tpu_torch.models import GCNDiff, GCNPose
 from diffpose_tpu_torch.models.convert import load_torch_states
 from diffpose_tpu_torch.models.ema import ema_register
 from diffpose_tpu_torch.ops.fused_denoiser import resolve_device
+from diffpose_tpu_torch.parallel.mesh import barrier, is_main_rank, mesh_axis
+from diffpose_tpu_torch.parallel.sharding import (
+    gather_rows,
+    make_sharded_eval_step,
+    make_sharded_train_step,
+    make_sharded_train_sweep_step,
+    shard_batch,
+)
 from diffpose_tpu_torch.train.checkpoint import Checkpointer
 from diffpose_tpu_torch.train.optim import make_optimizer
 from diffpose_tpu_torch.train.state import TrainState
@@ -45,8 +60,8 @@ logger = logging.getLogger(__name__)
 TRAIN_IMPLS = ("module", "plain", "fused")
 DENOISER_IMPLS = ("module", "fused")
 DROPOUT_IMPLS = ("masks", "prng")
-# The JAX package's name of its parity (f32) kernel grade: the CUDA kernels
-# compute in f32 FMA, which is that grade.
+# The JAX package's name of its parity (f32) kernel grade: the CUDA kernels'
+# 3xTF32 tensor-core products (f32 FMA on row 4's narrow paths) are that grade.
 F32_KERNEL_GRADE = "bf16x3"
 
 
@@ -75,10 +90,11 @@ class DiffposeRunner:
         kernel_precision: str = F32_KERNEL_GRADE,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh needs the torch.distributed port of diffpose_tpu/parallel "
-                "(ROADMAP queue 1 item 12), which is not written yet")
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                            f"(diffpose_tpu_torch.parallel.make_mesh), got {type(mesh).__name__}")
         if denoiser_impl in ("pallas_st", "pallas_full", "fused_st", "fused_full"):
             raise ValueError(
                 f"--denoiser_impl {denoiser_impl} belongs to the video family "
@@ -105,7 +121,10 @@ class DiffposeRunner:
         self.seed = seed
         self.skip_type = skip_type
         self.eta = eta
-        self.mesh = None
+        self.mesh = mesh
+        # this rank's place on the mesh's axes (trivial without a mesh)
+        self._data = mesh_axis(mesh, "data")
+        self._hyp = mesh_axis(mesh, "hypothesis")
         self.log_dir = log_dir
         self.use_ema_eval = use_ema_eval
         self.reference_compat = reference_compat
@@ -131,6 +150,9 @@ class DiffposeRunner:
                         "build cache under build/ plays its part")
         self.kernel_precision = kernel_precision
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh is over {mesh.device_type!r} ranks, the runner's device "
+                             f"is {self.device}")
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
@@ -238,13 +260,16 @@ class DiffposeRunner:
     # Training
     # ------------------------------------------------------------------
 
-    def _make_loader(self, data: FlatDataset, shuffle: bool) -> BatchLoader:
+    def _make_loader(self, data: FlatDataset, shuffle: bool, keyed: bool = True) -> BatchLoader:
+        """The batches of ``data``; ``keyed``: this rank's slice of each (its
+        data coordinate's), else the global batches."""
         if not self._native_logged:
             self._native_logged = True
             logger.info("batch gather: %s", "native library (native/gather_pack.cc)"
                         if native.available() else "numpy (no native library)")
+        parts = (self._data.size, self._data.index) if keyed else (1, 0)
         return BatchLoader(data, batch_size=self.config.training.batch_size, shuffle=shuffle,
-                           seed=self.seed, process_count=1, process_index=0)
+                           seed=self.seed, process_count=parts[0], process_index=parts[1])
 
     def _optimizer(self, steps_per_epoch: int):
         """The state's own optimizer, where a state with one exists, else a new one."""
@@ -268,8 +293,12 @@ class DiffposeRunner:
         optimizer = self._optimizer(steps_per_epoch)
         ema_mu = self.config.model.ema_rate if self.config.model.ema else None
         dropout = self.dropout_impl if self.train_impl != "module" else "masks"
-        step_fn = make_train_step(self.model_diff, optimizer, self.betas, impl=self.train_impl,
-                                  ema_mu=ema_mu, device=self.device, dropout=dropout)
+        kwargs = dict(impl=self.train_impl, ema_mu=ema_mu, device=self.device, dropout=dropout)
+        if self.mesh is not None:
+            step_fn = make_sharded_train_step(self.model_diff, optimizer, self.betas, self.mesh,
+                                              **kwargs)
+        else:
+            step_fn = make_train_step(self.model_diff, optimizer, self.betas, **kwargs)
         return optimizer, step_fn
 
     def _supports_train_sweep(self) -> bool:
@@ -284,7 +313,11 @@ class DiffposeRunner:
         }
 
     def _build_sweep_fn(self, optimizer, n: int, base_step):
-        """The ``n``-step device-resident sweep call over the runner's step."""
+        """The ``n``-step device-resident sweep call over the runner's step;
+        over a mesh it takes the global index array and each rank its columns."""
+        if self.mesh is not None:
+            return make_sharded_train_sweep_step(self.model_diff, optimizer, self.betas,
+                                                 self.mesh, sweep=n, base_step=base_step)
         return make_train_sweep_step(self.model_diff, optimizer, self.betas, sweep=n,
                                      base_step=base_step)
 
@@ -314,7 +347,7 @@ class DiffposeRunner:
 
         # TSV training curve (reference common/log.py format)
         tsv = None
-        if self.log_dir is not None:
+        if self.log_dir is not None and is_main_rank():
             from diffpose_tpu_torch.utils.tsv_logger import Logger as TsvLogger
 
             path = os.path.join(self.log_dir, "log.tsv")
@@ -328,6 +361,8 @@ class DiffposeRunner:
         # device once; each call carries only a [sweep, B] index array.
         use_sweep = self.train_sweep > 1 and self._supports_train_sweep()
         if use_sweep:
+            # the global index arrays: a sharded sweep takes its rank's columns itself
+            index_loader = self._make_loader(self.train_data, shuffle=True, keyed=False)
             data_dev = self._device_train_data()
             sweep_fn = self._build_sweep_fn(optimizer, self.train_sweep, step_fn)
             tail = steps_per_epoch % self.train_sweep
@@ -345,7 +380,7 @@ class DiffposeRunner:
             # collected and read once at epoch end: no per-step sync.
             step_losses = []
             if use_sweep:
-                idx_all = list(loader.epoch_indices(epoch))
+                idx_all = list(index_loader.epoch_indices(epoch))
                 for start in range(0, len(idx_all), self.train_sweep):
                     group = np.stack(idx_all[start:start + self.train_sweep])
                     fn = sweep_fn if group.shape[0] == self.train_sweep else tail_fn
@@ -368,9 +403,12 @@ class DiffposeRunner:
             )
 
             if self.checkpointer is not None:
-                self.checkpointer.save(
-                    int(self.state.step), self.state, pose_params=self.pose_params
-                )
+                barrier()
+                if is_main_rank():
+                    self.checkpointer.save(
+                        int(self.state.step), self.state, pose_params=self.pose_params
+                    )
+                barrier()   # no rank reads a checkpoint before it is whole
 
             p1 = p2 = float("nan")
             if self.test_data is not None:
@@ -403,13 +441,26 @@ class DiffposeRunner:
             return fn
         self._eval_builds += 1
         t_cfg = self.config.testing
-        fn = make_eval_step(
-            self.model_diff, self.model_pose, self.betas, seq,
-            test_times=t_cfg.test_times, eta=self.eta, use_ema=self.use_ema_eval,
-            impl=self.denoiser_impl, device=self.device,
-        )
+        kwargs = dict(test_times=t_cfg.test_times, eta=self.eta, use_ema=self.use_ema_eval,
+                      impl=self.denoiser_impl, device=self.device)
+        if self.mesh is not None:
+            fn = make_sharded_eval_step(
+                self.model_diff, self.model_pose, self.betas, seq, self.mesh,
+                hyp_axis="hypothesis" if self._hyp.group is not None else None, **kwargs)
+        else:
+            fn = make_eval_step(self.model_diff, self.model_pose, self.betas, seq, **kwargs)
         self._eval_cache[key] = fn
         return fn
+
+    def _local_batch(self, batch: dict) -> dict:
+        """This rank's slice of a global eval batch (the batch itself without
+        a mesh)."""
+        return shard_batch(self.mesh, batch) if self.mesh is not None else batch
+
+    def _gathered(self, *per_sample: torch.Tensor):
+        """Every data rank's per-sample values of one batch, in the global
+        batch's order, as host arrays."""
+        return tuple(gather_rows(v, self._data).cpu().numpy() for v in per_sample)
 
     def evaluate(self, is_train: bool = False, state: Optional[TrainState] = None) -> Tuple[float, float]:
         assert self.model_diff is not None and self.model_pose is not None
@@ -427,7 +478,7 @@ class DiffposeRunner:
             state = self.state
 
         was_training = self.model_diff.training
-        loader = self._make_loader(self.test_data, shuffle=False)
+        loader = self._make_loader(self.test_data, shuffle=False, keyed=False)
         acc = ActionErrorAccumulator(
             self.test_data.actions,
             num_joints=self.config.model.n_pts,
@@ -448,10 +499,10 @@ class DiffposeRunner:
             if not group:
                 return
             t0 = time.time()
-            outs = [eval_fn(state, self.pose_params, b, self.generator, prepared=prepared)
-                    for b in group]
+            outs = [eval_fn(state, self.pose_params, self._local_batch(b), self.generator,
+                            prepared=prepared) for b in group]
             sync()
-            results = [(p1.cpu().numpy(), p2.cpu().numpy()) for p1, p2, _ in outs]
+            results = [self._gathered(p1, p2) for p1, p2, _ in outs]
             self.inference_times.append(time.time() - t0)
             for b, (p1_b, p2_b) in zip(group, results):
                 acc.add(b, p1_b, p2_b)

@@ -12,7 +12,7 @@ through the train kernel pair (``ops/fused_video_train.py``);
 kernel row 3, temporal blocks as torch operations), ``"fused_st"`` (row 3
 and row 10), ``"fused_full"`` (one launch of row 9 a layer), or
 ``"module"``.  A device mesh, and with it data and context parallelism, has
-no counterpart yet: it raises (ROADMAP queue 1 item 12).
+no counterpart yet: it raises (ROADMAP queue 1 item 12c).
 """
 
 from __future__ import annotations
@@ -69,8 +69,8 @@ class VideoRunner:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "a device mesh (data or context parallelism) needs the torch.distributed port "
-                "of diffpose_tpu/parallel (ROADMAP queue 1 item 12), which is not written yet")
+                "a device mesh (data or context parallelism) needs the video family's sharded "
+                "steps (ROADMAP queue 1 item 12c), which are not written yet")
         for name, value, allowed in (("denoiser_impl", denoiser_impl, VIDEO_DENOISER_IMPLS),
                                      ("train_impl", train_impl, TRAIN_IMPLS),
                                      ("dropout_impl", dropout_impl, DROPOUT_IMPLS)):

@@ -5,7 +5,7 @@ GMM-diffusion objective applied per frame of ``[B, F, J, …]`` windows, with
 one diffusion timestep per *window* (the whole window is noised
 coherently), the ε-MSE summed over frames, joints and coordinates and
 averaged over windows.  Data and context parallelism (``data_axis``,
-``cp_axis``) have no counterpart yet: they raise (ROADMAP queue 1 item 12).
+``cp_axis``) have no counterpart yet: they raise (ROADMAP queue 1 item 12c).
 
 As in ``train/steps.py`` the train step splits in ``draw(batch, generator)``
 and ``apply(state, draws)``; the state's model, optimizer and EMA shadow are
@@ -47,8 +47,8 @@ from diffpose_tpu_torch.train.steps import DROPOUTS, IMPLS, _INT32_MAX, _INT32_M
 def _no_mesh_axes(data_axis, cp_axis):
     if data_axis is not None or cp_axis is not None:
         raise NotImplementedError(
-            "data_axis / cp_axis need the torch.distributed port of diffpose_tpu/parallel "
-            "(ROADMAP queue 1 item 12), which is not written yet")
+            "data_axis / cp_axis need the video family's sharded steps (ROADMAP queue 1 "
+            "item 12c), which are not written yet")
 
 
 class VideoDraws(NamedTuple):

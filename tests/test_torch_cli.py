@@ -117,9 +117,19 @@ def test_ni_overwrites_an_existing_run(tmp_path):
 @pytest.mark.parametrize("flag", [["--data_parallel"], ["--hypothesis_parallel", "2"]],
                          ids=["data_parallel", "hypothesis_parallel"])
 def test_mesh_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        main_frame.main(["--config", GT, "--exp", str(tmp_path), "--doc", "t", "--ni",
-                         "--synthetic_frames", "32", "--device", "cpu"] + flag)
+    """The mesh flags in a world of one rank (no launcher): --data_parallel
+    trains over a 1-rank data mesh; --hypothesis_parallel 2 raises, as the
+    world does not divide by 2.  Either way the process group is left."""
+    args = ["--config", GT, "--exp", str(tmp_path), "--doc", "t", "--ni",
+            "--synthetic_frames", "32", "--batch_size", "16", "--device", "cpu"] + flag
+    if flag == ["--data_parallel"]:
+        assert main_frame.main(args + ["--train", "--n_epochs", "1"]) == 0
+        assert len((tmp_path / "t" / "log.tsv").read_text().splitlines()) == 2
+        assert (tmp_path / "t" / "ckpt_00000002.pth").exists()
+    else:
+        with pytest.raises(ValueError, match="1 ranks not divisible by hypothesis_parallel=2"):
+            main_frame.main(args)
+    assert not torch.distributed.is_initialized()
 
 
 def test_unported_tiers_fail_the_run_and_the_default_device_is_the_card(tmp_path, monkeypatch):

@@ -224,5 +224,16 @@ def test_cli_without_use_implicit_runs_the_frame_family_and_compare_runs_both(tm
 @pytest.mark.parametrize("flag", [["--data_parallel"], ["--hypothesis_parallel", "2"]],
                          ids=["data_parallel", "hypothesis_parallel"])
 def test_mesh_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        main_implicit.main(_cli(tmp_path, "--doc", "t", "--use_implicit", *flag))
+    """The mesh flags in a world of one rank (no launcher): --data_parallel
+    trains the implicit model over a 1-rank data mesh; --hypothesis_parallel
+    2 raises, as the world does not divide by 2.  Either way the process
+    group is left."""
+    args = _cli(tmp_path, "--doc", "t", "--use_implicit", *flag)
+    if flag == ["--data_parallel"]:
+        assert main_implicit.main(args + ["--train", "--n_epochs", "1"]) == 0
+        log = (tmp_path / "t" / "stdout.txt").read_text()
+        assert "mean fp iterations" in log and (tmp_path / "t" / "ckpt_00000002.pth").exists()
+    else:
+        with pytest.raises(ValueError, match="1 ranks not divisible by hypothesis_parallel=2"):
+            main_implicit.main(args)
+    assert not torch.distributed.is_initialized()

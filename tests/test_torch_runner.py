@@ -120,7 +120,7 @@ def test_second_evaluate_builds_nothing_and_is_deterministic():
 
 
 @pytest.mark.parametrize("variants,exc,match", [
-    ([dict(mesh=object())], NotImplementedError, "item 12"),
+    ([dict(mesh=object())], TypeError, "DeviceMesh"),
     ([dict(kernel_precision="bf16"), dict(kernel_precision="default")],
      NotImplementedError, "f32 grade"),
     ([dict(train_matmul_precision="BF16_BF16_F32_X3"), dict(eval_matmul_precision="default")],
