@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port on one GPU and check it: for the frame, implicit
 and video families the eval and training functions, every kernel, and the
 command line over the runner; the standalone GraFormer's eval forward; the
-two probes; the frame and implicit families' sharded steps and command line
-over ``torch.distributed``.
+two probes; the three families' sharded steps and command lines over
+``torch.distributed``, and the port's multi-rank dry run.
 
 Run from the root of a checkout, on a host with one NVIDIA H100:
 
@@ -219,6 +219,35 @@ seeded IGCN, damped 20/10, B=512):
     one epoch of 4096 synthetic frames at B=1024: rc 0, one ``log.tsv``
     row, the checkpoint written once.
 
+The video family over ``torch.distributed`` at the width of
+``configs/human36m_video.yml`` (seeded init, 16 windows of 81 frames a step):
+
+28. a world of 1 rank over nccl on a (1, 1) data x context mesh: the fused
+    train step with seeded dropout (rows 7-8, over the data axis) for 2
+    steps, and the eval with ``fused`` (row 3, over both axes: the keys and
+    values gathered), ``fused_st`` (rows 3 and 10) and ``fused_full`` (row
+    9; both over the data axis) equal the unsharded step and eval bit for
+    bit; each timed sharded and unsharded by turns, and its collectives
+    alone (the train step's one ``all_reduce``, the context eval's 8
+    gathers);
+29. a world of 2 ranks over gloo on cuda:0, data 2 (8 windows a rank): the
+    fused train step with explicit masks (rows 5-6) and with seeded dropout
+    (rows 7-8) against ``worker.video_reference`` (the single-process step on
+    the joined draws: the same kernels, or the plain stack over the seeds'
+    masks), within phase 6's limits and parameters within 2e-4; the three
+    fused evals against the single-process eval of the whole batch (P1 and
+    pred within 1e-6, P2 within 1e-5); each kernel's launches on each rank;
+30. a world of 3 ranks over gloo on cuda:0, context 3 (27 frames a rank, 16
+    windows): the module train step (dropout 0, the keys and values gathered
+    under autograd) and the fused eval (row 3 on 432 rows a launch) against
+    the reference, as in 29; ``main_video --context_parallel 3`` inside that
+    world (rc 0, the checkpoint by rank 0 alone); then ``torchrun
+    --nproc_per_node 1 -m diffpose_tpu_torch.cli.main_video --data_parallel
+    --context_parallel 1`` (nccl);
+31. ``dryrun_multichip(4)`` (``diffpose_tpu_torch/dryrun.py``) over gloo on
+    cuda:0: every parallel path of the three families, each held to its
+    single-process reference, and its OK line.
+
 Each family's wall seconds are printed.
 
 The line before the last holds the kernels' JSON record, the last line
@@ -382,6 +411,8 @@ PAR_IMPLICIT_SOLVE = ("damped", 20, 10)   # phase 14's well-conditioned train so
 PAR_IMPLICIT_EVAL_ITERS = 20              # phase 13's damped eval solve at a fixed count
 PAR_CLI_FRAMES = 4096                     # 4 steps of B=1024
 PAR_TIMEOUT = 300                         # seconds a world may take
+PAR_VIDEO_STEPS = 2                       # video train steps in phases 28-30
+TOL_VIDEO_LOSS = 1e-6                     # relative, a sharded video step's loss against the reference
 
 
 def check(ok: bool, msg: str):
@@ -2262,17 +2293,19 @@ def parallel_spec(diff, pose, basis, gen) -> dict:
         implicit_dropout="prng")
 
 
-def run_world(spec: dict, world: int, what: str):
-    """Spawn ``world`` ranks of ``parallel/worker.py`` over ``spec`` (the frame
-    and implicit tasks); any rank's failure fails the run.  Returns the
-    ranks' results and the seconds the world took."""
+def run_world(spec: dict, world: int, what: str,
+              tasks=("frame", "implicit", "cli_frame", "cli_implicit")):
+    """Spawn ``world`` ranks of ``parallel/worker.py`` over ``spec`` running
+    ``tasks``; any rank's failure fails the run.  Returns the ranks' results
+    and the seconds the world took."""
     out = Path(tempfile.mkdtemp(prefix="chip_smoke_world_"))
     torch.save(dict(spec, exp=str(out / "exp")), out / "spec.pth")
+    argv = ["--spec", str(out / "spec.pth"), "--out", str(out)]
+    for task in tasks:
+        argv += ["--task", task]
     t0 = time.perf_counter()
     try:
-        worker.spawn(world, ["--spec", str(out / "spec.pth"), "--out", str(out), "--task", "frame",
-                             "--task", "implicit", "--task", "cli_frame", "--task",
-                             "cli_implicit"], out / "logs", timeout=PAR_TIMEOUT)
+        worker.spawn(world, argv, out / "logs", timeout=PAR_TIMEOUT)
     except RuntimeError as e:
         check(False, f"{what}: {e}")
     secs = time.perf_counter() - t0
@@ -2281,7 +2314,8 @@ def run_world(spec: dict, world: int, what: str):
     return ranks, secs
 
 
-def held_steps(ranks, ref, tag: str, steps: int, exact: bool, implicit: bool = False):
+def held_steps(ranks, ref, tag: str, steps: int, exact: bool, implicit: bool = False,
+               loss_rel: float = TOL_STEP_LOSS):
     """The ranks' train steps against the single-process reference: bit for
     bit (``exact``), else loss within TOL_STEP_LOSS and the gradient norm
     within TOL_STEP_GRAD_NORM relative, every gradient entry within
@@ -2311,7 +2345,7 @@ def held_steps(ranks, ref, tag: str, steps: int, exact: bool, implicit: bool = F
     for k in (k for k in keys if k.startswith(f"{tag}/params/")):
         check(all(np.array_equal(r[k], ranks[0][k]) for r in ranks), f"{tag}: ranks' {k} differ")
     if not exact:
-        check(worst["loss"] <= TOL_STEP_LOSS and worst["grad_norm"] <= TOL_STEP_GRAD_NORM
+        check(worst["loss"] <= loss_rel and worst["grad_norm"] <= TOL_STEP_GRAD_NORM
               and worst["grad"] < GRAD_REL and worst["params"] <= TOL_PIPELINE
               and worst["bn"] <= TOL_BN, f"{tag} against the single-process step: {worst}")
     return worst
@@ -2483,6 +2517,203 @@ def parallel_phases(dev, diff, pose, basis, gen, card):
     return launches
 
 
+def video_parallel_spec(basis, gen) -> dict:
+    """The video family's sharded steps at the published width of
+    ``configs/human36m_video.yml`` (hid 96, 4 layers, 4 heads, 81 frames, 16
+    windows a step) with a seeded init: PAR_VIDEO_STEPS train steps, one eval
+    batch of 16 windows (2-step DDIM); the meshes are the phases'."""
+    model = seeded_video(basis, "cpu", gen, VIDEO_FRAMES)
+    data = synthetic_video_dataset(PAR_VIDEO_STEPS * VIDEO_BATCH, VIDEO_FRAMES, seed=SEED + 8)
+    return dict(device="cuda", backend="nccl", lr=TRAIN_LR, eps=1e-8, seed=SEED + 10,
+                video=dict(cfg=dict(frames=VIDEO_FRAMES, hid_dim=96, num_layers=4, num_heads=4),
+                           state={k: v.detach().cpu() for k, v in model.state_dict().items()},
+                           batch=VIDEO_BATCH, steps=PAR_VIDEO_STEPS,
+                           data={"poses_3d": data.poses_3d, "poses_2d_gmm": data.poses_2d_gmm},
+                           eval=dict(batch=video_windows(VIDEO_BATCH, VIDEO_FRAMES, SEED + 9),
+                                     test_times=1)))
+
+
+def held_video_steps(ranks, ref, m: dict, impl: str, dropout: str, exact: bool,
+                     loss_rel: float = TOL_VIDEO_LOSS):
+    """A video path's train steps against the single-process step on the
+    joined draws: bit for bit (``exact``), else loss within ``loss_rel`` and
+    the gradient norm within TOL_STEP_GRAD_NORM relative, every gradient entry
+    within GRAD_ABS / GRAD_REL, the parameters within TOL_PIPELINE; every
+    rank's parameters equal.  Returns the worst errors."""
+    part, _, _ = worker.video_part(ranks, m, impl, train=True)
+    return held_steps(part, ref, f"video/{m['name']}/train/{impl}-{dropout}",
+                      PAR_VIDEO_STEPS, exact=exact, loss_rel=loss_rel)
+
+
+def held_video_eval(ranks, ref, m: dict, impl: str, limits=(TOL_PIPELINE,) * 3):
+    """A video eval's ``[B_local, F_local]`` blocks joined against the
+    single-process eval of the whole batch within ``limits`` (P1, P2, pred;
+    all 0: bit for bit) and, where only the windows are split, bit for bit
+    against the single-process eval of each rank's windows alone (the torch
+    products around the kernels round differently at another batch size, and
+    the Procrustes alignment of P2 amplifies it).  Returns the errors
+    against the whole batch."""
+    part, d, c = worker.video_part(ranks, m, impl, train=False)
+    errs = {}
+    for key, tol in zip(("p1", "p2", "pred"), limits):
+        tag = f"video/{m['name']}/eval/{impl}/{key}"
+        got = worker.join_blocks([r[tag] for r in part], d, c)
+        check(got.shape == ref[tag].shape and bool(np.isfinite(got).all()),
+              f"{tag}: shape {got.shape} or non-finite values")
+        if f"{tag}_shards" in ref:
+            check(np.array_equal(got, ref[f"{tag}_shards"]),
+                  f"{tag}: not bit-equal to the single-process eval of each rank's windows")
+        errs[key] = float(np.abs(got - ref[tag]).max())
+        check(errs[key] <= tol, f"{tag}: max|Δ| {errs[key]:.3e} against the single-process eval "
+              f"of the whole batch (limit {tol})")
+    return errs
+
+
+def video_launch_counts(ranks, m: dict, what: str) -> dict:
+    """Each rank's kernel launches on each video path of mesh spec ``m``,
+    checked against what the path makes: a fused train step one forward and
+    one backward launch a layer, a fused eval one row-3 launch a layer and
+    DDIM step (and one of row 10 with ``fused_st``), ``fused_full`` one of row
+    9; the module step none.  Returns rank 0's by path."""
+    layers, n = 4, len(SEQ)
+    want = {("fused", "masks"): {"fwd": layers * PAR_VIDEO_STEPS, "bwd": layers * PAR_VIDEO_STEPS},
+            ("fused", "prng"): {"fwd_prng": layers * PAR_VIDEO_STEPS,
+                                "bwd_prng": layers * PAR_VIDEO_STEPS},
+            ("module", "masks"): {},
+            "fused": {"backbone": layers * n}, "fused_st": {"backbone": layers * n,
+                                                            "temporal": layers * n},
+            "fused_full": {"st": layers * n}}
+    paths = [(f"train/{i}-{d}", (i, d)) for i, d in m.get("train", ())]
+    paths += [(f"eval/{i}", i) for i in m.get("eval", ())]
+    out = {}
+    for r, res in enumerate(ranks):
+        for tag, key in paths:
+            got = {k: int(res[f"video/{m['name']}/{tag}/launches/{k}"]) for k in worker.COUNTERS}
+            expect = {k: want[key].get(k, 0) for k in worker.COUNTERS}
+            check(got == expect, f"{what} rank {r} {tag} launches {got}, expected {expect}")
+            if r == 0:
+                out[f"video {m['name']} {tag}"] = got
+    return out
+
+
+def video_parallel_phases(dev, basis, gen, card):
+    """Phases 28-31: the video family's sharded steps at full width in a world
+    of 1 rank over nccl, of 2 ranks (data) and of 3 (context) over gloo on
+    cuda:0, the command line under the mesh and under torchrun, then
+    ``dryrun_multichip(4)``.  Returns each kernel's launches on rank 0 of the
+    2- and 3-rank worlds, by path."""
+    from diffpose_tpu_torch.dryrun import dryrun_multichip
+
+    spec = video_parallel_spec(basis, gen)
+    launches = {}
+    secs = {}
+
+    # 28. one rank, nccl, a (1, 1) data x context mesh: bit for bit the unsharded steps
+    t0 = time.perf_counter()
+    grid = dict(name="grid1", sizes=(1, 1), names=("data", "context"),
+                train=[("fused", "prng")], eval=["fused", "fused_st", "fused_full"])
+    one = dict(spec, time=True, video=dict(spec["video"], meshes=[grid]))
+    ranks, _ = run_world(one, 1, "video, world of 1 rank over nccl", tasks=("video",))
+    ref = worker.video_reference(one, ranks, dev)
+    res = ranks[0]
+    held_video_steps(ranks, ref, grid, "fused", "prng", exact=True)
+    tag = "video/grid1/train/fused-prng"
+    print(f"world 1 (nccl, (1, 1) data x context) video train fused prng (rows 7-8, over data): "
+          f"{PAR_VIDEO_STEPS} sharded steps of {VIDEO_BATCH}x{VIDEO_FRAMES} bit-equal to the "
+          f"unsharded steps; a step {pair_ms(res, tag)}  [{card}]")
+    for impl in grid["eval"]:
+        held_video_eval(ranks, ref, grid, impl, limits=(0.0, 0.0, 0.0))
+        axes = "data x context" if impl == "fused" else "data"
+        print(f"world 1 (nccl) video eval {impl} ({axes}) {VIDEO_BATCH}x{VIDEO_FRAMES}: bit-equal "
+              f"to the unsharded eval; {pair_ms(res, f'video/grid1/eval/{impl}')}  [{card}]")
+    video_launch_counts(ranks, grid, "world 1")
+    secs[28] = time.perf_counter() - t0
+    print(f"phase 28: {secs[28]:.1f} s")
+
+    # 29. two ranks, gloo, both on cuda:0 (an explicit choice: NCCL takes one rank a card)
+    t0 = time.perf_counter()
+    data2 = dict(name="data2", sizes=(2,), names=("data",),
+                 train=[("fused", "masks"), ("fused", "prng")],
+                 eval=["fused", "fused_st", "fused_full"])
+    two = dict(spec, device="cuda:0", backend="gloo", video=dict(spec["video"], meshes=[data2]))
+    ranks, _ = run_world(two, 2, "video, world of 2 ranks over gloo on cuda:0", tasks=("video",))
+    ref = worker.video_reference(two, ranks, dev)
+    for impl, dropout in data2["train"]:
+        w = held_video_steps(ranks, ref, data2, impl, dropout, exact=False)
+        what = ("the same kernels" if dropout == "masks"
+                else "the plain stack over the seeds' masks")
+        print(f"world 2 (gloo, cuda:0) video train {impl}-{dropout}: {PAR_VIDEO_STEPS} steps of "
+              f"{VIDEO_BATCH // 2}x{VIDEO_FRAMES} a rank against {what} on the joined draws: rel "
+              f"loss {w['loss']:.2e}, grad norm {w['grad_norm']:.2e}, worst gradient "
+              f"{w['grad']:.2e}, params {w['params']:.2e}")
+    for impl in data2["eval"]:
+        errs = held_video_eval(ranks, ref, data2, impl)
+        print(f"world 2 video eval {impl}: max|Δ| p1 {errs['p1']:.2e} p2 {errs['p2']:.2e} pred "
+              f"{errs['pred']:.2e}")
+    launches.update(video_launch_counts(ranks, data2, "world 2"))
+    secs[29] = time.perf_counter() - t0
+    print(f"phase 29: {secs[29]:.1f} s")
+
+    # 30. three ranks, gloo on cuda:0, context 3 (81 frames split into 3, 9, 27 or 81
+    # parts): 27 frames a rank, the keys and values gathered; then main_video inside it
+    t0 = time.perf_counter()
+    ctx3 = dict(name="context3", sizes=(3,), names=("context",), train=[("module", "masks")],
+                eval=["fused"])
+    three = dict(spec, device="cuda:0", backend="gloo",
+                 video=dict(spec["video"], meshes=[ctx3],
+                            cli=dict(frames=VIDEO_FRAMES, windows=VIDEO_BATCH, batch=VIDEO_BATCH,
+                                     flags=["--context_parallel", "3"])))
+    ranks, _ = run_world(three, 3, "video, world of 3 ranks over gloo on cuda:0",
+                         tasks=("video", "cli_video"))
+    ref = worker.video_reference(three, ranks, dev)
+    w = held_video_steps(ranks, ref, ctx3, "module", "masks", exact=False)
+    print(f"world 3 (gloo, cuda:0, context 3) video train module (dropout 0, K/V gathered): "
+          f"{PAR_VIDEO_STEPS} steps of {VIDEO_BATCH}x{VIDEO_FRAMES // 3} a rank against the "
+          f"unsharded step on the joined draws: rel loss {w['loss']:.2e}, grad norm "
+          f"{w['grad_norm']:.2e}, worst gradient {w['grad']:.2e}, params {w['params']:.2e}")
+    errs = held_video_eval(ranks, ref, ctx3, "fused")
+    print(f"world 3 video eval fused (row 3 on {VIDEO_BATCH * VIDEO_FRAMES // 3} rows a launch, "
+          f"K/V gathered): max|Δ| p1 {errs['p1']:.2e} p2 {errs['p2']:.2e} pred {errs['pred']:.2e}")
+    launches.update(video_launch_counts(ranks, ctx3, "world 3"))
+    rcs = [[int(r[f"cli_video/{run}/rc"]) for r in ranks] for run in ("train", "eval")]
+    saves = [int(r["cli_video/train/saves"]) for r in ranks]
+    check(rcs == [[0] * 3] * 2 and saves == [1, 0, 0], f"world 3 main_video --context_parallel 3: "
+          f"return codes {rcs}, saves {saves}")
+    print(f"world 3 main_video --context_parallel 3 (train 1 epoch, eval-only of its checkpoint, "
+          f"--denoiser_impl fused): rc 0 on every rank, checkpoint by rank 0 alone")
+    secs[30] = time.perf_counter() - t0
+
+    exp = Path(tempfile.mkdtemp(prefix="chip_smoke_torchrun_video_"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           "-m", "diffpose_tpu_torch.cli.main_video", "--config", VIDEO_CONFIG, "--exp", str(exp),
+           "--doc", "vdp", "--ni", "--train", "--n_epochs", "1", "--synthetic_windows",
+           str(VIDEO_BATCH), "--batch_size", str(VIDEO_BATCH), "--denoiser_impl", "fused",
+           "--data_parallel", "--context_parallel", "1"]
+    t1 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=PAR_TIMEOUT,
+                          cwd=Path(__file__).resolve().parent)
+    check(proc.returncode == 0, f"torchrun main_video --data_parallel --context_parallel 1: rc "
+          f"{proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    files = sorted(f.name for f in (exp / "vdp").iterdir())
+    log = (exp / "vdp" / "stdout.txt").read_text()
+    check(files == ["ckpt_00000001.pth", "config.yml", "stdout.txt"] and "| Epoch 0000 |" in log,
+          f"torchrun main_video: files {files}")
+    print(f"torchrun --nproc_per_node 1 main_video --train --data_parallel --context_parallel 1 "
+          f"({VIDEO_BATCH} windows, 1 epoch): rc 0, files {files}, "
+          f"{time.perf_counter() - t1:.1f} s")
+    shutil.rmtree(exp)
+    secs[30] = time.perf_counter() - t0
+    print(f"phase 30: {secs[30]:.1f} s")
+
+    # 31. the port's dry run over 4 ranks, gloo on cuda:0
+    t0 = time.perf_counter()
+    line = dryrun_multichip(4, device="cuda:0", backend="gloo", timeout=PAR_TIMEOUT)
+    check(line.startswith("dryrun_multichip OK"), f"dryrun_multichip(4): {line}")
+    secs[31] = time.perf_counter() - t0
+    print(f"phase 31: {secs[31]:.1f} s  [{card}]")
+    return launches, secs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
@@ -2643,6 +2874,8 @@ def main() -> int:
     row12 = attention_probe_phases(card)
     t_parallel = time.perf_counter()
     par_launches = parallel_phases(dev, diff, pose, basis, gen, card)
+    t_video_parallel = time.perf_counter()
+    video_launches, video_secs = video_parallel_phases(dev, basis, gen, card)
     t_end = time.perf_counter()
     video = video_runs["train"]
     for rec, key in zip(prng_records, ("fwd_prng", "bwd_prng")):
@@ -2666,20 +2899,23 @@ def main() -> int:
     kernels.append(dict(row10, launches=video_runs["fused_st"]["temporal"],
                         main_path="main_video eval-only --denoiser_impl fused_st"))
     kernels += [row4, row11, row12]
-    # each kernel's launches on one rank of phase 26's 2-rank world, by step
+    # each kernel's launches on one rank of phase 26's 2-rank world, by step, and of
+    # phases 29-30's video worlds, by path
     counter = {"net_kernel[lifter]": "lifter", "net_kernel[denoiser]": "denoiser",
                "net_kernel[backbone]": "backbone", "train_kernel[fwd]": "fwd",
                "train_kernel[bwd]": "bwd", "train_kernel[fwd,prng]": "fwd_prng",
-               "train_kernel[bwd,prng]": "bwd_prng"}
+               "train_kernel[bwd,prng]": "bwd_prng", "video_kernel[st_layer]": "st",
+               "video_kernel[temporal]": "temporal"}
     for rec in kernels:
         if rec["name"] in counter:
             k = counter[rec["name"]]
-            rec["sharded_launches_per_rank"] = {tag: n[k] for tag, n in par_launches[0].items()
-                                                if n[k]}
+            rec["sharded_launches_per_rank"] = {
+                tag: n[k] for tag, n in {**par_launches[0], **video_launches}.items() if n[k]}
     print(f"wall seconds by family: frame (phases 1-11, build included) {t_implicit - t_start:.1f}, "
           f"implicit (12-16) {t_video - t_implicit:.1f}, video (17-21) {t_graformer - t_video:.1f}, "
           f"GraFormer and probes (22-24) {t_parallel - t_graformer:.1f}, parallelism (25-27) "
-          f"{t_end - t_parallel:.1f}")
+          f"{t_video_parallel - t_parallel:.1f}, video parallelism and the dry run (28-31) "
+          f"{t_end - t_video_parallel:.1f} (by phase {video_secs})")
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -3,10 +3,14 @@
 cuda`` unless told ``--device cpu``.
 
 The frame CLI's flags, plus ``--frames`` (window length) and
-``--synthetic_windows``.  ``--context_parallel``, ``--data_parallel`` and
-``--hypothesis_parallel`` need the video family's sharded steps (ROADMAP
-queue 1 item 12c) and raise.  ``--model_diff_path`` loads a checkpoint ``.pth`` of this CLI for
-an eval-only run.
+``--synthetic_windows``.  ``--data_parallel`` shards the windows over every
+rank of the job, ``--context_parallel N`` each window's frames over N ranks,
+and both together give a ``(world // N, N)`` data x context mesh (one
+process a rank, launched as the frame CLI's mesh flags are: ``torchrun``,
+nccl over ``--device cuda``, gloo over ``--device cpu``; without a launcher a
+world of one rank).  ``--hypothesis_parallel`` has no video counterpart (the
+JAX CLI ignores it) and is refused.  ``--model_diff_path`` loads a checkpoint
+``.pth`` of this CLI for an eval-only run.
 
 Train, resume, eval-only (no dataset files needed):
     python -m diffpose_tpu_torch.cli.main_video --config configs/human36m_video.yml \\
@@ -16,20 +20,29 @@ Train, resume, eval-only (no dataset files needed):
     python -m diffpose_tpu_torch.cli.main_video --config configs/human36m_video.yml \\
         --doc eval1 --ni --synthetic_windows 128 --denoiser_impl fused_st \\
         --model_diff_path exp/run1/ckpt_<step>.pth
+Data x context parallel over four GPUs (2 x 2; the module train step, the
+fused eval forward):
+    torchrun --nproc_per_node 4 -m diffpose_tpu_torch.cli.main_video \
+        --config configs/human36m_video.yml --doc run2 --train --ni --synthetic_windows 128 \
+        --data_parallel --context_parallel 2 --denoiser_impl fused
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import sys
 import traceback
+
+import torch
 
 from diffpose_tpu_torch.cli.common import (
     add_common_flags,
     resolve_impl,
     setup_experiment,
 )
+from diffpose_tpu_torch.parallel.mesh import barrier
 
 
 def parse_args(argv=None):
@@ -39,21 +52,63 @@ def parse_args(argv=None):
     parser.add_argument("--frames", type=int, default=None,
                         help="override video.frames (window length, e.g. 81/243)")
     parser.add_argument("--context_parallel", type=int, default=0, metavar="N",
-                        help="shard the frame axis over N devices (not ported yet: raises, "
-                        "ROADMAP item 12c)")
+                        help="shard the frame axis over N ranks (a context mesh axis; the "
+                        "world must be N ranks, or divide by N with --data_parallel for a "
+                        "(world // N, N) data x context mesh)")
     parser.add_argument("--synthetic_windows", default=0, type=int,
                         help="use a synthetic dataset of N windows (smoke runs)")
     return parser.parse_args(argv)
 
 
+@contextlib.contextmanager
+def video_mesh(args):
+    """The mesh the flags ask for (``diffpose_tpu/cli/main_video.py:32-47``),
+    or None, for the body of a ``with``: ``--data_parallel`` a 1-D data mesh
+    over the world, ``--context_parallel N`` a 1-D context mesh of N ranks (the
+    world), both a ``(world // N, N)`` data x context grid.  Joins the
+    process group first (``parallel.distributed_init``); a group joined here
+    is left again when the ``with`` ends."""
+    if args.hypothesis_parallel:
+        raise ValueError("--hypothesis_parallel: the video family has no hypothesis axis "
+                         "(its JAX CLI ignores the flag); use --data_parallel and "
+                         "--context_parallel")
+    cp = args.context_parallel
+    if not args.data_parallel and cp <= 0:
+        yield None
+        return
+    import torch.distributed as dist
+
+    from diffpose_tpu_torch.parallel.mesh import distributed_init, distributed_shutdown, make_mesh
+
+    joined = not dist.is_initialized()
+    _, world = distributed_init(device=args.device)
+    device_type = torch.device(args.device).type
+    try:
+        if args.data_parallel and cp > 0:
+            if world % cp:
+                raise ValueError(f"{world} ranks not divisible by context_parallel={cp}")
+            yield make_mesh((world // cp, cp), ("data", "context"), device_type=device_type)
+        elif args.data_parallel:
+            yield make_mesh(device_type=device_type)
+        else:
+            if world != cp:
+                raise ValueError(f"--context_parallel {cp} alone takes a world of {cp} ranks, "
+                                 f"not {world} (add --data_parallel for a data x context grid)")
+            yield make_mesh((cp,), ("context",), device_type=device_type)
+    finally:
+        if joined:
+            distributed_shutdown()
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.context_parallel > 0 or args.data_parallel or args.hypothesis_parallel:
-        raise NotImplementedError(
-            "--context_parallel, --data_parallel and --hypothesis_parallel of the video family "
-            "need its sharded steps and the K/V all-gather (ROADMAP queue 1 item 12c), which "
-            "are not written yet")
+    with video_mesh(args) as mesh:     # before the log dir: only rank 0 writes it
+        return _run(args, mesh)
+
+
+def _run(args, mesh) -> int:
     config = setup_experiment(args)
+    barrier()   # every rank sees the log dir rank 0 made
 
     from diffpose_tpu_torch.config import VideoConfig
     from diffpose_tpu_torch.train.video_runner import VideoRunner
@@ -74,6 +129,9 @@ def main(argv=None) -> int:
             seed=args.seed,
             skip_type=args.skip_type,
             eta=args.eta,
+            mesh=mesh,
+            data_axis="data",
+            cp_axis="context" if args.context_parallel > 0 else None,
             log_dir=args.log_path,
             use_ema_eval=args.use_ema_eval,
             denoiser_impl=resolve_impl(args.denoiser_impl),

@@ -15,8 +15,16 @@ then ``num_layers`` alternations of
 
 and a per-frame output ChebConv.  ``x`` is ``[B, F, J, C]``, ``t`` ``[B]``.
 
-Dropout follows ``module.training``.  Context parallelism (``cp_axis``) has
-no counterpart yet: constructing with one raises (ROADMAP queue 1 item 12c).
+Dropout follows ``module.training``.
+
+Context parallelism: ``cp_axis`` names a mesh axis that shards every
+window's frames (``parallel/context.py``); it is a name, so the state dict
+is the same with or without it.  :meth:`SpatioTemporalDiff.bind_mesh` hands
+the module that axis of a ``DeviceMesh`` (its group, this rank's coordinate
+and its size); the forward then takes this rank's block of ``F / size``
+frames, adds the positional rows of that block and gathers the keys and
+values of the whole window in each temporal block.  Unbound, or with
+``cp_axis=None``, the module runs unsharded on whole windows.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from diffpose_tpu_torch.parallel.context import gather_frames
+from diffpose_tpu_torch.parallel.mesh import MeshAxis, mesh_axis
 from diffpose_tpu_torch.models.layers import (
     ChebGraphConv,
     GraAttenLayer,
@@ -39,25 +49,27 @@ from diffpose_tpu_torch.models.layers import (
 )
 
 
-def _no_context_axis(cp_axis):
-    if cp_axis is not None:
-        raise NotImplementedError(
-            f"cp_axis={cp_axis!r}: context parallelism (the K/V all-gather under autograd) "
-            "is not ported yet (ROADMAP queue 1 item 12c)")
+def unsharded(name: Optional[str] = "context") -> MeshAxis:
+    """The trivial axis: no group, coordinate 0, size 1."""
+    return MeshAxis(name, None, 0, 1)
 
 
 class TemporalAttention(nn.Module):
     """Multi-head attention over the frame axis of ``[N, F, D]`` rows.
 
-    At or above ``attention_chunk`` key frames (``> 0``) the eval path is
-    :func:`chunked_attention`; training keeps the materialised scores, whose
-    probabilities take the dropout (``diffpose_tpu/models/video.py:45-96``).
+    Under a bound context axis (``self.context``, set by
+    :meth:`SpatioTemporalDiff.bind_mesh`) the queries stay on the rank and the
+    keys and values are gathered over the axis (:func:`gather_frames`).  At
+    or above ``attention_chunk`` gathered key frames (``> 0``) the eval path
+    is :func:`chunked_attention`; training keeps the materialised scores,
+    whose probabilities take the dropout
+    (``diffpose_tpu/models/video.py:45-96``).
     """
 
     def __init__(self, dim: int, num_heads: int, dropout_rate: float = 0.1,
                  cp_axis: Optional[str] = None, attention_chunk: int = 256):
         super().__init__()
-        _no_context_axis(cp_axis)
+        self.cp_axis, self.context = cp_axis, unsharded(cp_axis)
         self.num_heads, self.attention_chunk = num_heads, attention_chunk
         self.q, self.k, self.v, self.out = (TorchDense(dim, dim) for _ in range(4))
         self.dropout = nn.Dropout(dropout_rate)
@@ -67,10 +79,13 @@ class TemporalAttention(nn.Module):
         dk = d // self.num_heads
 
         def split(y):
-            return y.reshape(n, f, self.num_heads, dk).transpose(1, 2)
+            return y.reshape(n, y.shape[1], self.num_heads, dk).transpose(1, 2)
 
-        q, k, v = split(self.q(x)), split(self.k(x)), split(self.v(x))
-        if self.attention_chunk > 0 and f >= self.attention_chunk and not self.training:
+        k, v = self.k(x), self.v(x)
+        if self.context.group is not None:    # keys and values side by side: one gather
+            k, v = gather_frames(torch.cat([k, v], dim=-1), self.context).split(d, dim=-1)
+        q, k, v = split(self.q(x)), split(k), split(v)
+        if self.attention_chunk > 0 and k.shape[2] >= self.attention_chunk and not self.training:
             out = chunked_attention(q, k, v, chunk_size=self.attention_chunk)
         else:
             probs = self.dropout(torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(dk), dim=-1))
@@ -84,7 +99,8 @@ class TemporalBlock(nn.Module):
     def __init__(self, dim_model: int, num_heads: int, dropout_rate: float = 0.1,
                  cp_axis: Optional[str] = None, attention_chunk: int = 256):
         super().__init__()
-        self.attn = TemporalAttention(dim_model, num_heads, dropout_rate, cp_axis, attention_chunk)
+        self.attn = TemporalAttention(dim_model, num_heads, dropout_rate, cp_axis,
+                                      attention_chunk)
         self.norm1 = TorchStyleLayerNorm(dim_model)
         self.norm2 = TorchStyleLayerNorm(dim_model)
         self.ff1 = TorchDense(dim_model, 2 * dim_model)
@@ -104,6 +120,12 @@ class SpatioTemporalDiff(nn.Module):
     ``temb_dense_{0,1}``, ``gconv_input``, ``pos_embed``,
     ``spatial_atten_{i}``, ``spatial_res_{i}``, ``temporal_{i}``,
     ``gconv_output``.
+
+    ``cp_axis`` (a mesh axis name) reaches a ``DeviceMesh`` through
+    :meth:`bind_mesh`, not through ``forward``: DDIM, the eval steps and
+    autograd call the module as ``model(x, t, mask)`` and know nothing of
+    the mesh, and a process group is neither a parameter nor a buffer, so
+    the state dict stays the same.
     """
 
     def __init__(self, basis, frames: int, hid_dim: int = 96, coords_in: int = 5,
@@ -111,7 +133,7 @@ class SpatioTemporalDiff(nn.Module):
                  dropout_rate: float = 0.1, n_pts: int = 17, cp_axis: Optional[str] = None,
                  attention_chunk: int = 256):
         super().__init__()
-        _no_context_axis(cp_axis)
+        self.cp_axis, self.context = cp_axis, unsharded(cp_axis)
         self.frames, self.hid_dim, self.num_layers = frames, hid_dim, num_layers
         self.num_heads, self.dropout_rate, self.n_pts = num_heads, dropout_rate, n_pts
         self.coords_out, self.attention_chunk = coords_out, attention_chunk
@@ -128,7 +150,8 @@ class SpatioTemporalDiff(nn.Module):
             self.add_module(f"spatial_res_{i}",
                             ResChebGCDiff(hid_dim, hid_dim, basis, emd_dim, dropout_rate=0.1))
             self.add_module(f"temporal_{i}",
-                            TemporalBlock(hid_dim, num_heads, dropout_rate, None, attention_chunk))
+                            TemporalBlock(hid_dim, num_heads, dropout_rate, cp_axis,
+                                          attention_chunk))
         self.gconv_output = ChebGraphConv(hid_dim, coords_out, basis)
 
     def layer(self, i: int):
@@ -136,18 +159,37 @@ class SpatioTemporalDiff(nn.Module):
         return (getattr(self, f"spatial_atten_{i}"), getattr(self, f"spatial_res_{i}"),
                 getattr(self, f"temporal_{i}"))
 
+    def bind_mesh(self, mesh) -> "SpatioTemporalDiff":
+        """Shard the frames over ``mesh``'s ``cp_axis`` (this rank's coordinate
+        and the axis's group, ``parallel.mesh.mesh_axis``); ``mesh=None``, a
+        mesh without that axis or ``cp_axis=None`` unbinds."""
+        axis = mesh_axis(mesh, self.cp_axis) if self.cp_axis else unsharded(self.cp_axis)
+        self.context = axis
+        for i in range(self.num_layers):
+            self.layer(i)[2].attn.context = axis
+        return self
+
+    def frame_block(self, f_local: int) -> slice:
+        """The window's frames this rank holds, given their count: all of them
+        unsharded."""
+        c = self.context
+        if f_local * c.size != self.frames:
+            raise ValueError(f"the model takes {self.frames}-frame windows; {f_local} frames a "
+                             f"rank over {c.size} context ranks do not make one")
+        return slice(c.index * f_local, (c.index + 1) * f_local)
+
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """ε̂ for noisy windows ``x`` [B, F, J, C] at timesteps ``t`` [B]."""
+        """ε̂ for noisy windows ``x`` [B, F_local, J, C] (this rank's frames of
+        each window; all of them unsharded) at timesteps ``t`` [B]."""
         b, f, j, _ = x.shape
-        if f != self.frames:
-            raise ValueError(f"the model takes {self.frames}-frame windows, got {f}")
+        pos = self.pos_embed[self.frame_block(f)]
         temb = timestep_embedding(t, self.hid_dim).to(x.dtype)
         temb = self.temb_dense_1(F.silu(self.temb_dense_0(temb)))
         temb_f = temb.repeat_interleave(f, dim=0)                 # [B·F, emd]
 
         h = self.gconv_input(x.reshape(b * f, j, -1)).reshape(b, f, j, self.hid_dim)
-        h = h + self.pos_embed[None, :, None, :]
+        h = h + pos[None, :, None, :]
         for i in range(self.num_layers):
             atten, res, temporal = self.layer(i)
             hs = res(atten(h.reshape(b * f, j, self.hid_dim), mask), temb_f)

@@ -80,6 +80,7 @@ from diffpose_tpu_torch.ops.fused_denoiser import (
     timestep_projections,
 )
 from diffpose_tpu_torch.ops.tf32 import split_tf32
+from diffpose_tpu_torch.parallel.context import gather_frames
 
 Weights = Dict[str, Any]
 
@@ -233,26 +234,31 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def temporal_layer_plain(tw: Weights, ht: torch.Tensor, layer: int, *,
-                         attention_chunk: int = 0, matmul=None) -> torch.Tensor:
+                         attention_chunk: int = 0, matmul=None, context=None) -> torch.Tensor:
     """One eval-mode TemporalBlock on ``ht [N, F, H]`` from the stacks
     (q carries 1/√d_k), the function of row 10.  ``matmul=None``: f32, the
     module's arithmetic; ``attention_chunk > 0``: at or above that many
-    frames the attention goes through :func:`chunked_attention`, as the
-    module's does.  ``matmul`` given (``ops/tf32.py:matmul_3xtf32`` for the
+    (gathered) key frames the attention goes through :func:`chunked_attention`,
+    as the module's does.  ``matmul`` given (``ops/tf32.py:matmul_3xtf32`` for the
     kernels' tensor cores): the four channel products through it and the
-    attention as :func:`window_attention` computes it with it."""
+    attention as :func:`window_attention` computes it with it.  ``context``
+    (a ``MeshAxis``): ``ht`` holds this rank's frames of each window, and the
+    keys and values of the whole window are gathered over the axis
+    (``parallel/context.py:gather_frames``)."""
     l, heads = layer, tw["num_heads"]
     n, f, hid = ht.shape
     mm = torch.matmul if matmul is None else matmul
 
     def split(z):
-        return z.reshape(n, f, heads, -1).transpose(1, 2)
+        return z.reshape(n, z.shape[1], heads, -1).transpose(1, 2)
 
     y = _layer_norm(ht, tw["tln1s"][l], tw["tln1b"][l])
-    q, k, v = (split(z) for z in (mm(y, tw["twqkv"][l]) + tw["tbqkv"][l]).split(hid, dim=-1))
+    qkv = mm(y, tw["twqkv"][l]) + tw["tbqkv"][l]
+    kv = gather_frames(qkv[..., hid:], context)    # keys and values side by side: one gather
+    q, k, v = split(qkv[..., :hid]), *(split(z) for z in kv.split(hid, dim=-1))
     if matmul is not None:
         att = window_attention(q, k, v, matmul)
-    elif attention_chunk > 0 and f >= attention_chunk:
+    elif attention_chunk > 0 and k.shape[2] >= attention_chunk:
         att = chunked_attention(q, k, v, chunk_size=attention_chunk, scale=1.0)
     else:
         att = torch.softmax(q @ k.transpose(-1, -2), dim=-1) @ v
@@ -431,12 +437,14 @@ fused_temporal_layer.launches = 0
 fused_st_layer.launches = 0
 
 
-def embed(vw: Weights, x: torch.Tensor) -> torch.Tensor:
-    """Input ChebConv per frame plus the positional embedding: ``[B, F, J, H]``."""
+def embed(vw: Weights, x: torch.Tensor, frames: slice = slice(None)) -> torch.Tensor:
+    """Input ChebConv per frame plus the positional embedding's rows
+    ``frames`` (this rank's block of the window under context parallelism):
+    ``[B, F, J, H]``."""
     b, f, j, c = x.shape
     sw = vw["spatial"]
     h = _cheb(x.reshape(b * f, j, c), sw["win"], sw["bin"], sw["basis"]).reshape(b, f, j, -1)
-    return (h + vw["pos"][None, :, None, :]).contiguous()
+    return (h + vw["pos"][frames][None, :, None, :]).contiguous()
 
 
 def project_out(vw: Weights, h: torch.Tensor) -> torch.Tensor:
@@ -446,14 +454,25 @@ def project_out(vw: Weights, h: torch.Tensor) -> torch.Tensor:
     return _cheb(h.reshape(b * f, j, hid), sw["wout"], sw["bout"], sw["basis"]).reshape(b, f, j, -1)
 
 
+def whole_windows(model, what: str):
+    """Raise unless ``model``'s frames are unsharded: ``what`` owns whole
+    windows (``diffpose_tpu/train/video_runner.py:354-377``)."""
+    if model.context.size > 1:
+        raise ValueError(f"{what} owns whole windows; it does not compose with context "
+                         f"parallelism over {model.context.size} ranks (use the fused eval "
+                         "forward, row 3 a spatial block, under a context axis)")
+
+
 def make_video_full_fn(model):
     """Build ``fn(vw, x [B, F, J, 5], t [B]) → ε̂``: the eval forward of a
     ``SpatioTemporalDiff`` with every layer one launch of row 9 (the JAX
     default ``layers_per_call=1``); ``vw`` is :func:`prepare_video_weights`'
-    snapshot.  Counterpart of ``make_pallas_video_full_fn``."""
+    snapshot.  Counterpart of ``make_pallas_video_full_fn``.  Whole windows
+    only: under a context axis of more than one rank it raises."""
     frames, num_layers = model.frames, model.num_layers
 
     def fn(vw: Weights, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        whole_windows(model, "the fused_full eval forward (row 9)")
         if x.shape[1] != frames:
             raise ValueError(f"the model takes {frames}-frame windows, got {x.shape[1]}")
         tps = spatial_projections(vw["spatial"], t, frames)

@@ -7,7 +7,11 @@ from diffpose_tpu_torch.parallel.sharding import (
     shard_batch,
     make_sharded_train_step,
     make_sharded_eval_step,
+    make_sharded_video_eval_step,
+    make_sharded_video_train_step,
+    shard_windows,
 )
+from diffpose_tpu_torch.parallel.context import gather_frames, make_cp_video_forward
 
 __all__ = [
     "distributed_init",
@@ -17,4 +21,9 @@ __all__ = [
     "shard_batch",
     "make_sharded_train_step",
     "make_sharded_eval_step",
+    "make_sharded_video_train_step",
+    "make_sharded_video_eval_step",
+    "shard_windows",
+    "gather_frames",
+    "make_cp_video_forward",
 ]

@@ -4,7 +4,8 @@ Counterpart of ``diffpose_tpu/parallel/mesh.py``.  There one process drives
 every device of a host and a ``jax.sharding.Mesh`` names their axes; here
 each rank is a process of its own (``torchrun`` or a spawned worker), and a
 ``DeviceMesh`` (``torch.distributed.device_mesh.init_device_mesh``) lays the
-ranks out on named axes, ``data`` and optionally ``hypothesis``.  Each axis
+ranks out on named axes: ``data``, and optionally ``hypothesis`` (the frame
+and implicit evals) or ``context`` (the video family's frames).  Each axis
 has its process group (``mesh.get_group(name)``) and each rank its coordinate
 on it (:func:`mesh_axis`): the counterparts of an axis name inside
 ``shard_map`` and of ``jax.lax.axis_index``.

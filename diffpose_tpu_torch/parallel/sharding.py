@@ -28,6 +28,7 @@ tensors alike.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -80,11 +81,15 @@ def shard_batch(mesh, batch: dict, axis: str = "data", device=None) -> dict:
 # collectives
 # ----------------------------------------------------------------------
 
-def all_reduce_mean_grads(params, axis: MeshAxis, *extra: torch.Tensor):
+def all_reduce_mean_grads(params, axis: MeshAxis, *extra: torch.Tensor,
+                          divisor: Optional[int] = None):
     """Average every parameter's ``.grad`` over ``axis``, and the float32
     tensors ``extra`` with them, in one flat ``all_reduce``.  The gradients
     are written back into their own tensors (a parameter without one counts
-    as zeros); returns the averaged ``extra`` as new tensors."""
+    as zeros); returns the averaged ``extra`` as new tensors.  ``divisor``
+    replaces the axis's size: the video step over a data x context mesh
+    sums over context and averages over data, dividing the sum over both by
+    the data size."""
     if axis.group is None:
         return extra
     params = [p for p in params if p.requires_grad]
@@ -95,10 +100,24 @@ def all_reduce_mean_grads(params, axis: MeshAxis, *extra: torch.Tensor):
     parts = grads + [e.detach() for e in extra]
     flat = torch.cat([t.reshape(-1) for t in parts])
     dist.all_reduce(flat, group=axis.group)
-    flat.div_(axis.size)
+    flat.div_(axis.size if divisor is None else divisor)
     views = [v.view_as(t) for v, t in zip(flat.split([t.numel() for t in parts]), parts)]
     torch._foreach_copy_(grads, views[:len(grads)])
     return tuple(views[len(grads):])
+
+
+def joint_axis(*axes: Optional[MeshAxis]) -> MeshAxis:
+    """The ranks that ``axes`` span together, as one axis: the axis itself
+    where only one has a group, the world where several do (``make_mesh``
+    lays its axes over the whole world), the trivial axis where none does."""
+    live = [a for a in axes if a is not None and a.group is not None]
+    if len(live) <= 1:
+        return live[0] if live else MeshAxis("", None, 0, 1)
+    size = math.prod(a.size for a in live)
+    if size != dist.get_world_size():
+        raise ValueError(f"axes {[a.name for a in live]} span {size} of "
+                         f"{dist.get_world_size()} ranks; a joint reduction needs the world")
+    return MeshAxis("+".join(a.name for a in live), dist.group.WORLD, dist.get_rank(), size)
 
 
 def mean_over(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
@@ -329,3 +348,97 @@ def make_sharded_implicit_eval_step(implicit_model, pose_model, mesh, *, t_infer
 
     step.prepare = local.prepare
     return step
+
+
+# ----------------------------------------------------------------------
+# the video family: windows over data, frames over context
+# ----------------------------------------------------------------------
+
+# The per-frame arrays of a video batch ([B, F, ...]); the rest is per window.
+FRAME_KEYS = ("poses_3d", "poses_2d_gmm")
+
+
+def shard_windows(mesh, batch: dict, data_axis: Optional[str] = "data",
+                  cp_axis: Optional[str] = None, device=None) -> dict:
+    """This rank's block of a ``[B, F, ...]`` video batch: its rows over
+    ``data_axis`` and, of the per-frame arrays (:data:`FRAME_KEYS`), its
+    contiguous frames over ``cp_axis``; per-window values (``seeds``,
+    ``action_ids``...) shard over data only.  An axis given as None (or not
+    on the mesh) leaves that dimension whole.  Each value on ``device`` when
+    one is given."""
+    rows = data_sharding(mesh, data_axis) if data_axis else Shard(0, 1)
+    frames = data_sharding(mesh, cp_axis) if cp_axis else Shard(0, 1)
+    out = {}
+    for k, v in batch.items():
+        part = v[rows.rows(v.shape[0])]
+        if k in FRAME_KEYS:
+            part = part[:, frames.rows(part.shape[1])]
+        if device is not None:
+            part = torch.as_tensor(np.ascontiguousarray(part) if isinstance(part, np.ndarray)
+                                   else part.contiguous(), device=device)
+        out[k] = part
+    return out
+
+
+def gather_windows(t: torch.Tensor, data: MeshAxis, context: MeshAxis) -> torch.Tensor:
+    """Every rank's ``[B_local, F_local, ...]`` block (a per-frame error or
+    prediction) joined into the global ``[B, F, ...]``: the frames over
+    ``context``, then the windows over ``data`` (:func:`gather_rows` twice)."""
+    t = gather_rows(t.transpose(0, 1).contiguous(), context).transpose(0, 1)
+    return gather_rows(t.contiguous(), data)
+
+
+def _bound(model, mesh, cp_axis: Optional[str]):
+    """``model`` bound to ``mesh``'s ``cp_axis`` (checked against the name it
+    was built with), or unbound without one."""
+    if cp_axis is not None and model.cp_axis != cp_axis:
+        raise ValueError(f"the model was built with cp_axis={model.cp_axis!r}, not {cp_axis!r}")
+    return model.bind_mesh(mesh if cp_axis is not None else None)
+
+
+def make_sharded_video_train_step(model, optimizer, betas, mesh, *,
+                                  data_axis: Optional[str] = "data",
+                                  cp_axis: Optional[str] = None, impl: str = "module",
+                                  ema_mu: Optional[float] = 0.999, mask=None, device="cuda",
+                                  dropout: str = "masks") -> Callable:
+    """Video training over a 1-D or 2-D mesh: ``step(state, batch, generator)
+    → (state, metrics)`` with ``batch`` this rank's block
+    (:func:`shard_windows`).  Windows shard over ``data_axis`` (gradients
+    averaged), frames over ``cp_axis`` (the model, built with that
+    ``cp_axis`` and bound here, gathers the keys and values; the
+    frame-summed loss and gradients add), one ``all_reduce`` over both.
+    ``data_axis=None``: context parallelism alone.  Counterpart of
+    ``diffpose_tpu/parallel/sharding.py:make_sharded_video_train_step``; its
+    ``base_step`` (the fused Pallas step, data axis only) is ``impl="fused"``
+    here, which refuses a ``cp_axis``.  ``step.draw`` / ``step.apply`` as on
+    the single-process step."""
+    from diffpose_tpu_torch.train.video_steps import make_video_train_step
+
+    _bound(model, mesh, cp_axis)
+    return make_video_train_step(
+        model, optimizer, betas, impl=impl, ema_mu=ema_mu, mask=mask, device=device,
+        dropout=dropout, data_axis=mesh_axis(mesh, data_axis) if data_axis else None,
+        cp_axis=mesh_axis(mesh, cp_axis) if cp_axis else None)
+
+
+def make_sharded_video_eval_step(model, betas, seq, mesh, *, frames_total: int,
+                                 data_axis: Optional[str] = "data",
+                                 cp_axis: Optional[str] = None, test_times: int = 1,
+                                 eta: float = 0.0, mask=None, use_ema: bool = False,
+                                 denoise_override=None, device="cuda") -> Callable:
+    """Windowed DDIM eval over the mesh: ``step(state, batch, generator=None,
+    prepared=None) → (p1, p2, pred)`` over this rank's block, ``[B_local,
+    F_local]`` errors (:func:`gather_windows` joins them).  The per-(window,
+    frame) GMM keys make the result layout-invariant at ``eta = 0``.
+    ``denoise_override``: a fused forward (``ops/fused_video.py``), run on
+    this rank's frames with the key/value gather inside it; the whole-window
+    ones (``fused_st``, ``fused_full``) refuse a context axis of more than
+    one rank.  Counterpart of ``make_sharded_video_eval_step``."""
+    from diffpose_tpu_torch.train.video_steps import make_video_eval_step
+
+    _bound(model, mesh, cp_axis)
+    return make_video_eval_step(
+        model, betas, seq, test_times=test_times, eta=eta, mask=mask, use_ema=use_ema,
+        frames_total=frames_total, denoise_override=denoise_override, device=device,
+        data_axis=mesh_axis(mesh, data_axis) if data_axis else None,
+        cp_axis=mesh_axis(mesh, cp_axis) if cp_axis else None)

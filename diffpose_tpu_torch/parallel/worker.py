@@ -20,16 +20,29 @@ as ``frame/fused-masks/step0/x_t``:
 * ``implicit``: ``make_sharded_implicit_train_step`` (its BatchNorm buffers
   and telemetry too), the warm-started sweep against as many single sharded
   steps, ``make_sharded_implicit_eval_step``;
-* ``cli_frame`` / ``cli_implicit``: the command lines with
-  ``--data_parallel`` and ``--hypothesis_parallel 2`` (1 in a world of one)
-  inside this world (return codes, and the checkpoints each rank saved).
+* ``video`` (the spec's ``video``): for each mesh it names (a data, a
+  context or a data x context grid), ``make_sharded_video_train_step`` for
+  each ``(impl, dropout)`` (the module under the mesh's every axis, its
+  dropout at 0; the fused and plain steps over the data axis alone) with
+  every step's draws, loss, gradients and the parameters at the end;
+  ``make_sharded_video_eval_step`` for each eval forward (``fused`` under
+  every axis, ``fused_st`` and ``fused_full`` over data); the refusals of
+  the whole-window paths under a context axis; ``make_cp_video_forward``
+  on each context mesh; ``gather_frames`` through ``torch.autograd.gradcheck``;
+  each kernel's launches on this rank;
+* ``cli_frame`` / ``cli_implicit`` / ``cli_video``: the command lines with
+  ``--data_parallel`` and ``--hypothesis_parallel 2`` (1 in a world of one),
+  or the video family's ``--data_parallel`` / ``--context_parallel`` of the
+  spec, inside this world (return codes, and the checkpoints each rank saved).
 
 With ``time`` in the spec each sharded step is also timed against the
 single-process step on the same draws (CUDA events).  The references take
 the ranks' results: the frame family's single-process step on the
 concatenated draws, its eval on the whole batch; the implicit family's
 step as the mean of per-shard steps (BatchNorm normalises with each rank's
-own batch statistics) and its eval on the whole batch.
+own batch statistics) and its eval on the whole batch; the video family's
+single-process step on the ranks' draws joined along the windows and the
+frames, and its eval on the whole batch (:func:`video_reference`).
 
     python -m diffpose_tpu_torch.parallel.worker --spec spec.pth --out DIR --task frame
 """
@@ -54,6 +67,8 @@ from diffpose_tpu_torch.graph import H36M_EDGES, cheb_basis_from_edges
 from diffpose_tpu_torch.models import IGCN, GCNDiff, GCNPose
 from diffpose_tpu_torch.ops import fused_denoiser as fd
 from diffpose_tpu_torch.ops import fused_train as ft
+from diffpose_tpu_torch.ops import fused_video_full as fv
+from diffpose_tpu_torch.ops.fused_video_train import TemporalMasks, video_dropout_rates
 from diffpose_tpu_torch.ops.philox import philox_masks
 from diffpose_tpu_torch.ops.train_ref import DropoutMasks
 from diffpose_tpu_torch.parallel.mesh import (
@@ -62,9 +77,15 @@ from diffpose_tpu_torch.parallel.mesh import (
     make_mesh,
     mesh_axis,
 )
+from diffpose_tpu_torch.models.video import SpatioTemporalDiff
+from diffpose_tpu_torch.parallel.context import gather_frames, make_cp_video_forward
 from diffpose_tpu_torch.parallel.sharding import (
     Shard,
     all_reduce_mean_grads,
+    joint_axis,
+    make_sharded_video_eval_step,
+    make_sharded_video_train_step,
+    shard_windows,
     make_sharded_eval_step,
     make_sharded_implicit_eval_step,
     make_sharded_implicit_train_step,
@@ -78,13 +99,20 @@ from diffpose_tpu_torch.train.implicit_steps import make_implicit_eval_step, mak
 from diffpose_tpu_torch.train.optim import make_optimizer
 from diffpose_tpu_torch.train.state import TrainState
 from diffpose_tpu_torch.train.steps import StepDraws, make_eval_step, make_train_step
+from diffpose_tpu_torch.train.video_runner import video_denoise_override
+from diffpose_tpu_torch.train.video_steps import (
+    VideoDraws,
+    make_video_eval_step,
+    make_video_train_step,
+)
 
 BETAS = get_beta_schedule("linear", beta_start=1e-4, beta_end=1e-3, num_diffusion_timesteps=51)
 SEQ = (0, 12)
 BASIS = cheb_basis_from_edges(17, H36M_EDGES)
 COUNTERS = {"lifter": fd.fused_lifter, "denoiser": fd.fused_denoiser,
             "backbone": fd.fused_backbone, "fwd": ft.stack_fwd, "bwd": ft.stack_bwd,
-            "fwd_prng": ft.stack_fwd_prng, "bwd_prng": ft.stack_bwd_prng}
+            "fwd_prng": ft.stack_fwd_prng, "bwd_prng": ft.stack_bwd_prng,
+            "temporal": fv.fused_temporal_layer, "st": fv.fused_st_layer}
 
 
 # ----------------------------------------------------------------------
@@ -458,6 +486,181 @@ def implicit_task(spec: dict, dev, res: dict):
                        lambda: single(state, pose, local, prepared=prepared), dev)
 
 
+# ----------------------------------------------------------------------
+# the video family
+# ----------------------------------------------------------------------
+
+def _video_model(spec: dict, dev, cp_axis: Optional[str] = None, no_dropout: bool = False):
+    """The spec's SpatioTemporalDiff (``video.cfg``, ``video.state``), built
+    with ``cp_axis``; ``no_dropout``: every ``nn.Dropout`` at 0."""
+    v = spec["video"]
+    model = SpatioTemporalDiff(BASIS, **v["cfg"], cp_axis=cp_axis)
+    model.load_state_dict(v["state"], strict=True)
+    if no_dropout:
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+    return model.to(dev)
+
+
+def video_axes(names: Sequence[str], impl: str, train: bool):
+    """The ``(data_axis, cp_axis)`` a video path (a train step with ``train``,
+    else an eval) takes on a mesh with axes ``names``: the module train step
+    and the ``fused`` / ``module`` evals every axis there is, the fused and
+    plain train steps and the whole-window evals (``fused_st``,
+    ``fused_full``) the data axis alone."""
+    data = "data" if "data" in names else None
+    whole = impl in (("fused", "plain") if train else ("fused_st", "fused_full"))
+    return data, ("context" if "context" in names and not whole else None)
+
+
+def _put_video_draws(res: dict, prefix: str, d: VideoDraws):
+    res[f"{prefix}/x_t"], res[f"{prefix}/t"], res[f"{prefix}/e"] = _np(d.x_t), _np(d.t), _np(d.e)
+    for name, group in (("masks", d.masks), ("tmasks", d.tmasks)):
+        if group is not None:
+            for k, v in group._asdict().items():
+                res[f"{prefix}/{name}.{k}"] = _np(v)
+    if d.seed is not None:
+        res[f"{prefix}/seed"] = _np(d.seed)
+    if d.drop_seed is not None:
+        res[f"{prefix}/drop_seed"] = np.asarray(d.drop_seed, dtype=np.uint64)
+
+
+def video_task(spec: dict, dev, res: dict):
+    v = spec["video"]
+    frames = v["cfg"]["frames"]
+    for m in v["meshes"]:
+        name, names = m["name"], tuple(m["names"])
+        mesh = make_mesh(m["sizes"], names, device_type=dev.type)
+        cp = mesh_axis(mesh, "context")
+        res[f"video/{name}/coords"] = np.asarray([mesh_axis(mesh, n).index for n in names])
+
+        for impl, dropout in m.get("train", ()):
+            tag = f"video/{name}/train/{impl}-{dropout}"
+            data_axis, cp_axis = video_axes(names, impl, train=True)
+            model = _video_model(spec, dev, cp_axis, no_dropout=impl == "module")
+            state, opt = _train_state(model, spec)
+            step = make_sharded_video_train_step(model, opt, BETAS, mesh, data_axis=data_axis,
+                                                 cp_axis=cp_axis, impl=impl, dropout=dropout,
+                                                 device=dev)
+            gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+            _reset_counts()
+            for s in range(v["steps"]):
+                local = shard_windows(mesh, _video_batch(v, s), data_axis, cp_axis, device=dev)
+                d = step.draw(local, gen)
+                state, met = step.apply(state, d)
+                _put_video_draws(res, f"{tag}/step{s}", d)
+                res[f"{tag}/step{s}/loss"] = _np(met["loss"])
+                res[f"{tag}/step{s}/grad_norm"] = _np(met["grad_norm"])
+                _put_params(res, f"{tag}/step{s}/grad", model, grads=True)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            _put_counts(res, f"{tag}/launches")
+            _put_params(res, f"{tag}/params", model)
+            if spec.get("time"):
+                single_model = _video_model(spec, dev, no_dropout=impl == "module")
+                single_state, single_opt = _train_state(single_model, spec)
+                single = make_video_train_step(single_model, single_opt, BETAS, impl=impl,
+                                               dropout=dropout, device=dev)
+                d0 = step.draw(shard_windows(mesh, _video_batch(v, 0), data_axis, cp_axis,
+                                             device=dev), gen)
+                both = joint_axis(mesh_axis(mesh, data_axis) if data_axis else None,
+                                  cp if cp_axis else None)
+                data_size = mesh_axis(mesh, data_axis).size if data_axis else 1
+                _time_pair(res, tag, lambda: step.apply(state, d0),
+                           lambda: single.apply(single_state, d0), dev,
+                           lambda: all_reduce_mean_grads(model.parameters(), both, met["loss"],
+                                                         divisor=data_size))
+
+        ev = v["eval"]
+        for impl in m.get("eval", ()):
+            tag = f"video/{name}/eval/{impl}"
+            data_axis, cp_axis = video_axes(names, impl, train=False)
+            model = _video_model(spec, dev, cp_axis).eval()
+            state = TrainState.create(model, None)
+            step = make_sharded_video_eval_step(
+                model, BETAS, SEQ, mesh, frames_total=frames, data_axis=data_axis,
+                cp_axis=cp_axis, test_times=ev["test_times"],
+                denoise_override=video_denoise_override(model, impl), device=dev)
+            local = shard_windows(mesh, ev["batch"], data_axis, cp_axis, device=dev)
+            prepared = step.prepare(state)
+            _reset_counts()
+            p1, p2, pred = step(state, local, prepared=prepared)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            _put_counts(res, f"{tag}/launches")
+            res[f"{tag}/p1"], res[f"{tag}/p2"], res[f"{tag}/pred"] = _np(p1), _np(p2), _np(pred)
+            if spec.get("time"):
+                single_model = _video_model(spec, dev).eval()
+                single_state = TrainState.create(single_model, None)
+                single = make_video_eval_step(
+                    single_model, BETAS, SEQ, test_times=ev["test_times"], device=dev,
+                    denoise_override=video_denoise_override(single_model, impl))
+                single_prepared = single.prepare(single_state)
+                collectives = None
+                if cp_axis is not None:
+                    # the step's collectives alone: K|V of every layer at every DDIM step
+                    rows = ev["test_times"] * local["poses_3d"].shape[0] * 17
+                    kv = torch.zeros((rows, frames // cp.size, 2 * model.hid_dim), device=dev)
+
+                    def collectives():
+                        for _ in range(model.num_layers * len(SEQ)):
+                            gather_frames(kv, cp)
+
+                _time_pair(res, tag, lambda: step(state, local, prepared=prepared),
+                           lambda: single(single_state, local, prepared=single_prepared), dev,
+                           collectives)
+
+        if cp.size > 1:
+            _video_context_checks(spec, dev, res, mesh, name, cp)
+
+
+def _video_batch(v: dict, i: int) -> dict:
+    b = v["batch"]
+    return {k: a[i * b:(i + 1) * b] for k, a in v["data"].items()}
+
+
+def _video_context_checks(spec: dict, dev, res: dict, mesh, name: str, cp):
+    """On a context mesh: the refusals of the whole-window paths, the context
+    forward of the spec's ``forward`` input, and ``gather_frames`` through
+    ``gradcheck`` in float64 from one rank's view."""
+    v = spec["video"]
+    refused = []
+    try:
+        model = _video_model(spec, dev, "context")
+        _, opt = _train_state(model, spec)
+        make_sharded_video_train_step(model, opt, BETAS, mesh, cp_axis="context", impl="fused",
+                                      device=dev)
+    except ValueError as e:
+        refused.append(str(e))
+    model = _video_model(spec, dev, "context").eval().bind_mesh(mesh)
+    x = torch.zeros((1, v["cfg"]["frames"] // cp.size, 17, 5), device=dev)
+    for impl in ("fused_st", "fused_full"):
+        try:
+            video_denoise_override(model, impl)(fv.prepare_video_weights(model, dev), x,
+                                                torch.zeros(1, device=dev))
+        except ValueError as e:
+            refused.append(str(e))
+    res[f"video/{name}/refused"] = np.asarray(refused)
+    if "forward" in v:
+        model = _video_model(spec, dev, "context").eval()
+        fn = make_cp_video_forward(model, mesh)
+        x, t = (torch.as_tensor(a, device=dev) for a in (v["forward"]["x"], v["forward"]["t"]))
+        with torch.no_grad():
+            res[f"video/{name}/forward"] = _np(fn(x[:, model.frame_block(x.shape[1] // cp.size)], t))
+    if v.get("gradcheck"):
+        view = cp.size - 1          # the rank whose input and output count; the rest send zeros
+        gen = torch.Generator().manual_seed(cp.index)
+        x = torch.randn((2, 2, 3), generator=gen, dtype=torch.float64).to(dev).requires_grad_()
+
+        def fn(y):
+            if cp.index == view:
+                return gather_frames(y, cp)
+            return gather_frames(y * 0 + 1, cp) * 0
+
+        res[f"video/{name}/gradcheck"] = np.asarray(torch.autograd.gradcheck(fn, (x,)))
+
+
 def _hyp_ranks() -> str:
     """The ``--hypothesis_parallel`` a world of this size takes: 2, or 1 alone."""
     return "2" if torch.distributed.get_world_size() % 2 == 0 else "1"
@@ -527,8 +730,25 @@ def cli_implicit_task(spec: dict, dev, res: dict):
     ], res, "cli_implicit")
 
 
-TASKS = {"frame": frame_task, "implicit": implicit_task, "cli_frame": cli_frame_task,
-         "cli_implicit": cli_implicit_task}
+def cli_video_task(spec: dict, dev, res: dict):
+    from diffpose_tpu_torch.cli import main_video
+
+    c, exp = spec["video"]["cli"], spec["exp"]
+    common = ["--config", "configs/human36m_video.yml", "--exp", exp, "--ni",
+              "--frames", str(c["frames"]), "--synthetic_windows", str(c["windows"]),
+              "--batch_size", str(c["batch"]), "--device", str(dev), *c["flags"]]
+    _cli_runs(spec, [
+        ("train", main_video.main, common + ["--doc", "vp", "--train", "--n_epochs", "1",
+                                             "--denoiser_impl", "fused"]),
+        ("eval", main_video.main, common + [
+            "--doc", "ve", "--denoiser_impl", "fused", "--model_diff_path",
+            str(Path(exp) / "vp" / f"ckpt_{-(-c['windows'] // c['batch']):08d}.pth")]),
+    ], res, "cli_video")
+
+
+TASKS = {"frame": frame_task, "implicit": implicit_task, "video": video_task,
+         "cli_frame": cli_frame_task, "cli_implicit": cli_implicit_task,
+         "cli_video": cli_video_task}
 
 
 # ----------------------------------------------------------------------
@@ -656,6 +876,113 @@ def implicit_reference(spec: dict, ranks: Sequence[dict], device) -> dict:
     return ref
 
 
+def video_part(ranks: Sequence[dict], m: dict, impl: str, train: bool):
+    """The ranks whose blocks make up a video path's global result on mesh
+    spec ``m``, and how they lie: ``(part, D, C)``, ``part[i·C + j]`` holding
+    windows block ``i`` and frames block ``j``.  A path that keeps whole
+    windows on a mesh with a context axis (the fused train step, the
+    whole-window evals) runs alike on every context coordinate: one rank of
+    each data coordinate stands for them."""
+    names, sizes = tuple(m["names"]), tuple(m["sizes"])
+    d = sizes[names.index("data")] if "data" in names else 1
+    c = sizes[names.index("context")] if "context" in names else 1
+    if video_axes(names, impl, train)[1] is None:
+        return [ranks[i * c] for i in range(d)], d, 1
+    return list(ranks), d, c
+
+
+def join_blocks(blocks: Sequence[np.ndarray], d: int, c: int, frame_axis: int = 1,
+                row_axis: int = 0) -> np.ndarray:
+    """``D·C`` blocks (``blocks[i·C + j]``) joined into the global array: each
+    data coordinate's along ``frame_axis``, then those along ``row_axis``."""
+    rows = [np.concatenate(blocks[i * c:(i + 1) * c], axis=frame_axis) for i in range(d)]
+    return np.concatenate(rows, axis=row_axis)
+
+
+def video_reference(spec: dict, ranks: Sequence[dict], device) -> dict:
+    """The single-process results the video task's ranks should give: each
+    train step on the ranks' draws joined along the windows and the frames
+    (the fused step's Philox seeds, of a world of ranks, as their masks
+    through the plain stack; the module at dropout 0), under the ranks'
+    keys; each eval on the whole batch, ``[B, F]`` errors, and where the
+    windows alone are split, on each data shard alone (``..._shards``)."""
+    dev = torch.device(device)
+    v = spec["video"]
+    ref = {}
+    for m in v["meshes"]:
+        name = m["name"]
+        for impl, dropout in m.get("train", ()):
+            tag = f"video/{name}/train/{impl}-{dropout}"
+            part, d, c = video_part(ranks, m, impl, train=True)
+            model = _video_model(spec, dev, no_dropout=impl == "module")
+            state, opt = _train_state(model, spec)
+            ref_impl, ref_dropout = (("plain", "masks") if dropout == "prng" and len(part) > 1
+                                     else (impl, dropout))
+            step = make_video_train_step(model, opt, BETAS, impl=ref_impl, dropout=ref_dropout,
+                                         device=dev)
+            for s in range(v["steps"]):
+                p = f"{tag}/step{s}"
+
+                def cat(key, frame_axis=1, row_axis=0):
+                    return torch.as_tensor(join_blocks([r[f"{p}/{key}"] for r in part], d, c,
+                                                       frame_axis, row_axis), device=dev)
+
+                t = torch.as_tensor(np.concatenate([part[i * c][f"{p}/t"] for i in range(d)]),
+                                    device=dev)
+                masks = seed = tmasks = None
+                if dropout == "prng" and len(part) > 1:
+                    masks = _seed_masks(part, p, model, dev)
+                elif dropout == "prng":
+                    seed = torch.as_tensor(part[0][f"{p}/seed"], device=dev)
+                elif impl != "module":       # batch-major rows [L, rows, ...]: whole windows
+                    masks = DropoutMasks(*(cat(f"masks.{k}", 1, 1) for k in DropoutMasks._fields))
+                    if ref_impl == "plain":
+                        masks = DropoutMasks(*(mk.to(torch.float32) for mk in masks))
+                if f"{p}/tmasks.probs" in part[0]:
+                    tmasks = TemporalMasks(*(cat(f"tmasks.{k}", 1, 1)
+                                             for k in TemporalMasks._fields))
+                _, met = step.apply(state, VideoDraws(cat("x_t"), t, cat("e"), masks, seed, tmasks))
+                ref[f"{p}/loss"] = _np(met["loss"])
+                ref[f"{p}/grad_norm"] = _np(met["grad_norm"])
+                _put_params(ref, f"{p}/grad", model, grads=True)
+            _put_params(ref, f"{tag}/params", model)
+        ev = v["eval"]
+        whole = {k: torch.as_tensor(a, device=dev) for k, a in ev["batch"].items()}
+        for impl in m.get("eval", ()):
+            model = _video_model(spec, dev).eval()
+            step = make_video_eval_step(model, BETAS, SEQ, test_times=ev["test_times"], device=dev,
+                                        denoise_override=video_denoise_override(model, impl))
+            state = TrainState.create(model, None)
+            _, d, c = video_part(ranks, m, impl, train=False)
+            outs = {"": [step(state, whole)]}
+            if c == 1 and d > 1:     # each data shard alone: a rank's own computation
+                outs["_shards"] = [step(state, {k: a[Shard(i, d).rows(a.shape[0])]
+                                                for k, a in whole.items()}) for i in range(d)]
+            for suffix, parts in outs.items():
+                for key, vals in zip(("p1", "p2", "pred"), zip(*parts)):
+                    ref[f"video/{name}/eval/{impl}/{key}{suffix}"] = np.concatenate(
+                        [_np(v) for v in vals])
+    return ref
+
+
+def _seed_masks(part, p, model, dev) -> DropoutMasks:
+    """The explicit masks the ranks' Philox seeds stand for, at each rank's
+    ``B·F`` rows, joined: layer ``i`` of the video stack draws from ``seed +
+    i·1000003`` (``ops/fused_video_train.py:layer_seed``)."""
+    from diffpose_tpu_torch.ops.fused_video_train import layer_seed
+
+    per_rank = []
+    for r in part:
+        seed = torch.as_tensor(r[f"{p}/seed"], device=dev)
+        rows = r[f"{p}/x_t"].shape[0] * r[f"{p}/x_t"].shape[1]
+        layers = [philox_masks(layer_seed(seed, i), num_layers=1, batch=rows, n_pts=17,
+                               num_heads=model.num_heads, hid_dim=model.hid_dim,
+                               rates=video_dropout_rates(model), device=dev, dtype=torch.float32)
+                  for i in range(model.num_layers)]
+        per_rank.append(DropoutMasks(*(torch.cat(f, dim=0) for f in zip(*layers))))
+    return DropoutMasks(*(torch.cat(f, dim=1) for f in zip(*per_rank)))
+
+
 def gathered(ranks: Sequence[dict], key: str, data_ranks: Optional[Sequence[int]] = None):
     """A per-sample result of the data ranks (all by default) in the global
     batch's order."""
@@ -673,6 +1000,17 @@ def main(argv=None) -> int:
     parser.add_argument("--task", action="append", choices=sorted(TASKS), required=True)
     args = parser.parse_args(argv)
     spec = torch.load(args.spec, weights_only=False)
+    try:
+        run_tasks(spec, args.task, args.out)
+    finally:
+        distributed_shutdown()
+    return 0
+
+
+def run_tasks(spec: dict, tasks: Sequence[str], out) -> int:
+    """This rank's part: join the world (``distributed_init`` over the spec's
+    device and backend), run ``tasks`` and write ``out/rank<r>.npz``;
+    returns the rank."""
     dev = torch.device(spec["device"])
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -680,13 +1018,10 @@ def main(argv=None) -> int:
     torch.set_num_threads(spec.get("threads", torch.get_num_threads()))
     rank, _ = distributed_init(spec.get("backend"), device=dev)
     res: dict = {}
-    try:
-        for task in args.task:
-            TASKS[task](spec, dev, res)
-        np.savez(Path(args.out) / f"rank{rank}.npz", **res)
-    finally:
-        distributed_shutdown()
-    return 0
+    for task in tasks:
+        TASKS[task](spec, dev, res)
+    np.savez(Path(out) / f"rank{rank}.npz", **res)
+    return rank
 
 
 if __name__ == "__main__":

@@ -11,8 +11,19 @@ through the train kernel pair (``ops/fused_video_train.py``);
 ``denoiser_impl`` picks the eval forward: ``"fused"`` (spatial blocks on
 kernel row 3, temporal blocks as torch operations), ``"fused_st"`` (row 3
 and row 10), ``"fused_full"`` (one launch of row 9 a layer), or
-``"module"``.  A device mesh, and with it data and context parallelism, has
-no counterpart yet: it raises (ROADMAP queue 1 item 12c).
+``"module"``.
+
+``mesh`` (a ``DeviceMesh`` from ``parallel.make_mesh``, this process one of
+its ranks): windows shard over ``data_axis`` and each window's frames over
+``cp_axis`` (``F / size`` frames a rank; the model gathers the keys and
+values), as ``diffpose_tpu/train/video_runner.py`` resolves them: an axis
+the mesh does not have is left out.  The train loader is keyed by the data
+coordinate and each rank takes its frames; each eval batch is split over
+both axes and the per-frame errors gathered before they are accumulated;
+only rank 0 writes logs and checkpoints, and every rank loads on resume.
+Under a context axis the fused train step and the whole-window eval
+forwards (``fused_st``, ``fused_full``) are refused (the JAX runner falls
+back to the module step with a warning; this one raises).
 """
 
 from __future__ import annotations
@@ -35,6 +46,13 @@ from diffpose_tpu_torch.models.video import SpatioTemporalDiff
 from diffpose_tpu_torch.ops.fused_denoiser import resolve_device
 from diffpose_tpu_torch.ops.fused_video import make_video_denoiser_fn
 from diffpose_tpu_torch.ops.fused_video_full import make_video_full_fn
+from diffpose_tpu_torch.parallel.mesh import barrier, is_main_rank, mesh_axis
+from diffpose_tpu_torch.parallel.sharding import (
+    gather_windows,
+    make_sharded_video_eval_step,
+    make_sharded_video_train_step,
+    shard_windows,
+)
 from diffpose_tpu_torch.train.checkpoint import Checkpointer
 from diffpose_tpu_torch.train.optim import make_optimizer
 from diffpose_tpu_torch.train.state import TrainState
@@ -46,6 +64,17 @@ logger = logging.getLogger(__name__)
 VIDEO_DENOISER_IMPLS = ("module", "fused", "fused_st", "fused_full")
 
 
+def video_denoise_override(model, impl: str):
+    """The fused eval forward that ``impl`` (one of :data:`VIDEO_DENOISER_IMPLS`)
+    names, for ``make_video_eval_step``'s ``denoise_override``; None for the
+    module."""
+    if impl == "fused_full":
+        return make_video_full_fn(model)
+    if impl in ("fused", "fused_st"):
+        return make_video_denoiser_fn(model, temporal_impl="kernel" if impl == "fused_st" else "torch")
+    return None
+
+
 class VideoRunner:
     def __init__(
         self,
@@ -55,6 +84,8 @@ class VideoRunner:
         skip_type: str = "uniform",
         eta: float = 0.0,
         mesh=None,
+        data_axis: Optional[str] = "data",
+        cp_axis: Optional[str] = None,
         log_dir: Optional[str] = None,
         use_ema_eval: bool = False,
         reference_compat: bool = True,
@@ -67,10 +98,22 @@ class VideoRunner:
         kernel_precision: str = F32_KERNEL_GRADE,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (data or context parallelism) needs the video family's sharded "
-                "steps (ROADMAP queue 1 item 12c), which are not written yet")
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                            f"(diffpose_tpu_torch.parallel.make_mesh), got {type(mesh).__name__}")
+        names = (mesh.mesh_dim_names or ()) if mesh is not None else ()
+        data_axis = data_axis if data_axis in names else None
+        cp_axis = cp_axis if cp_axis in names else None
+        if cp_axis is not None:
+            for name, value, whole in (("train_impl", train_impl, ("fused", "plain")),
+                                       ("denoiser_impl", denoiser_impl, ("fused_st", "fused_full"))):
+                if value in whole:
+                    raise ValueError(
+                        f"--{name} {value} runs on whole windows; it does not compose with "
+                        f"context parallelism (the mesh's {cp_axis!r} axis): use the module "
+                        "train step and --denoiser_impl fused or module")
         for name, value, allowed in (("denoiser_impl", denoiser_impl, VIDEO_DENOISER_IMPLS),
                                      ("train_impl", train_impl, TRAIN_IMPLS),
                                      ("dropout_impl", dropout_impl, DROPOUT_IMPLS)):
@@ -92,7 +135,13 @@ class VideoRunner:
         self.seed = seed
         self.skip_type = skip_type
         self.eta = eta
-        self.mesh = None
+        self.mesh = mesh
+        self.data_axis, self.cp_axis = data_axis, cp_axis
+        # this rank's place on the mesh's axes (trivial without a mesh)
+        self._data, self._context = mesh_axis(mesh, data_axis), mesh_axis(mesh, cp_axis)
+        if self.video_cfg.frames % self._context.size:
+            raise ValueError(f"{self.video_cfg.frames}-frame windows do not split over "
+                             f"{self._context.size} context ranks")
         self.log_dir = log_dir
         self.use_ema_eval = use_ema_eval
         self.reference_compat = reference_compat
@@ -107,6 +156,9 @@ class VideoRunner:
                         "build cache under build/ plays its part")
         self.kernel_precision = kernel_precision
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh is over {mesh.device_type!r} ranks, the runner's device "
+                             f"is {self.device}")
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
@@ -147,13 +199,14 @@ class VideoRunner:
             model = SpatioTemporalDiff(
                 self.basis, v.frames, hid_dim=m.hid_dim, coords_in=m.coords_dim[0],
                 coords_out=m.coords_dim[1], num_layers=v.num_layers, num_heads=m.n_head,
-                dropout_rate=v.dropout, n_pts=m.n_pts, attention_chunk=v.attention_chunk)
+                dropout_rate=v.dropout, n_pts=m.n_pts, cp_axis=self.cp_axis,
+                attention_chunk=v.attention_chunk)
         if model_path:
             logger.info("initialize video model from %s", model_path)
             if not model_path.endswith(".pth"):
                 raise ValueError(f"video model path {model_path!r}: only .pth checkpoints load here")
             model.load_state_dict(load_torch_states(model_path)[0], strict=True)
-        self.model = model.to(self.device)
+        self.model = model.to(self.device).bind_mesh(self.mesh)
         return self.model
 
     def set_data(self, train: Optional[VideoDataset], test: Optional[VideoDataset]):
@@ -178,9 +231,12 @@ class VideoRunner:
 
     # ------------------------------------------------------------------
 
-    def _make_loader(self, data: VideoDataset, shuffle: bool) -> BatchLoader:
+    def _make_loader(self, data: VideoDataset, shuffle: bool, keyed: bool = True) -> BatchLoader:
+        """The batches of ``data``; ``keyed``: this rank's windows of each (its
+        data coordinate's), else the global batches."""
+        parts = (self._data.size, self._data.index) if keyed else (1, 0)
         return BatchLoader(data, batch_size=self.config.training.batch_size, shuffle=shuffle,
-                           seed=self.seed, process_count=1, process_index=0)
+                           seed=self.seed, process_count=parts[0], process_index=parts[1])
 
     def _build_train_step(self, steps_per_epoch: int):
         """The optimizer (the state's own, where a state with one exists) and
@@ -195,9 +251,14 @@ class VideoRunner:
                 eps=o.eps)
         ema_mu = self.config.model.ema_rate if self.config.model.ema else None
         dropout = self.dropout_impl if self.train_impl != "module" else "masks"
-        step_fn = make_video_train_step(self.model, optimizer, self.betas, impl=self.train_impl,
-                                        ema_mu=ema_mu, mask=self.mask, device=self.device,
-                                        dropout=dropout)
+        kwargs = dict(impl=self.train_impl, ema_mu=ema_mu, mask=self.mask, device=self.device,
+                      dropout=dropout)
+        if self.mesh is not None:
+            step_fn = make_sharded_video_train_step(self.model, optimizer, self.betas, self.mesh,
+                                                    data_axis=self.data_axis,
+                                                    cp_axis=self.cp_axis, **kwargs)
+        else:
+            step_fn = make_video_train_step(self.model, optimizer, self.betas, **kwargs)
         return optimizer, step_fn
 
     def train(self, resume: bool = False) -> Dict[str, list]:
@@ -219,7 +280,9 @@ class VideoRunner:
         for epoch in range(int(self.state.epoch), self.config.training.n_epochs):
             t0 = time.time()
             step_losses = []
-            for batch in prefetch_to_device(loader.epoch(epoch), size=2, device=self.device):
+            # this rank's windows (the loader's keys), cut to its frames
+            local = (shard_windows(self.mesh, b, None, self.cp_axis) for b in loader.epoch(epoch))
+            for batch in prefetch_to_device(local, size=2, device=self.device):
                 self.state, metrics = step_fn(self.state, batch, self.generator)
                 step_losses.append(metrics["loss"].reshape(1))
             self.state.epoch = epoch + 1
@@ -231,7 +294,10 @@ class VideoRunner:
             logger.info("| Epoch %04d | steps %d | loss %.6f | %.2fs |",
                         epoch, steps_per_epoch, epoch_loss.avg, self.train_seconds[-1])
             if self.checkpointer is not None:
-                self.checkpointer.save(int(self.state.step), self.state)
+                barrier()
+                if is_main_rank():
+                    self.checkpointer.save(int(self.state.step), self.state)
+                barrier()   # no rank reads a checkpoint before it is whole
             if self.test_data is not None:
                 p1, p2 = self.evaluate(is_train=True)
                 history["p1"].append(p1)
@@ -245,25 +311,22 @@ class VideoRunner:
 
     # ------------------------------------------------------------------
 
-    def _denoise_override(self):
-        """The fused eval forward of ``denoiser_impl`` (None for the module)."""
-        if self.denoiser_impl == "fused_full":
-            return make_video_full_fn(self.model)
-        if self.denoiser_impl in ("fused", "fused_st"):
-            return make_video_denoiser_fn(
-                self.model, temporal_impl="kernel" if self.denoiser_impl == "fused_st" else "torch")
-        return None
-
     def _get_eval_fn(self, seq):
         """The per-batch eval step: built once, reused every epoch (the
         weights flow in through the state)."""
         key = tuple(seq)
         if key not in self._eval_cache:
             t_cfg = self.config.testing
-            self._eval_cache[key] = make_video_eval_step(
-                self.model, self.betas, seq, test_times=t_cfg.test_times, eta=self.eta,
-                mask=self.mask, use_ema=self.use_ema_eval,
-                denoise_override=self._denoise_override(), device=self.device)
+            kwargs = dict(test_times=t_cfg.test_times, eta=self.eta, mask=self.mask,
+                          use_ema=self.use_ema_eval,
+                          denoise_override=video_denoise_override(self.model, self.denoiser_impl),
+                          device=self.device)
+            if self.mesh is not None:
+                self._eval_cache[key] = make_sharded_video_eval_step(
+                    self.model, self.betas, seq, self.mesh, frames_total=self.video_cfg.frames,
+                    data_axis=self.data_axis, cp_axis=self.cp_axis, **kwargs)
+            else:
+                self._eval_cache[key] = make_video_eval_step(self.model, self.betas, seq, **kwargs)
         return self._eval_cache[key]
 
     def evaluate(self, is_train: bool = False,
@@ -279,14 +342,17 @@ class VideoRunner:
         was_training = self.model.training
         eval_fn = self._get_eval_fn(seq)
         prepared = eval_fn.prepare(state)
-        loader = self._make_loader(self.test_data, shuffle=False)
+        loader = self._make_loader(self.test_data, shuffle=False, keyed=False)
         acc = ActionErrorAccumulator(self.test_data.actions, num_joints=self.config.model.n_pts,
                                      reference_compat=self.reference_compat)
         self.inference_times = []
         for batch in loader.epoch(0):
             t0 = time.time()
-            p1_b, p2_b, _ = eval_fn(state, batch, self.generator, prepared=prepared)
-            p1_b, p2_b = p1_b.cpu().numpy(), p2_b.cpu().numpy()     # [B, F]; waits for the batch
+            local = shard_windows(self.mesh, batch, self.data_axis, self.cp_axis)
+            p1_b, p2_b, _ = eval_fn(state, local, self.generator, prepared=prepared)
+            # every rank's [B_local, F_local] block joined into [B, F]; waits for the batch
+            p1_b, p2_b = (gather_windows(v, self._data, self._context).cpu().numpy()
+                          for v in (p1_b, p2_b))
             self.inference_times.append(time.time() - t0)
             # per-frame errors flatten; each frame inherits its window's action
             acc.add(batch, p1_b, p2_b, frames_per_item=p1_b.shape[1])

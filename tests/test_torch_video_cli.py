@@ -12,6 +12,7 @@ from diffpose_tpu.train.video_runner import VideoRunner as JVideoRunner
 from diffpose_tpu_torch.cli import main_video
 from diffpose_tpu_torch.config import load_config
 from diffpose_tpu_torch.models.convert import load_torch_states
+from diffpose_tpu_torch.parallel.mesh import distributed_init, distributed_shutdown, make_mesh
 from diffpose_tpu_torch.train.video_runner import VideoRunner
 from test_torch_pipeline_data import fabricate
 
@@ -53,22 +54,42 @@ def test_cli_trains_resumes_and_evaluates_the_checkpoint_with_every_impl(tmp_pat
                                    atol=2e-3, err_msg=impl)
 
 
-@pytest.mark.parametrize("flag", [["--context_parallel", "2"], ["--data_parallel"],
+@pytest.mark.parametrize("flag", [["--context_parallel", "1"], ["--data_parallel"],
                                   ["--hypothesis_parallel", "2"]],
                          ids=["context_parallel", "data_parallel", "hypothesis_parallel"])
 def test_mesh_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        main_video.main(_cli(tmp_path, "--doc", "t", *flag))
+    """The mesh flags in a world of one rank (no launcher): --data_parallel and
+    --context_parallel 1 train over a 1-rank mesh and write one checkpoint;
+    --hypothesis_parallel has no video counterpart and raises.  Either way the
+    process group is left."""
+    args = _cli(tmp_path, "--doc", "t", "--train", "--n_epochs", "1", *flag)
+    if flag[0] == "--hypothesis_parallel":
+        with pytest.raises(ValueError, match="no hypothesis axis"):
+            main_video.main(args)
+    else:
+        assert main_video.main(args) == 0
+        assert {p.name for p in (tmp_path / "t").glob("ckpt_*")} == {"ckpt_00000004.pth"}
+        assert "| Epoch 0000 |" in (tmp_path / "t" / "stdout.txt").read_text()
+    assert not torch.distributed.is_initialized()
 
 
 def test_runner_refuses_what_has_no_counterpart_and_evaluates_twice_alike():
     config = load_config(VIDEO)
     config.video.frames, config.video.num_layers, config.training.batch_size = 5, 1, 2
-    for kwargs, exc in ((dict(mesh=object()), NotImplementedError),
+    for kwargs, exc in ((dict(mesh=object()), TypeError),
                         (dict(denoiser_impl="pallas_full"), ValueError),
                         (dict(kernel_precision="bf16"), NotImplementedError)):
         with pytest.raises(exc):
             VideoRunner(config, device="cpu", **kwargs)
+    # whole-window paths under a context axis (a world of one): refused, not replaced
+    distributed_init(device="cpu")
+    try:
+        mesh = make_mesh((1,), ("context",), device_type="cpu")
+        for kwargs in (dict(train_impl="fused"), dict(denoiser_impl="fused_st")):
+            with pytest.raises(ValueError, match="does not compose with context parallelism"):
+                VideoRunner(config, device="cpu", mesh=mesh, cp_axis="context", **kwargs)
+    finally:
+        distributed_shutdown()
     from diffpose_tpu_torch.data.video import synthetic_video_dataset
 
     runner = VideoRunner(config, device="cpu", denoiser_impl="fused_full")

@@ -14,6 +14,7 @@ from diffpose_tpu.models.video import SpatioTemporalDiff as JSpatioTemporalDiff
 from diffpose_tpu_torch.data import video
 from diffpose_tpu_torch.models import convert, layers
 from diffpose_tpu_torch.models.video import SpatioTemporalDiff
+from diffpose_tpu_torch.parallel.mesh import distributed_init, distributed_shutdown, make_mesh
 from test_torch_models import BASIS, perturbed
 
 torch.set_num_threads(1)
@@ -103,8 +104,33 @@ def test_converters_round_trip_exactly():
 
 
 def test_context_axis_raises():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        SpatioTemporalDiff(BASIS, 5, cp_axis="context")
+    """A context axis of one rank (a world of one, an in-process store): the
+    module built with ``cp_axis`` and bound to the mesh equals the unsharded
+    one bit for bit, forward and gradients; a window whose frames the axis
+    does not split raises."""
+    _, _, tm = video_pair(4)
+    cp = SpatioTemporalDiff(BASIS, cp_axis="context", **SMALL)
+    cp.load_state_dict(tm.state_dict())
+    x, t = (torch.as_tensor(a) for a in inputs(np.random.default_rng(0), 2, SMALL["frames"]))
+    distributed_init(device="cpu")
+    try:
+        cp.bind_mesh(make_mesh((1,), ("context",), device_type="cpu"))
+        assert cp.context.size == 1 and cp.context.group is not None
+        outs = []
+        for model in (tm, cp):
+            model.train()
+            for mod in model.modules():
+                if isinstance(mod, torch.nn.Dropout):
+                    mod.p = 0.0
+            out = model(x, t)
+            out.square().sum().backward()
+            outs.append((out.detach(), {k: p.grad for k, p in model.named_parameters()}))
+        assert torch.equal(outs[0][0], outs[1][0])
+        assert all(torch.equal(g, outs[1][1][k]) for k, g in outs[0][1].items())
+        with pytest.raises(ValueError, match="do not make one"):
+            cp(x[:, :3], t)
+    finally:
+        distributed_shutdown()
 
 
 @pytest.mark.parametrize("s,chunk,masked", [(10, 4, False), (10, 4, True), (6, 8, True)],

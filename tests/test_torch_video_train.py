@@ -25,6 +25,7 @@ from diffpose_tpu_torch.ops import fused_video_train as fvt
 from diffpose_tpu_torch.ops.fused_video import make_video_denoiser_fn
 from diffpose_tpu_torch.ops.philox import philox_masks
 from diffpose_tpu_torch.ops.train_ref import DropoutMasks, make_dropout_masks
+from diffpose_tpu_torch.parallel.mesh import MeshAxis
 from diffpose_tpu_torch.train import optim
 from diffpose_tpu_torch.train.state import TrainState
 from diffpose_tpu_torch.train.video_steps import make_video_eval_step, make_video_train_step
@@ -204,9 +205,17 @@ def test_eval_step_matches_jax(test_times):
 
 
 def test_mesh_axes_raise():
+    """What the mesh axes refuse: the fused and plain train steps (whole
+    windows) under a context axis, and an eval batch whose frames a rank do
+    not make the window over the context axis."""
     _, _, tm = video_pair(16)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_video_eval_step(tm, BETAS, SEQ, cp_axis="context", device="cpu")
+    context = MeshAxis("context", None, 1, 2)
+    step = make_video_eval_step(tm, BETAS, SEQ, cp_axis=context, frames_total=tm.frames,
+                                device="cpu")
+    with pytest.raises(ValueError, match="frames a rank do not make"):
+        step(TrainState.create(tm, None), one_component_windows(tm.frames))
     opt = optim.make_optimizer(tm.parameters(), lr=1e-3)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_video_train_step(tm, opt, BETAS, data_axis="data", device="cpu")
+    for impl in ("fused", "plain"):
+        with pytest.raises(ValueError, match="only impl='module' trains"):
+            make_video_train_step(tm, opt, BETAS, impl=impl, cp_axis=context, device="cpu")
+    make_video_train_step(tm, opt, BETAS, impl="module", cp_axis=context, device="cpu")
