@@ -12,9 +12,10 @@ Run from the root of a checkout, on a host with one NVIDIA H100:
 Phases (each fails loudly; none catches its own failure):
 
 1. build every CUDA source under ``diffpose_tpu_torch/csrc`` (one nvcc per
-   source, all at once) into ``build/``; fail if ptxas reports a spill in
-   any train kernel, any build of ``net_forward_kernel`` (rows 1-3 and the
-   probe's six) or rows 9-10; print their registers and the dynamic shared
+   source, all at once, the tiers' libraries too) into ``build/``; fail if
+   ptxas reports a spill in any train kernel, any build of
+   ``net_forward_kernel`` (rows 1-3 at every tier and the probe's six) or
+   rows 9-10 at every tier; print their registers and the dynamic shared
    memory of rows 1-3 and 9; build rows 9-10 once more with clock stamps
    (``probes/video_phases.py``);
 2. hold each kernel against its plain PyTorch version, on the card, at
@@ -248,6 +249,34 @@ The video family over ``torch.distributed`` at the width of
     cuda:0: every parallel path of the three families, each held to its
     single-process reference, and its OK line.
 
+The reduced tiers of ``--kernel_precision`` (``bf16``: one tensor-core pass
+on bf16 operands, activations rounded to bf16 where the TPU kernels cast
+them; ``default``: one TF32 pass), built into their own libraries
+(``csrc/net_kernel_tiers.cu``, ``csrc/video_kernel_tiers.cu``) in phase 1,
+the utilities and the fast eval:
+
+32. rows 1-3 at each tier against their plain tier versions (row 1 at B=1024
+    and 5120, row 2 at 1024, row 3 at 512), held to the tier's own scale
+    (``TIER_MAX_SHARE``: a kernel and its plain twin round some values
+    apart), each timed (median of 7) beside its one-pass bound, with ptxas'
+    registers (phase 1 fails on a spill); ``make_eval_fn`` at B=1024, tt 1
+    and 5, at each tier and at parity: ms and |dP1| mean and max against the
+    float32 pipeline on the same seeded weights (x2d and the target
+    N(0, 0.3) m, as ``scripts/probe_precision.py``); ``main_frame``
+    eval-only with ``--denoiser_impl fused --kernel_precision bf16``, then
+    ``default`` with ``--matmul_precision default``: only tier kernels ran;
+33. rows 9 and 10 at each tier the same way at 16x81, 5x81 and 2x243, and
+    row 3 at the video shape (1,296 rows, one layer); both tier kernels'
+    occupancy; ``main_video`` eval-only with ``fused_st`` and ``fused_full``
+    at each tier (only tier kernels ran);
+34. the utilities on the card: ``device_memory_budget`` and
+    ``suggest_batch_size(estimate_per_sample_bytes())`` beside the card's
+    name, ``MetricsTracker`` around 5 fused eval batches, ``trace_profile``
+    around one, whose Chrome trace must name the row-1 kernel;
+35. the BigW fast eval (``ops/fast_eval.py``) at B=1024 against the
+    module forward, f32 within 3e-5 (``tests/test_fast_eval.py``) and in
+    bf16, timed beside row 1.
+
 Each family's wall seconds are printed.
 
 The line before the last holds the kernels' JSON record, the last line
@@ -302,7 +331,8 @@ from diffpose_tpu_torch.ops.fused_denoiser import (
 from diffpose_tpu_torch.ops import fused_cheb as fc
 from diffpose_tpu_torch.ops import fused_train as ft
 from diffpose_tpu_torch.ops.fused_graformer import make_graformer_fn
-from diffpose_tpu_torch.probes import (ablate, batched_dot, device_ms, profiled, tf32_gemm, time_ms,
+from diffpose_tpu_torch.probes import (ProfilerBlind, ablate, batched_dot, device_clock, device_ms,
+                                       profiled, profiler_sees_device, tf32_gemm, time_ms,
                                        video_phases)
 from diffpose_tpu_torch.ops.fused_denoiser import _cheb, _layer_norm
 from diffpose_tpu_torch.ops.tf32 import matmul_3xtf32
@@ -402,7 +432,31 @@ CHEB_MODEL_SAMPLES = 8
 # tensor cores, HBM3.
 PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
+# --kernel_precision's tiers: the passes of each tensor-core product and the
+# peak of their operands' type (bf16: bf16 values, one pass; default: one
+# TF32 pass; bf16x3, the parity grade: three TF32 passes).
+TIER_RATES = {"bf16x3": (3, PEAK_TF32), "bf16": (1, PEAK_BF16), "default": (1, PEAK_TF32)}
+TIERS = ("bf16", "default")
+# Phases 32-33: a tier kernel against its plain tier version on the same
+# inputs.  Both round (to bf16, or to TF32 operands) values that their
+# float32 sums, taken in other orders, leave a float32 ulp or so apart, and
+# the tiers are chaotic in that: on the CPU a 1e-7 relative change of the
+# input moves the default tier's two-layer output by a fifth of its own mean
+# distance from float32 (the plain version against itself).  So the kernel is
+# held to the tier's own scale: its largest difference from the plain tier
+# version within TIER_MAX_SHARE of the plain tier version's largest
+# difference from the float32 plain version (an output rounded the other way
+# differs by a whole bf16 ulp, twice the largest rounding error), its mean
+# within TIER_MEAN_SHARE of that mean, and (it did run at the tier) its mean
+# distance from float32 at least TIER_FLOOR_SHARE of the plain tier's.  A
+# kernel at the parity grade, or one that rounds at other places, lands near
+# a mean share of 1.
+TIER_MAX_SHARE, TIER_MEAN_SHARE, TIER_FLOOR_SHARE = 2.0, 0.8, 0.25
+TIER_CLI_FRAMES = 4096            # the tier CLI runs' synthetic frames: one eval batch of 1024
+TIER_CLI_WINDOWS = 64             # the video tier CLI runs' windows: one eval batch of 16
+TOL_FAST = 3e-5                   # tests/test_fast_eval.py: the f32 fast eval against the module
 # Parallelism (phases 25-27): a world of 1 rank (nccl), then of 2 ranks (gloo,
 # both on cuda:0), then the command line under torchrun.
 PAR_STEPS = 3                 # train steps at 1 rank; one fewer at 2
@@ -461,11 +515,12 @@ def net_flops(w, batch: int) -> int:
 
 
 def weight_bytes(w, skip=()) -> int:
-    """Each f32 weight once: not the TF32 parts the kernel reads in their
-    place, nor the timestep MLP (outside the kernels)."""
+    """Each f32 weight once: not the TF32 parts (or a tier's rounded weights)
+    the kernel reads in their place, nor the timestep MLP (outside the kernels)."""
     skip = ("basis", "t0k", "t0b", "t1k", "t1b", "wtp", "btp", *skip)
     return sum(v.numel() * v.element_size() for k, v in w.items()
-               if isinstance(v, torch.Tensor) and k not in skip and not k.endswith("_tf32"))
+               if isinstance(v, torch.Tensor) and k not in skip
+               and not k.endswith(("_tf32", "_1p")))
 
 
 def net_bytes(w, batch: int) -> int:
@@ -476,21 +531,23 @@ def net_bytes(w, batch: int) -> int:
     return weight_bytes(w, ("chebt_ptr", "chebt_idx", "chebt_val")) + 4 * act
 
 
-def tf32_bounds(flops, nbytes: int):
+def tf32_bounds(flops, nbytes: int, tier: str = "bf16x3"):
     """Rows 1-3's least times, ``(ms, by, fp32_ms)``: the channel products at
-    the dense TF32 tensor-core peak, three passes (3xTF32), the rest at the
-    FP32 peak, against the bytes (``train_bounds``' rule); and every
+    the dense TF32 tensor-core peak, three passes (3xTF32; at a reduced
+    ``tier`` its passes at its operands' peak, ``TIER_RATES``), the rest at
+    the FP32 peak, against the bytes (``train_bounds``' rule); and every
     operation at the FP32 peak against the bytes, the bound the earlier
     CUDA-core design was given."""
     prod, rest = flops
-    ops_ms, bytes_ms = 1e3 * (3 * prod / PEAK_TF32 + rest / PEAK_FP32), 1e3 * nbytes / PEAK_BYTES
+    passes, peak = TIER_RATES[tier]
+    ops_ms, bytes_ms = 1e3 * (passes * prod / peak + rest / PEAK_FP32), 1e3 * nbytes / PEAK_BYTES
     ms, by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
     return ms, by, bound_of(prod + rest, nbytes)[0]
 
 
-def bound_ms(w, batch: int):
+def bound_ms(w, batch: int, tier: str = "bf16x3"):
     """Rows 1-2 at ``batch``: ``tf32_bounds``."""
-    return tf32_bounds(net_flops_split(w, batch), net_bytes(w, batch))
+    return tf32_bounds(net_flops_split(w, batch), net_bytes(w, batch), tier)
 
 
 def grad_close(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -963,6 +1020,18 @@ def reset_launch_counts():
     for fn in (fused_lifter, fused_denoiser, fused_backbone, ft.stack_fwd, ft.stack_bwd,
                ft.stack_fwd_prng, ft.stack_bwd_prng, fused_temporal_layer, fused_st_layer):
         fn.launches = 0
+    for fn in TIER_WRAPPERS.values():
+        fn.tier_launches = {t: 0 for t in TIERS}
+
+
+# The wrappers of rows 1-3 and 9-10, which also count their tier launches.
+TIER_WRAPPERS = {"lifter": fused_lifter, "denoiser": fused_denoiser, "backbone": fused_backbone,
+                 "st": fused_st_layer, "temporal": fused_temporal_layer}
+
+
+def tier_launch_counts() -> dict:
+    """Each tier kernel's launches since ``reset_launch_counts``, by tier."""
+    return {t: {k: fn.tier_launches[t] for k, fn in TIER_WRAPPERS.items()} for t in TIERS}
 
 
 def launch_counts() -> dict:
@@ -1115,9 +1184,9 @@ def backbone_bytes(w, batch: int) -> int:
     return weights + 4 * batch * w["hid_dim"] * (2 * w["n_pts"] + w["num_layers"])
 
 
-def backbone_bound(w, batch: int):
+def backbone_bound(w, batch: int, tier: str = "bf16x3"):
     """Row 3 at ``batch``: ``tf32_bounds``."""
-    return tf32_bounds(stack_flops(w, batch), backbone_bytes(w, batch))
+    return tf32_bounds(stack_flops(w, batch), backbone_bytes(w, batch), tier)
 
 
 def implicit_grads(model, draws, impl: str):
@@ -1524,20 +1593,20 @@ def temporal_bytes(rows: int, frames: int, hid: int = 96) -> int:
     return weights + 2 * 4 * rows * frames * hid
 
 
-def temporal_bound(rows: int, frames: int):
+def temporal_bound(rows: int, frames: int, tier: str = "bf16x3"):
     """Row 10's bound, ``tf32_bounds``' ``(ms, by, fp32_ms)``, and its operations."""
     flops = temporal_flops(rows, frames)
-    return tf32_bounds(flops, temporal_bytes(rows, frames)), sum(flops)
+    return tf32_bounds(flops, temporal_bytes(rows, frames), tier), sum(flops)
 
 
-def st_bound(w, windows: int, frames: int):
+def st_bound(w, windows: int, frames: int, tier: str = "bf16x3"):
     """Row 9's bound, ``tf32_bounds``' ``(ms, by, fp32_ms)``: row 3's layer at
     B·F frames plus row 10 at B·17 rows, each split as theirs; and its
     operations and bytes."""
     prod, rest = stack_flops(w, windows * frames)
     tprod, trest = temporal_flops(windows * 17, frames)
     by = backbone_bytes(w, windows * frames) + temporal_bytes(windows * 17, frames)
-    return tf32_bounds((prod + tprod, rest + trest), by), prod + tprod + rest + trest, by
+    return tf32_bounds((prod + tprod, rest + trest), by, tier), prod + tprod + rest + trest, by
 
 
 def video_work(windows: int, frames: int):
@@ -1958,13 +2027,14 @@ def cheb_shape(name, x, w, b, gconst, card, timed=True):
     with torch.no_grad():
         rec["ms"] = time_ms(lambda: fc._launch(x, w, b, gconst))
         rec["device_ms"] = device_ms(lambda: fc._launch(x, w, b, gconst), "cheb_kernel")
+        rec["device_clock"] = device_clock()
         rec["plain_ms"] = time_ms(lambda: fc.cheb_conv_plain(x, w, b, basis))
         rec["library_ms"] = time_ms(lambda: torch.einsum("knm,bmc,kcd->bnd", basis, x, w) + b)
     rec["bound_ms"], rec["bound_by"], rec["bound_ms_fp32"] = cheb_bound(
         bsz, n, c, d, k1, gconst["cheb_nnz"], plan["kernel"] == "wide")
     print(f"row 4 {name:>9s} {c:3d}->{d:3d} N={n} B={bsz:5d}: kernel {rec['ms']:.4f} ms (device "
-          f"{rec['device_ms']:.4f})  plain {rec['plain_ms']:.4f} ms  einsum {rec['library_ms']:.4f} "
-          f"ms  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+          f"{rec['device_ms']:.4f} by {rec['device_clock']})  plain {rec['plain_ms']:.4f} ms  "
+          f"einsum {rec['library_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
           f"{100 * rec['bound_ms'] / rec['device_ms']:.1f}% of the device time)  FP32-only bound "
           f"{rec['bound_ms_fp32']:.4f} ms ({100 * rec['bound_ms_fp32'] / rec['device_ms']:.1f}%)  "
           f"[{card}]")
@@ -1976,7 +2046,8 @@ def chebconv_device_ms(fn, model, x, per_call: int, reps: int = 5):
     over ``reps`` calls: of row 4's kernels inside the fused forward
     ``fn(x)``, and of the kernels that the module's ChebGraphConvs launch
     inside ``model(x)`` (each ChebGraphConv's call is a ``record_function``
-    range, set by hooks)."""
+    range, set by hooks).  Both are None where the profiler is not trusted
+    in this process: CUDA events cannot split a forward by kernel."""
     from torch.profiler import record_function
 
     def run(f):
@@ -1985,9 +2056,12 @@ def chebconv_device_ms(fn, model, x, per_call: int, reps: int = 5):
                 f(x)
         return calls
 
-    with torch.no_grad():
-        row4 = profiled(run(fn), lambda e: e.device_type.name == "CUDA" and "cheb_kernel" in e.name,
-                        per_call * reps)
+    try:
+        with torch.no_grad():
+            row4 = profiled(run(fn), lambda e: e.device_type.name == "CUDA" and "cheb_kernel" in e.name,
+                            per_call * reps)
+    except ProfilerBlind:
+        return None, None
     fused_ms = sum(e.device_time_total for e in row4) / 1e3 / reps
 
     ranges, hooks = [], []
@@ -2006,6 +2080,8 @@ def chebconv_device_ms(fn, model, x, per_call: int, reps: int = 5):
         with torch.no_grad():
             convs = profiled(run(model), lambda e: e.device_type.name == "CPU" and e.name == "ChebGraphConv",
                              per_call * reps, cpu=True)
+    except ProfilerBlind:
+        return None, None
     finally:
         for h in hooks:
             h.remove()
@@ -2080,13 +2156,18 @@ def graformer_phases(dev, gen, g, card):
     counts = {"input": 1, "residual": 2 * model.num_layers, "output": 1}
     launch_bound = sum(counts[k] * row4[k]["bound_ms"] for k in convs)
     launch_bound_fp32 = sum(counts[k] * row4[k]["bound_ms_fp32"] for k in convs)
+    if launch_ms is None:
+        launch_txt = conv_txt = "not measured (torch.profiler is not trusted in this process)"
+    else:
+        launch_txt, conv_txt = f"{launch_ms:.4f} ms", f"{module_conv_ms:.4f} ms"
     print(f"GraFormer forward B={bsz}: module {module_ms:.4f} ms, fused {fused_ms:.4f} ms "
           f"({bsz / fused_ms * 1e3:.1f} poses/s); device time a forward (torch.profiler): "
-          f"its {per_call} row-4 launches {launch_ms:.4f} ms against a bound of "
+          f"its {per_call} row-4 launches {launch_txt} against a bound of "
           f"{launch_bound:.4f} ms (FP32-only {launch_bound_fp32:.4f}), the module's {per_call} "
-          f"ChebGraphConvs {module_conv_ms:.4f} ms  [{card}]")
+          f"ChebGraphConvs {conv_txt}  [{card}]")
     mid = row4["residual"]
     others = {f"{k[0]}_N{k[1]}": {f: v[f] for f in ("c_in", "d_out", "batch", "ms", "device_ms",
+                                                     "device_clock",
                                                      "plain_ms", "library_ms", "bound_ms",
                                                      "bound_by", "bound_ms_fp32", "plan",
                                                      "max_abs_err")}
@@ -2096,7 +2177,8 @@ def graformer_phases(dev, gen, g, card):
     return dict(name="cheb_kernel", route="cuda", source="diffpose_tpu_torch/csrc/cheb_kernel.cu",
                 replaces="diffpose_tpu/ops/pallas_cheb.py:48", launches=launches,
                 max_abs_err=max(v["max_abs_err"] for v in every), ms=mid["ms"],
-                device_ms=mid["device_ms"], plain_ms=mid["plain_ms"], bound_ms=mid["bound_ms"],
+                device_ms=mid["device_ms"], device_clock=mid["device_clock"],
+                plain_ms=mid["plain_ms"], bound_ms=mid["bound_ms"],
                 bound_by=mid["bound_by"], bound_ms_fp32=mid["bound_ms_fp32"],
                 library_ms=mid["library_ms"], plan=mid["plan"],
                 ptxas={k: f"{v}; {spills[k]}" for k, v in usage.items()},
@@ -2248,6 +2330,7 @@ def attention_probe_phases(card):
                 replaces="scripts/probe_batched_dot.py:22", launches=launches,
                 max_abs_err=max(r["3xtf32"]["max_abs_err"] for r in res.values()),
                 ms=first["3xtf32"]["ms"], device_ms=first["3xtf32"]["device_ms"],
+                device_clock=first["3xtf32"]["device_clock"],
                 plain_ms=first["plain_ms"], bound_ms=first["bound_ms"], bound_by=first["bound_by"],
                 bound_ms_fp32=first["bound_ms_fp32"], library_ms=first["library_ms"],
                 library_what="scaled_dot_product_attention(q, k, v, scale=1.0)",
@@ -2714,6 +2797,307 @@ def video_parallel_phases(dev, basis, gen, card):
     return launches, secs
 
 
+# ---------------------------------------------------------------------------
+# The reduced kernel tiers (phases 32-33), the utilities (34), the fast eval (35)
+# ---------------------------------------------------------------------------
+
+
+def tier_held(got, plain, f32, what: str) -> dict:
+    """A tier kernel's output against its plain tier version and the float32
+    plain version (``TIER_MAX_SHARE`` and its siblings say why these bounds);
+    returns the numbers."""
+    d, t = (got - plain).abs(), (plain - f32).abs()
+    k32 = float((got - f32).abs().mean())
+    rec = dict(max_abs_err=float(d.max()), mean_abs_err=float(d.mean()),
+               tier_max_from_f32=float(t.max()), tier_mean_from_f32=float(t.mean()),
+               kernel_mean_from_f32=k32)
+    print(f"  {what}: max|kernel-plain| {rec['max_abs_err']:.3e} (plain tier from f32 "
+          f"{rec['tier_max_from_f32']:.3e}), mean {rec['mean_abs_err']:.3e} (from f32 "
+          f"{rec['tier_mean_from_f32']:.3e}; kernel from f32 {k32:.3e})")
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    check(rec["max_abs_err"] <= TIER_MAX_SHARE * rec["tier_max_from_f32"]
+          and rec["mean_abs_err"] <= TIER_MEAN_SHARE * rec["tier_mean_from_f32"]
+          and k32 >= TIER_FLOOR_SHARE * rec["tier_mean_from_f32"],
+          f"{what}: the tier kernel is not within its tier's bounds of its plain version: {rec}")
+    return rec
+
+
+def p1_mm(pred, target):
+    """Per-sample root-centred P1 in mm (``scripts/probe_precision.py:p1``)."""
+    pred, target = pred - pred[:, :1], target - target[:, :1]
+    return 1000.0 * (pred - target).norm(dim=-1).mean(dim=-1)
+
+
+def tier_net_phases(dev, basis, wp, wd, g, card):
+    """Phase 32: rows 1-3 at both reduced tiers against their plain tier
+    versions, timed beside their one-pass bounds; make_eval_fn per tier with
+    |dP1| against the float32 pipeline; main_frame eval-only at each tier.
+    Returns the tiers records of rows 1, 2 and 3 (row 3's at B=512)."""
+    from diffpose_tpu_torch.cli import main_frame
+    from diffpose_tpu_torch.ops import fused_denoiser as fd
+
+    recs = {"lifter": {}, "denoiser": {}, "backbone": {}}
+    x5 = torch.randn((BATCH * 5, 17, 5), generator=g, device=dev)
+    x2 = torch.randn((BATCH, 17, 2), generator=g, device=dev)
+    t5 = torch.randint(0, len(BETAS), (BATCH * 5,), generator=g, device=dev).float()
+    z = torch.randn((512, 17, 96), generator=g, device=dev)
+    tpz = torch.randn((wd["num_layers"], 512, 96), generator=g, device=dev)
+    with torch.no_grad():
+        tp5 = timestep_projections(wd, t5)
+        f32 = {"lifter": net_plain(wp, x2), "denoiser": net_plain(wd, x5, tp5),
+               "backbone": backbone_plain(wd, z, tpz)}
+        for tier in TIERS:
+            wpt, wdt = fd.tier_weights(wp, tier), fd.tier_weights(wd, tier)
+            wbt = fd.tier_weights(wd, tier, ends=False)
+            print(f"phase 32, tier {tier}: rows 1-3 against their plain {tier} versions")
+            cases = (("lifter", BATCH, lambda b: fd._launch(wpt, x2, None),
+                      lambda b: net_plain(wpt, x2), lambda b: bound_ms(wpt, b, tier)),
+                     ("denoiser", BATCH, lambda b: fd._launch(wdt, x5[:b], tp5[:, :b].contiguous()),
+                      lambda b: net_plain(wdt, x5[:b], tp5[:, :b]), lambda b: bound_ms(wdt, b, tier)),
+                     ("denoiser", BATCH * 5, lambda b: fd._launch(wdt, x5, tp5),
+                      lambda b: net_plain(wdt, x5, tp5), lambda b: bound_ms(wdt, b, tier)),
+                     ("backbone", 512, lambda b: fd._launch_backbone(wbt, z, tpz),
+                      lambda b: backbone_plain(wbt, z, tpz), lambda b: backbone_bound(wbt, b, tier)))
+            for which, b, launch, plain, bound in cases:
+                got = launch(b)
+                torch.cuda.synchronize()
+                ref = f32[which] if which != "denoiser" or b == BATCH * 5 else f32[which][:b]
+                rec = tier_held(got, plain(b), ref, f"row {({'denoiser': 1, 'lifter': 2, 'backbone': 3})[which]} "
+                                f"({which}) B={b}")
+                ms = time_ms(lambda: launch(b))
+                bms, by, _ = bound(b)
+                print(f"    ms {ms:.4f} (median of 7)  one-pass bound {bms:.4f} ms ({by}; "
+                      f"{100 * bms / ms:.1f}%)  [{card}]")
+                if b in (BATCH, 512):
+                    entry = {"lifter": "ILb0ELb1ELi2ELi3E", "denoiser": "ILb1ELb1ELi5ELi5E",
+                             "backbone": "ILb1ELb0ELi96ELi96E"}[which]
+                    regs = next(v for k, v in ptxas_usage("net_kernel_tiers").items()
+                                if entry in k and k.split(entry)[1].startswith(
+                                    f"Li0ELi{1 if tier == 'bf16' else 2}E"))
+                    recs[which][tier] = dict(rec, ms=ms, bound_ms=bms, bound_by=by, batch=b,
+                                             ptxas=regs)
+                else:
+                    recs[which][tier].update(ms_b5120=ms, bound_ms_b5120=bms,
+                                             max_abs_err_b5120=rec["max_abs_err"])
+
+        # make_eval_fn at tt 1 and 5 per tier: ms and |dP1| against the f32 pipeline
+        x2d = 0.3 * torch.randn((BATCH, 17, 2), generator=g, device=dev)
+        target = 0.3 * torch.randn((BATCH, 17, 3), generator=g, device=dev)
+        dp1 = {}
+        for tt in TEST_TIMES:
+            pipe = functools.partial(lift_and_denoise, x2d=x2d, seq=SEQ, betas=BETAS, test_times=tt)
+            ref = p1_mm(pipe(functools.partial(lifter_plain, wp),
+                             functools.partial(denoiser_plain, wd)), target)
+            for tier in ("bf16x3", *TIERS):
+                wpt, wdt = fd.tier_weights(wp, tier), fd.tier_weights(wd, tier)
+                fn = make_eval_fn(basis, seq=SEQ, betas=BETAS, test_times=tt, tier=tier)
+                out = fn(wpt, wdt, x2d)
+                d = (p1_mm(out, target) - ref).abs()
+                ms = time_ms(lambda: fn(wpt, wdt, x2d), reps=5)
+                dp1[(tier, tt)] = dict(ms=ms, dp1_mean_mm=float(d.mean()), dp1_max_mm=float(d.max()))
+                print(f"make_eval_fn b={BATCH} tt={tt} tier {tier}: {ms:.4f} ms, "
+                      f"{BATCH / ms * 1e3:.1f} frames/s; |dP1| against the f32 pipeline mean "
+                      f"{float(d.mean()):.4f} mm, max {float(d.max()):.4f} mm  [{card}]")
+                check(bool(torch.isfinite(out).all()), f"make_eval_fn tier {tier} tt={tt}")
+
+    # main_frame eval-only at each tier (the tiers' main path)
+    exp = Path(tempfile.mkdtemp(prefix="chip_smoke_tiers_"))
+    common = ["--config", CLI_CONFIG, "--exp", str(exp), "--ni", "--synthetic_frames",
+              str(TIER_CLI_FRAMES), "--batch_size", str(BATCH), "--denoiser_impl", "fused"]
+    cli = {}
+    for tier, extra in (("bf16", []), ("default", ["--matmul_precision", "default"])):
+        reset_launch_counts()
+        check(main_frame.main(common + ["--doc", f"eval_{tier}", "--kernel_precision", tier, *extra])
+              == 0, f"main_frame eval-only --kernel_precision {tier} failed")
+        torch.cuda.synchronize()
+        counts = tier_launch_counts()
+        print(f"main_frame eval-only --kernel_precision {tier} {' '.join(extra)}: tier launches "
+              f"{counts[tier]}, P1/P2 {logged_errors(exp / f'eval_{tier}' / 'stdout.txt')[-1]}")
+        check(counts[tier]["lifter"] > 0 and counts[tier]["denoiser"] > 0
+              and fused_lifter.launches == 0 and fused_denoiser.launches == 0,
+              f"main_frame at {tier} ran the parity kernels or no tier kernel: {counts}, "
+              f"parity {fused_lifter.launches, fused_denoiser.launches}")
+        cli[tier] = counts[tier]
+    logging.getLogger().handlers.clear()
+    shutil.rmtree(exp)
+    for which in recs:
+        for tier in TIERS:
+            recs[which][tier]["launches"] = cli[tier][which]
+    return recs, dp1
+
+
+def tier_video_phases(dev, basis, gen, g, card):
+    """Phase 33: rows 9-10 (and row 3 at 1,296 video rows) at both reduced
+    tiers against their plain tier versions at 16x81, 5x81 and 2x243, timed
+    beside their one-pass bounds; main_video eval-only with fused_st and
+    fused_full at each tier.  Returns the tiers records of rows 3 (video
+    shape), 9 and 10."""
+    from diffpose_tpu_torch.cli import main_video
+    from diffpose_tpu_torch.ops import fused_video_full as fv
+
+    recs = {"st": {t: {} for t in TIERS}, "temporal": {t: {} for t in TIERS},
+            "backbone": {t: {} for t in TIERS}}
+    with torch.no_grad():
+        for frames, windows in VIDEO_SHAPES:
+            m = seeded_video(basis, dev, gen, frames)
+            vw = fv.prepare_video_weights(m, dev)
+            x = torch.randn((windows, frames, 17, 5), generator=g, device=dev)
+            t = torch.randint(0, len(BETAS), (windows,), generator=g, device=dev).float()
+            h = fv.embed(vw, x)
+            tp = fv.spatial_projections(vw["spatial"], t, frames)[1]
+            ht = fv.to_rows(h).contiguous()
+            hs = h.reshape(windows * frames, 17, -1)
+            f32 = {"temporal": fv.temporal_layer_plain(vw["temporal"], ht, 1),
+                   "st": fv.st_layer_plain(vw["layers"], vw["temporal"], h, tp, 1),
+                   "backbone": backbone_plain(vw["layers"][1], hs, tp)}
+            for tier in TIERS:
+                vt = fv.video_tier_weights(vw, tier)
+                lw, tw = vt["layers"], vt["temporal"]
+                print(f"phase 33, tier {tier}, F={frames} windows={windows}:")
+                cases = (("temporal", lambda: fv._launch_temporal(tw, ht, 1),
+                          lambda: fv.temporal_layer_plain(tw, ht, 1),
+                          lambda: temporal_bound(windows * 17, frames, tier)[0]),
+                         ("st", lambda: fv._launch_st(lw, tw, h, tp, 1),
+                          lambda: fv.st_layer_plain(lw, tw, h, tp, 1),
+                          lambda: st_bound(lw[1], windows, frames, tier)[0]),
+                         ("backbone", lambda: _launch_backbone(lw[1], hs, tp),
+                          lambda: backbone_plain(lw[1], hs, tp),
+                          lambda: backbone_bound(lw[1], windows * frames, tier)))
+                for which, launch, plain, bound in cases:
+                    if which == "backbone" and (frames, windows) != (VIDEO_FRAMES, VIDEO_BATCH):
+                        continue
+                    got = launch()
+                    torch.cuda.synchronize()
+                    row = {"temporal": 10, "st": 9, "backbone": 3}[which]
+                    rec = tier_held(got, plain(), f32[which], f"row {row}")
+                    ms = time_ms(launch)
+                    bms, by, _ = bound()
+                    print(f"    ms {ms:.4f} (median of 7)  one-pass bound {bms:.4f} ms ({by}; "
+                          f"{100 * bms / ms:.1f}%)  [{card}]")
+                    tag = f"{windows}x{frames}"
+                    if (frames, windows) == (VIDEO_FRAMES, VIDEO_BATCH):
+                        recs[which][tier].update(rec, ms=ms, bound_ms=bms, bound_by=by, shape=tag)
+                    else:
+                        recs[which][tier].update({f"ms_{tag}": ms, f"bound_ms_{tag}": bms,
+                                                  f"max_abs_err_{tag}": rec["max_abs_err"]})
+        for tier in TIERS:
+            for which, kernel in (("temporal", "temporal"), ("st", "st")):
+                occ = fv.kernel_occupancy(dev, kernel, tier)
+                recs[which][tier]["occupancy"] = occ
+            usage = ptxas_usage("video_kernel_tiers")
+            code = 1 if tier == "bf16" else 2
+            for which, name in (("temporal", "temporal_kernel"), ("st", "st_layer_kernel")):
+                recs[which][tier]["ptxas"] = next(v for k, v in usage.items()
+                                                  if f"{name}ILi{code}E" in k)
+
+    exp = Path(tempfile.mkdtemp(prefix="chip_smoke_video_tiers_"))
+    common = ["--config", VIDEO_CONFIG, "--exp", str(exp), "--ni", "--synthetic_windows",
+              str(TIER_CLI_WINDOWS)]
+    for tier in TIERS:
+        for impl, kernels in (("fused_st", ("backbone", "temporal")), ("fused_full", ("st",))):
+            reset_launch_counts()
+            check(main_video.main(common + ["--doc", f"{impl}_{tier}", "--denoiser_impl", impl,
+                                            "--kernel_precision", tier]) == 0,
+                  f"main_video eval-only {impl} --kernel_precision {tier} failed")
+            torch.cuda.synchronize()
+            counts = tier_launch_counts()[tier]
+            print(f"main_video eval-only {impl} --kernel_precision {tier}: tier launches {counts}, "
+                  f"P1/P2 {logged_errors(exp / f'{impl}_{tier}' / 'stdout.txt')[-1]}")
+            check(all(counts[k] > 0 for k in kernels) and fused_st_layer.launches == 0
+                  and fused_temporal_layer.launches == 0 and fused_backbone.launches == 0,
+                  f"main_video {impl} at {tier}: {counts}")
+            for k in kernels:
+                recs[k][tier]["launches"] = recs[k][tier].get("launches", 0) + counts[k]
+    logging.getLogger().handlers.clear()
+    shutil.rmtree(exp)
+    return recs
+
+
+def utils_phases(dev, basis, wp, wd, g, card):
+    """Phase 34: the utilities on the card: the memory budget and the batch
+    it suggests, MetricsTracker around fused eval batches, trace_profile
+    around one, whose trace must name the row-1 kernel."""
+    from diffpose_tpu_torch.utils import MetricsTracker, trace_profile
+    from diffpose_tpu_torch.utils.memory import (device_memory_budget, estimate_per_sample_bytes,
+                                                 suggest_batch_size)
+
+    budget = device_memory_budget(dev)
+    batch = suggest_batch_size(estimate_per_sample_bytes(), device=dev)
+    print(f"phase 34: device_memory_budget {budget} bytes ({budget / 2 ** 30:.2f} GiB), "
+          f"suggest_batch_size(estimate_per_sample_bytes()) {batch}  [{card}]")
+    check(budget > 0 and batch % 8 == 0 and 8 <= batch <= 65536, "memory utilities")
+    fn = make_eval_fn(basis, seq=SEQ, betas=BETAS, test_times=1)
+    x2d = torch.randn((BATCH, 17, 2), generator=g, device=dev)
+    tracker = MetricsTracker()
+    with torch.no_grad():
+        fn(wp, wd, x2d)
+        for _ in range(5):
+            tracker.start()
+            out = fn(wp, wd, x2d)
+            tracker.stop(out)              # synchronises on the output
+            tracker.record_memory(dev)
+        tracker.diffusion_step_count = len(SEQ)
+        s = tracker.summary(frames_per_call=BATCH)
+        path = Path(tempfile.mkdtemp(prefix="chip_smoke_utils_"))
+        tracker.write(str(path / "performance_metrics.txt"), frames_per_call=BATCH)
+        print(f"MetricsTracker over 5 fused eval batches (B={BATCH}, tt=1): {s}  [{card}]")
+        check(s["frames_per_second"] > 0 and s["memory_mb_peak"] > 0
+              and "Performance Metrics" in (path / "performance_metrics.txt").read_text(),
+              f"MetricsTracker summary {s}")
+        sees = profiler_sees_device()
+        found = False
+        for attempt in range(3 if sees else 1):   # the profiler now and then loses a kernel's record
+            with trace_profile(str(path / "trace")):
+                fn(wp, wd, x2d)
+            names = {e.get("name", "") for e in
+                     json.loads((path / "trace" / "trace.json").read_text())["traceEvents"]}
+            found = any("net_forward_kernel" in n for n in names)
+            if found:
+                break
+        print(f"trace_profile: {len(names)} event names, the row-1 kernel named: {found} "
+              f"(attempt {attempt + 1})")
+        if sees:
+            check(found, "trace_profile's trace names no net_forward_kernel")
+        else:   # the profiler lost kernel records in this process: only the host side is held
+            print("trace_profile: torch.profiler is not trusted in this process; the trace's "
+                  "kernel names not checked, its host events are")
+            check(any("aten::" in n for n in names), "trace_profile's trace holds no host event")
+    shutil.rmtree(path)
+    return dict(budget_bytes=budget, suggested_batch=batch, tracker=s)
+
+
+def fast_eval_phases(dev, pose, diff, wd, g, card):
+    """Phase 35: the BigW fast eval at B=1024 against the module forward (f32
+    within TOL_FAST) and in bf16, timed beside row 1."""
+    from diffpose_tpu_torch.ops import make_fast_denoiser, make_fast_lifter
+
+    x = torch.randn((BATCH, 17, 5), generator=g, device=dev)
+    x2 = torch.randn((BATCH, 17, 2), generator=g, device=dev)
+    t = torch.randint(0, len(BETAS), (BATCH,), generator=g, device=dev).float()
+    rec = {}
+    with torch.no_grad():
+        want, want2 = diff(x, t), pose(x2)
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            den = make_fast_denoiser(diff, dtype=dtype, device=dev)
+            lift = make_fast_lifter(pose, dtype=dtype, device=dev)
+            got, got2 = den(x, t), lift(x2)
+            e, e2 = max_err(got, want), max_err(got2, want2)
+            ms = time_ms(lambda: den(x, t))
+            rec[name] = dict(max_abs_err=e, lifter_max_abs_err=e2, ms=ms)
+            print(f"phase 35: fast eval {name} B={BATCH}: denoiser max|fast-module| {e:.3e}, lifter "
+                  f"{e2:.3e}, |out| max {float(want.abs().max()):.3f}; {ms:.4f} ms a denoiser call  "
+                  f"[{card}]")
+            check(got.dtype == torch.float32 and bool(torch.isfinite(got).all()), f"fast eval {name}")
+            if name == "f32":
+                check(e <= TOL_FAST and e2 <= TOL_FAST, f"fast eval f32 against the module: {e}, {e2}")
+        tp = timestep_projections(wd, t)
+        rec["row1_ms"] = time_ms(lambda: _launch(wd, x, tp))
+    print(f"  row 1 at B={BATCH}: {rec['row1_ms']:.4f} ms; fast f32 / row 1 "
+          f"{rec['f32']['ms'] / rec['row1_ms']:.2f}, fast bf16 / row 1 "
+          f"{rec['bf16']['ms'] / rec['row1_ms']:.2f}  [{card}]")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
@@ -2724,6 +3108,8 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    print(f"torch.profiler records this process's kernels: {profiler_sees_device()}; device times "
+          f"by {device_clock()} until a trace loses a record")
 
     # 1. build (and the clock-stamped build of rows 9-10 that phase 17 reads)
     t0 = time.perf_counter()
@@ -2743,7 +3129,8 @@ def main() -> int:
     # every build of net_forward_kernel (rows 1-3 and the probe's six), row 9,
     # whose spatial phase is its layer, and rows 4 and 12 (registers: the lines above)
     for name, entries in (("net_kernel", 3), ("probe_kernel", 6), ("video_kernel", 2),
-                          ("cheb_kernel", 7), ("probe_attention", 2)):
+                          ("cheb_kernel", 7), ("probe_attention", 2), ("net_kernel_tiers", 6),
+                          ("video_kernel_tiers", 4)):
         check_no_spills(name, entries)
     print(f"  dynamic shared memory of every net_forward_kernel build and of row 9: "
           f"{ablate._library().probe_smem_bytes()} bytes")
@@ -2876,6 +3263,13 @@ def main() -> int:
     par_launches = parallel_phases(dev, diff, pose, basis, gen, card)
     t_video_parallel = time.perf_counter()
     video_launches, video_secs = video_parallel_phases(dev, basis, gen, card)
+    t_tiers = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False   # the runners' --matmul_precision restores it
+    with torch.no_grad():
+        net_tiers, dp1 = tier_net_phases(dev, basis, wp, wd, g, card)
+        video_tiers = tier_video_phases(dev, basis, gen, g, card)
+        utils_rec = utils_phases(dev, basis, wp, wd, g, card)
+        fast = fast_eval_phases(dev, pose, diff, wd, g, card)
     t_end = time.perf_counter()
     video = video_runs["train"]
     for rec, key in zip(prng_records, ("fwd_prng", "bwd_prng")):
@@ -2895,9 +3289,22 @@ def main() -> int:
                            video_launches=video["backbone"], ptxas=net_ptxas("backbone"),
                            **row3_video))
     kernels.append(dict(row9, launches=video_runs["fused_full"]["st"],
-                        main_path="main_video eval-only --denoiser_impl fused_full"))
+                        main_path="main_video eval-only --denoiser_impl fused_full",
+                        tiers=video_tiers["st"]))
     kernels.append(dict(row10, launches=video_runs["fused_st"]["temporal"],
-                        main_path="main_video eval-only --denoiser_impl fused_st"))
+                        main_path="main_video eval-only --denoiser_impl fused_st",
+                        tiers=video_tiers["temporal"]))
+    # rows 1-3's tiers (phase 32; row 3 also at the video shape, phase 33)
+    for rec, which in zip(kernels[:3], ("lifter", "denoiser", "backbone")):
+        rec["tiers"] = net_tiers[which]
+        if which == "backbone":   # its tier main path: main_video eval-only fused_st
+            for tier in TIERS:
+                vt = video_tiers["backbone"][tier]
+                rec["tiers"][tier].update(ms_video=vt["ms"], bound_ms_video=vt["bound_ms"],
+                                          max_abs_err_video=vt["max_abs_err"],
+                                          launches=vt["launches"])
+    kernels[1]["eval_tiers"] = {f"{t}_tt{tt}": v for (t, tt), v in dp1.items()}
+    kernels[1]["fast_eval"] = fast
     kernels += [row4, row11, row12]
     # each kernel's launches on one rank of phase 26's 2-rank world, by step, and of
     # phases 29-30's video worlds, by path
@@ -2915,7 +3322,8 @@ def main() -> int:
           f"implicit (12-16) {t_video - t_implicit:.1f}, video (17-21) {t_graformer - t_video:.1f}, "
           f"GraFormer and probes (22-24) {t_parallel - t_graformer:.1f}, parallelism (25-27) "
           f"{t_video_parallel - t_parallel:.1f}, video parallelism and the dry run (28-31) "
-          f"{t_end - t_video_parallel:.1f} (by phase {video_secs})")
+          f"{t_tiers - t_video_parallel:.1f} (by phase {video_secs}), the tiers, the utilities "
+          f"and the fast eval (32-35) {t_end - t_tiers:.1f}")
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -104,8 +104,11 @@ def add_common_flags(parser: argparse.ArgumentParser):
     parser.add_argument("--matmul_precision", default="float32",
                         choices=("float32", "BF16_BF16_F32_X3", "default"),
                         help="matmul grade of the torch operations around the kernels "
-                        "(train and module eval): float32 (strict parity, TF32 off).  "
-                        "The reduced tiers are not ported yet: they raise")
+                        "(train and eval), set by each runner around its own train and "
+                        "eval: float32 (strict parity, TF32 off); default (TF32 on, the "
+                        "card's single pass, as JAX's default on a GPU); "
+                        "BF16_BF16_F32_X3 computes at the float32 grade (PyTorch has no "
+                        "three-pass split of an f32 product)")
     parser.add_argument("--exec_cache", action="store_true",
                         help="accepted for the JAX package's command lines: the "
                         "kernels' build cache under build/ plays its part")
@@ -114,8 +117,12 @@ def add_common_flags(parser: argparse.ArgumentParser):
                         help="kernel matmul grade: bf16x3 names the parity (f32) "
                         "grade, which the CUDA kernels compute as 3xTF32 on the tensor "
                         "cores (rows 1-3, 5-10 and row 4's wide path; row 4's narrow "
-                        "paths in f32 FMA).  The reduced tiers are not ported yet: they "
-                        "raise")
+                        "paths in f32 FMA).  The eval kernels (rows 1-3, 9-10) also "
+                        "run bf16 (one tensor-core pass on bf16 operands, activations "
+                        "rounded to bf16 where the TPU kernels cast them) and default "
+                        "(one TF32 pass).  The train kernels (rows 5-8) have no reduced "
+                        "tier yet: bf16 or default with --train_impl fused or plain "
+                        "raises; --train_impl module trains at any tier")
     parser.add_argument("--denoiser_impl", default="module",
                         choices=("module", "fused", "pallas", "fused_st", "pallas_st",
                                  "fused_full", "pallas_full"),

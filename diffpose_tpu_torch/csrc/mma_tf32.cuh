@@ -6,6 +6,10 @@
 //                     small = tf32(x - big), rounded as cvt.rna.tf32.f32
 //                     rounds (to nearest, ties away from zero);
 //                     diffpose_tpu_torch/ops/tf32.py is the plain version;
+//   to_bf16 / round_bf16 : x rounded to bf16 (to nearest, ties to even, as
+//                     the TPU kernels' .astype(bfloat16) and torch's
+//                     conversion round), exact in TF32;
+//   operand<TIER>   : an operand of a one-pass product tier (Tier below);
 //   mma             : d += A B for one m16n8k8 TF32 tile, f32 accumulation;
 //   mma3            : d += A B at 3xTF32 from split operands, the three passes
 //                     (small*big, big*small, big*big: the Hopper counterpart
@@ -27,6 +31,15 @@
 
 namespace tf32 {
 
+// The arithmetic of a product, the kernels' TIER template argument (the
+// counterparts of the TPU kernels' --kernel_precision, pallas_denoiser.py:_dot):
+//   TIER_3XTF32  bf16x3, the parity grade: three TF32 passes on split operands;
+//   TIER_BF16    bf16: operands rounded to bf16, one pass, f32 accumulation
+//                (a bf16 value and the product of two are exact in TF32 and
+//                f32, so the TF32 mma.sync gives bf16 mma.sync's products);
+//   TIER_1XTF32  default: operands rounded to TF32, one pass.
+constexpr int TIER_3XTF32 = 0, TIER_BF16 = 1, TIER_1XTF32 = 2;
+
 // x rounded to TF32 as cvt.rna.tf32.f32 does it (round to nearest, ties away
 // from zero; the same bits for every finite x), in two full-rate integer
 // operations where the conversion instruction issues at a fraction of the rate.
@@ -38,6 +51,22 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
 __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
   big = to_tf32(x);
   small = to_tf32(x - __uint_as_float(big));
+}
+
+// x rounded to bf16 (to nearest, ties to even; the same bits for every finite x).
+__device__ __forceinline__ uint32_t to_bf16(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
+}
+
+__device__ __forceinline__ float round_bf16(float x) { return __uint_as_float(to_bf16(x)); }
+
+// An operand of a one-pass tier's product, as the tensor cores read it.
+template <int TIER>
+__device__ __forceinline__ uint32_t operand(float x) {
+  static_assert(TIER == TIER_BF16 || TIER == TIER_1XTF32, "a one-pass tier");
+  if constexpr (TIER == TIER_BF16) return to_bf16(x);
+  else return to_tf32(x);
 }
 
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {

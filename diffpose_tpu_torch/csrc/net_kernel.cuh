@@ -47,6 +47,19 @@
 // production) leaves parts out for the cost-split probe
 // (csrc/probe_kernel.cu, counterpart of scripts/probe_ablate.py): every
 // `if constexpr` on it is true at 0, so SKIP = 0 compiles today's code.
+//
+// TIER (mma_tf32.cuh; TIER_3XTF32 in net_kernel.cu, the one-pass tiers in
+// net_kernel_tiers.cu) is the --kernel_precision of the TPU kernel
+// (pallas_denoiser.py:_dot and act): the products through tc_gemm at that
+// tier on weights rounded on the host; under TIER_BF16 also the activations
+// rounded to bf16 where _gra_layer_eval and _net_kernel cast to act (QKV,
+// the residual stream after each sublayer, the input ChebConv's output),
+// each attention score a sum of bf16-rounded products q_d k_d (the segment
+// product of bf16 operands) and each probability rounded to bf16.  The
+// LayerNorm statistics, the softmax, the graph mixes and every sum stay f32.
+// The one-pass tiers mix lap . r before the fc2 product, as the TPU kernel
+// does, so that its operand is rounded where the TPU kernel rounds it (the
+// parity grade computes lap . (r W_fc2), a narrower mix).
 #pragma once
 
 #include "tc_gemm.cuh"
@@ -152,7 +165,9 @@ enum MixEpi { kMixStore, kMixStoreBias, kMixReluBiasTp, kMixAddReluBias, kMixAdd
 // over the Chebyshev term list of row n (sparse, all orders k), or over the
 // dense learned adjacency lap[n, m] (DENSE, k = 0); ORDER0 (probe only) takes
 // in[b, n, :W] alone, no mixing.
-template <int W, int LDI, int LDO, MixEpi EPI, bool DENSE, bool ORDER0 = false, int NT = THREADS>
+// RND: the stored value rounded to bf16.
+template <int W, int LDI, int LDO, MixEpi EPI, bool DENSE, bool ORDER0 = false, int NT = THREADS,
+          bool RND = false>
 __device__ __forceinline__ void mix(const float* in, float* out, const int* ptr, const int* idx,
                                     const float* val, const float* lap,
                                     const float* __restrict__ bias,
@@ -184,15 +199,21 @@ __device__ __forceinline__ void mix(const float* in, float* out, const int* ptr,
     }
     float* dst = out + r * LDO + c;
     if constexpr (EPI == kMixAddReluBias || EPI == kMixAddBias) v = add4(ld4(dst), v);
+    if constexpr (RND)
+      v = make_float4(tf32::round_bf16(v.x), tf32::round_bf16(v.y), tf32::round_bf16(v.z),
+                      tf32::round_bf16(v.w));
     st4(dst, v);
   }
 }
 
 // Multi-head attention over the 17 joints of each sample; q is pre-scaled.
 // Thread = (sample, head, query joint): 17 scores, softmax with the max
-// subtracted, then the probability-weighted sum of the value rows.
-template <int NT>
+// subtracted, then the probability-weighted sum of the value rows.  TIER_BF16:
+// each score the f32 sum of the products q_d k_d rounded to bf16, each
+// probability rounded to bf16 (pallas_denoiser.py:_seg_attention on bf16).
+template <int NT, int TIER = tf32::TIER_3XTF32>
 __device__ __forceinline__ void attention(const float* qkv, float* out, int tid) {
+  constexpr bool RND = TIER == tf32::TIER_BF16;
   for (int it = tid; it < TB * HEADS * N_PTS; it += NT) {
     const int n = it % N_PTS;
     const int hd = (it / N_PTS) % HEADS;
@@ -209,10 +230,17 @@ __device__ __forceinline__ void attention(const float* qkv, float* out, int tid)
 #pragma unroll
       for (int d = 0; d < DK / 4; ++d) {
         const float4 kv = ld4(kr + 4 * d);
-        acc = fmaf(q[d].x, kv.x, acc);
-        acc = fmaf(q[d].y, kv.y, acc);
-        acc = fmaf(q[d].z, kv.z, acc);
-        acc = fmaf(q[d].w, kv.w, acc);
+        if constexpr (RND) {
+          acc += tf32::round_bf16(__fmul_rn(q[d].x, kv.x));
+          acc += tf32::round_bf16(__fmul_rn(q[d].y, kv.y));
+          acc += tf32::round_bf16(__fmul_rn(q[d].z, kv.z));
+          acc += tf32::round_bf16(__fmul_rn(q[d].w, kv.w));
+        } else {
+          acc = fmaf(q[d].x, kv.x, acc);
+          acc = fmaf(q[d].y, kv.y, acc);
+          acc = fmaf(q[d].z, kv.z, acc);
+          acc = fmaf(q[d].w, kv.w, acc);
+        }
       }
       s[m] = acc;
     }
@@ -230,7 +258,7 @@ __device__ __forceinline__ void attention(const float* qkv, float* out, int tid)
     for (int d = 0; d < DK / 4; ++d) o[d] = zero4();
 #pragma unroll
     for (int m = 0; m < N_PTS; ++m) {
-      const float p = s[m] / sum;
+      const float p = RND ? tf32::round_bf16(s[m] / sum) : s[m] / sum;
       const float* vr = base + m * LDB + 2 * HID;
 #pragma unroll
       for (int d = 0; d < DK / 4; ++d) fma4(o[d], p, ld4(vr + 4 * d));
@@ -296,34 +324,38 @@ __device__ __forceinline__ void load_cheb(const NetArgs& a, const Tile& s, int t
 // The first slabs of layer l's first channel product (QKV, or fc1 where the
 // probe leaves the attention out) into the ring, which must be free.  Every
 // stack_layer call follows one.
-template <int SKIP = 0, int NT = THREADS>
+template <int SKIP = 0, int NT = THREADS, int TIER = tf32::TIER_3XTF32>
 __device__ __forceinline__ void prefetch_layer(const NetArgs& a, int l, float* ring, int tid) {
+  constexpr int WP = WEIGHT_PARTS<TIER>;
   if constexpr (!(SKIP & kSkipAttn))
-    tc_prefetch<HID, 3 * HID, NET_STAGES, NET_KS, 3 * HID, true, NT>(
-        a.wqkv + static_cast<size_t>(l) * 2 * HID * 3 * HID, ring, tid);
+    tc_prefetch<HID, 3 * HID, NET_STAGES, NET_KS, 3 * HID, true, NT, TIER>(
+        a.wqkv + static_cast<size_t>(l) * WP * HID * 3 * HID, ring, tid);
   else
-    tc_prefetch<HID, 2 * HID, NET_STAGES, NET_KS, 2 * HID, true, NT>(
-        a.wfc1 + static_cast<size_t>(l) * 2 * HID * 2 * HID, ring, tid);
+    tc_prefetch<HID, 2 * HID, NET_STAGES, NET_KS, 2 * HID, true, NT, TIER>(
+        a.wfc1 + static_cast<size_t>(l) * WP * HID * 2 * HID, ring, tid);
 }
 
 // Layer l of the stack on the tile's residual stream h (samples b0 ..
 // b0 + nb - 1), with y, big, the ring and lap as scratch, by NT threads.
-// Starts after a __syncthreads() and prefetch_layer<SKIP, NT>(a, l, ...);
+// Starts after a __syncthreads() and prefetch_layer<SKIP, NT, TIER>(a, l, ...);
 // requests layer l + 1's first slabs where l + 1 < a.num_layers; ends on a
-// __syncthreads().
-template <bool HAS_TEMB, int SKIP, int NT>
+// __syncthreads().  TIER as the file's text says (the weights' parts: WP).
+// NEXT false: a one-layer caller (row 9's spatial phase) that never requests
+// a next layer, whose addresses would otherwise stay live through the layer.
+template <bool HAS_TEMB, int SKIP, int NT, int TIER = tf32::TIER_3XTF32, bool NEXT = true>
 __device__ __forceinline__ void stack_layer(const NetArgs& a, int l, const Tile& s, int b0,
                                             int nb, int tid) {
   constexpr bool ATTN = !(SKIP & kSkipAttn), REST = !(SKIP & kSkipGnetCheb);
   constexpr bool LAP = !(SKIP & kSkipLap), MIX = !(SKIP & kSkipChebMix), LN = !(SKIP & kSkipLn);
   constexpr int NCHEB = MIX ? 3 * HID : HID;  // columns of a residual ChebConv's products
-  constexpr int S = NET_STAGES, KS = NET_KS, NW = NT / 32;
+  constexpr int S = NET_STAGES, KS = NET_KS, NW = NT / 32, WP = WEIGHT_PARTS<TIER>;
+  constexpr bool RND = TIER == tf32::TIER_BF16;   // activations stored as bf16
   float* const h = s.h;
   float* const y = s.y;
   float* const big = s.big;
   float* const ring = s.ring;
   const float* normed = LN ? y : h;           // the LayerNorms' output
-  const size_t wsq = static_cast<size_t>(l) * 2 * HID * HID;  // layer l of [L, 2, HID, HID]
+  const size_t wsq = static_cast<size_t>(l) * WP * HID * HID;  // layer l of [L, WP, HID, HID]
   using EpFc1 = EpSmem<LDB, true, false, true>;               // relu(acc + b) into big + HID
 
   // attention sublayer: h += out_proj(attention(LN1(h)))
@@ -332,20 +364,21 @@ __device__ __forceinline__ void stack_layer(const NetArgs& a, int l, const Tile&
   for (int i = tid; i < N_PTS * N_PTS; i += NT) s.lap[i] = a.lap[l * N_PTS * N_PTS + i];
   __syncthreads();
   if constexpr (ATTN) {
-    tc_gemm<HID, 3 * HID, LDH, S, KS, 3 * HID, true, NT>(normed, a.wqkv + 3 * wsq, ring,
-                                      EpSmem<LDB, true, false>{big, a.bqkv + l * 3 * HID}, tid);
+    tc_gemm<HID, 3 * HID, LDH, S, KS, 3 * HID, true, NT, TIER>(normed, a.wqkv + 3 * wsq, ring,
+                                      EpSmem<LDB, true, false, false, RND>{big, a.bqkv + l * 3 * HID},
+                                      tid);
     __syncthreads();
-    tc_prefetch<HID, HID, S, KS, HID, true, NT>(a.wao + wsq, ring, tid);
-    attention<NT>(big, y, tid);
+    tc_prefetch<HID, HID, S, KS, HID, true, NT, TIER>(a.wao + wsq, ring, tid);
+    attention<NT, TIER>(big, y, tid);
     __syncthreads();
-    tc_gemm<HID, HID, LDH, S, KS, HID, true, NT>(y, a.wao + wsq, ring,
-                                  EpSmem<LDH, true, true>{h, a.bao + l * HID}, tid);
+    tc_gemm<HID, HID, LDH, S, KS, HID, true, NT, TIER>(y, a.wao + wsq, ring,
+                                  EpSmem<LDH, true, true, false, RND>{h, a.bao + l * HID}, tid);
     __syncthreads();
     if constexpr (!REST) {
-      if (l + 1 < a.num_layers) prefetch_layer<SKIP, NT>(a, l + 1, ring, tid);
+      if (NEXT && l + 1 < a.num_layers) prefetch_layer<SKIP, NT, TIER>(a, l + 1, ring, tid);
       return;
     }
-    tc_prefetch<HID, 2 * HID, S, KS, 2 * HID, true, NT>(a.wfc1 + 2 * wsq, ring, tid);
+    tc_prefetch<HID, 2 * HID, S, KS, 2 * HID, true, NT, TIER>(a.wfc1 + 2 * wsq, ring, tid);
   }
 
   // GraphNet sublayer: h += fc2(lap . relu(fc1(lap . LN2(h)))), computed
@@ -358,45 +391,74 @@ __device__ __forceinline__ void stack_layer(const NetArgs& a, int l, const Tile&
     mix<HID, LDH, LDB, kMixStore, true, false, NT>(normed, big, s.cptr, s.cidx, s.cval, s.lap,
                                                    nullptr, nullptr, nb, tid);
     __syncthreads();
-    tc_gemm<HID, 2 * HID, LDB, S, KS, 2 * HID, true, NT>(big, a.wfc1 + 2 * wsq, ring,
+    tc_gemm<HID, 2 * HID, LDB, S, KS, 2 * HID, true, NT, TIER>(big, a.wfc1 + 2 * wsq, ring,
                                       EpFc1{big + HID, a.bfc1 + l * 2 * HID},
                                       tid);
     __syncthreads();
-    tc_prefetch<2 * HID, HID, S, KS, HID, true, NT>(a.wfc2 + 2 * wsq, ring, tid);
-    tc_gemm<2 * HID, HID, LDB, S, KS, HID, true, NT>(big + HID, a.wfc2 + 2 * wsq, ring,
-                                      EpSmem<LDH, false, false>{y, nullptr}, tid);
-    __syncthreads();
-    tc_prefetch<HID, NCHEB, S, KS, 3 * HID, true, NT>(a.wg1 + 3 * wsq, ring, tid);
-    mix<HID, LDH, LDH, kMixAddBias, true, false, NT>(y, h, s.cptr, s.cidx, s.cval, s.lap,
-                                                     a.bfc2 + l * HID, nullptr, nb, tid);
+    if constexpr (TIER == tf32::TIER_3XTF32) {
+      tc_prefetch<2 * HID, HID, S, KS, HID, true, NT, TIER>(a.wfc2 + 2 * wsq, ring, tid);
+      tc_gemm<2 * HID, HID, LDB, S, KS, HID, true, NT, TIER>(big + HID, a.wfc2 + 2 * wsq, ring,
+                                        EpSmem<LDH, false, false>{y, nullptr}, tid);
+      __syncthreads();
+      tc_prefetch<HID, NCHEB, S, KS, 3 * HID, true, NT, TIER>(a.wg1 + 3 * wsq, ring, tid);
+      mix<HID, LDH, LDH, kMixAddBias, true, false, NT>(y, h, s.cptr, s.cidx, s.cval, s.lap,
+                                                       a.bfc2 + l * HID, nullptr, nb, tid);
+    } else {
+      // One pass: lap . relu(fc1) first, so that the fc2 product's operand is
+      // rounded where the TPU kernel rounds it, its 192 columns in two halves
+      // (y and big's first HID columns), the product as two of K = HID.
+      // The halves' prefetches take the thread index made opaque, so that
+      // their addresses are formed here and not held live from the layer's
+      // first prefetch (at 288 threads that spilled a register).
+      const float* w2 = a.wfc2 + 2 * wsq;
+      int tid2 = tid;
+      asm volatile("" : "+r"(tid2));
+      tc_prefetch<HID, HID, S, KS, HID, true, NT, TIER>(w2, ring, tid2);
+      mix<HID, LDB, LDH, kMixStore, true, false, NT>(big + HID, y, s.cptr, s.cidx, s.cval, s.lap,
+                                                     nullptr, nullptr, nb, tid);
+      mix<HID, LDB, LDB, kMixStore, true, false, NT>(big + 2 * HID, big, s.cptr, s.cidx, s.cval,
+                                                     s.lap, nullptr, nullptr, nb, tid);
+      __syncthreads();
+      tc_gemm<HID, HID, LDH, S, KS, HID, true, NT, TIER>(y, w2, ring,
+                                                         EpSmem<LDH, false, true>{h, nullptr}, tid);
+      __syncthreads();
+      asm volatile("" : "+r"(tid2));
+      tc_prefetch<HID, HID, S, KS, HID, true, NT, TIER>(w2 + HID * HID, ring, tid2);
+      tc_gemm<HID, HID, LDB, S, KS, HID, true, NT, TIER>(
+          big, w2 + HID * HID, ring, EpSmem<LDH, true, true, false, RND>{h, a.bfc2 + l * HID}, tid);
+      __syncthreads();
+      tc_prefetch<HID, NCHEB, S, KS, 3 * HID, true, NT, TIER>(a.wg1 + 3 * wsq, ring, tid);
+    }
   } else {
-    tc_gemm<HID, 2 * HID, LDH, S, KS, 2 * HID, true, NT>(normed, a.wfc1 + 2 * wsq, ring,
+    tc_gemm<HID, 2 * HID, LDH, S, KS, 2 * HID, true, NT, TIER>(normed, a.wfc1 + 2 * wsq, ring,
                                       EpFc1{big + HID, a.bfc1 + l * 2 * HID},
                                       tid);
     __syncthreads();
-    tc_prefetch<2 * HID, HID, S, KS, HID, true, NT>(a.wfc2 + 2 * wsq, ring, tid);
-    tc_gemm<2 * HID, HID, LDB, S, KS, HID, true, NT>(big + HID, a.wfc2 + 2 * wsq, ring,
-                                      EpSmem<LDH, true, true>{h, a.bfc2 + l * HID}, tid);
+    tc_prefetch<2 * HID, HID, S, KS, HID, true, NT, TIER>(a.wfc2 + 2 * wsq, ring, tid);
+    tc_gemm<2 * HID, HID, LDB, S, KS, HID, true, NT, TIER>(big + HID, a.wfc2 + 2 * wsq, ring,
+                                      EpSmem<LDH, true, true, false, RND>{h, a.bfc2 + l * HID},
+                                      tid);
     __syncthreads();
-    tc_prefetch<HID, NCHEB, S, KS, 3 * HID, true, NT>(a.wg1 + 3 * wsq, ring, tid);
+    tc_prefetch<HID, NCHEB, S, KS, 3 * HID, true, NT, TIER>(a.wg1 + 3 * wsq, ring, tid);
   }
   __syncthreads();
 
   // residual Chebyshev block: h += relu(cheb2(relu(cheb1(h)) + tp))
-  tc_gemm<HID, NCHEB, LDH, S, KS, 3 * HID, true, NT>(h, a.wg1 + 3 * wsq, ring,
+  tc_gemm<HID, NCHEB, LDH, S, KS, 3 * HID, true, NT, TIER>(h, a.wg1 + 3 * wsq, ring,
                                            EpSmem<LDB, false, false>{big, nullptr}, tid);
   __syncthreads();
-  tc_prefetch<HID, NCHEB, S, KS, 3 * HID, true, NT>(a.wg2 + 3 * wsq, ring, tid);
+  tc_prefetch<HID, NCHEB, S, KS, 3 * HID, true, NT, TIER>(a.wg2 + 3 * wsq, ring, tid);
   const float* tp = HAS_TEMB ? a.tp + (static_cast<size_t>(l) * a.batch + b0) * HID : nullptr;
   mix<HID, LDB, LDH, kMixReluBiasTp, false, !MIX, NT>(big, y, s.cptr, s.cidx, s.cval, s.lap,
                                                   a.bg1 + l * HID, tp, nb, tid);
   __syncthreads();
-  tc_gemm<HID, NCHEB, LDH, S, KS, 3 * HID, true, NT>(y, a.wg2 + 3 * wsq, ring,
+  tc_gemm<HID, NCHEB, LDH, S, KS, 3 * HID, true, NT, TIER>(y, a.wg2 + 3 * wsq, ring,
                                            EpSmem<LDB, false, false>{big, nullptr}, tid);
   __syncthreads();
-  if (l + 1 < a.num_layers) prefetch_layer<SKIP, NT>(a, l + 1, ring, tid);
-  mix<HID, LDB, LDH, kMixAddReluBias, false, !MIX, NT>(big, h, s.cptr, s.cidx, s.cval, s.lap,
-                                                   a.bg2 + l * HID, nullptr, nb, tid);
+  if (NEXT && l + 1 < a.num_layers) prefetch_layer<SKIP, NT, TIER>(a, l + 1, ring, tid);
+  mix<HID, LDB, LDH, kMixAddReluBias, false, !MIX, NT, RND>(big, h, s.cptr, s.cidx, s.cval,
+                                                            s.lap, a.bg2 + l * HID, nullptr, nb,
+                                                            tid);
   __syncthreads();
 }
 
@@ -422,8 +484,9 @@ __device__ __forceinline__ void store_tile(const float* h, float* out, int nb, i
 
 // HAS_IO false: x and out are [B, 17, HID] (C_IN = C_OUT = HID); x goes
 // straight into the residual stream and the stream is stored after the last
-// layer; win, bin, wout and bout are not read.
-template <bool HAS_TEMB, bool HAS_IO, int C_IN, int C_OUT, int SKIP = 0>
+// layer; win, bin, wout and bout are not read.  TIER: the file's text.
+template <bool HAS_TEMB, bool HAS_IO, int C_IN, int C_OUT, int SKIP = 0,
+          int TIER = tf32::TIER_3XTF32>
 __global__ void __launch_bounds__(NET_THREADS, 1) net_forward_kernel(const NetArgs a) {
   constexpr int NT = NET_THREADS;
   static_assert(HAS_IO || (C_IN == HID && C_OUT == HID), "the bare stack is HID wide");
@@ -435,7 +498,7 @@ __global__ void __launch_bounds__(NET_THREADS, 1) net_forward_kernel(const NetAr
   const int b0 = blockIdx.x * TB;
   const int nb = min(TB, a.batch - b0);  // the last tile may be ragged
 
-  if (a.num_layers > 0) prefetch_layer<SKIP, NT>(a, 0, s.ring, tid);
+  if (a.num_layers > 0) prefetch_layer<SKIP, NT, TIER>(a, 0, s.ring, tid);
   // Rows of absent samples hold zeros and stay finite; they are never stored.
   for (int i = tid; i < ACT_FLOATS; i += NT) s.h[i] = 0.f;
   load_cheb<NT>(a, s, tid);
@@ -446,14 +509,15 @@ __global__ void __launch_bounds__(NET_THREADS, 1) net_forward_kernel(const NetAr
     __syncthreads();
     in_gemm<C_IN, MIX ? 3 * HID : HID, LDH, LDB, 3 * HID, NT>(s.y, a.win, s.big, tid);
     __syncthreads();
-    mix<HID, LDB, LDH, kMixStoreBias, false, !MIX, NT>(s.big, s.h, s.cptr, s.cidx, s.cval, s.lap,
-                                                       a.bin, nullptr, nb, tid);
+    mix<HID, LDB, LDH, kMixStoreBias, false, !MIX, NT, TIER == tf32::TIER_BF16>(
+        s.big, s.h, s.cptr, s.cidx, s.cval, s.lap, a.bin, nullptr, nb, tid);
   } else {
     load_tile<NT>(x, s.h, nb, tid);
   }
   __syncthreads();
 
-  for (int l = 0; l < a.num_layers; ++l) stack_layer<HAS_TEMB, SKIP, NT>(a, l, s, b0, nb, tid);
+  for (int l = 0; l < a.num_layers; ++l)
+    stack_layer<HAS_TEMB, SKIP, NT, TIER>(a, l, s, b0, nb, tid);
 
   float* out = a.out + static_cast<size_t>(b0) * N_PTS * C_OUT;
   if constexpr (HAS_IO) {

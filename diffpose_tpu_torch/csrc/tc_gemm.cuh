@@ -11,6 +11,9 @@
 //                in shared memory, filled by cp.async (stage_slab), each
 //                weight split into its TF32 parts once a CTA (split_slab),
 //                or staged as parts split once on the host (PRESPLIT);
+//                with TIER a one-pass tier (mma_tf32.cuh: bf16 or 1xTF32),
+//                one pass of operands rounded to the tier straight into the
+//                accumulator, the weights rounded once on the host;
 //   tc_prefetch  a product's first slabs, requested before the stages that
 //                precede it;
 //   EpSmem       the epilogue that stores (bias, ReLU, residual add) into
@@ -41,6 +44,10 @@ constexpr int LDR = CW + 8;
 // The ring's floats for S stages of KS rows.
 template <int S, int KS>
 constexpr int ring_floats() { return S * 2 * KS * LDR; }
+// The parts of a weight matrix staged on the host for a tier: TF32 big and
+// small for 3xTF32, the rounded weight alone for a one-pass tier.
+template <int TIER>
+constexpr int WEIGHT_PARTS = TIER == tf32::TIER_3XTF32 ? 2 : 1;
 
 // Slab j of a product, chunk j / NSK and rows (j % NSK) * KS .. of W (global,
 // read-only, rows LDW floats apart), into ring stage j % S by cp.async, 16
@@ -87,12 +94,14 @@ __device__ __forceinline__ void split_slab(float* ring, int j, int tid) {
 // as soon as the ring is free (after the barrier that follows the previous
 // product), so that they land during the stages before tc_gemm.  No other
 // cp.async may be issued in between.
-template <int K, int N, int S, int KS, int LDW = N, bool PRESPLIT = false, int NT = THREADS>
+template <int K, int N, int S, int KS, int LDW = N, bool PRESPLIT = false, int NT = THREADS,
+          int TIER = tf32::TIER_3XTF32>
 __device__ __forceinline__ void tc_prefetch(const float* __restrict__ W, float* ring, int tid) {
   constexpr int NSK = K / KS, TOTAL = (N / CW) * NSK;
+  constexpr int SMALL = PRESPLIT && TIER == tf32::TIER_3XTF32 ? K * LDW : 0;
 #pragma unroll
   for (int j = 0; j < S - 1; ++j) {
-    if (j < TOTAL) stage_slab<LDW, NSK, S, KS, PRESPLIT ? K * LDW : 0, NT>(W, ring, j, tid);
+    if (j < TOTAL) stage_slab<LDW, NSK, S, KS, SMALL, NT>(W, ring, j, tid);
     tf32::cp_async_commit();
   }
 }
@@ -120,13 +129,20 @@ __device__ __forceinline__ void tc_prefetch(const float* __restrict__ W, float* 
 // called since that barrier.  W's rows are LDW floats apart (N unless W is the first
 // N columns of a wider matrix).  PRESPLIT: W [2, K, LDW] holds the TF32 big
 // parts of the weights, then their small parts (ops/tf32.py:split_tf32, made
-// once on the host), and the CTA splits nothing.
+// once on the host), and the CTA splits nothing.  TIER a one-pass tier
+// (PRESPLIT only): W [K, LDW] holds the weights rounded to the tier on the
+// host (ops/fused_denoiser.py:tier_weights), A's operands are rounded as
+// they load, and one mma a tile pair and k-step adds straight into the
+// accumulator (ops/tf32.py:matmul_1xtf32, matmul_1xbf16 model it).
 template <int K, int N, int LDA, int S, int KS, int LDW = N, bool PRESPLIT = false,
-          int NT = THREADS, class Epi>
+          int NT = THREADS, int TIER = tf32::TIER_3XTF32, class Epi>
 __device__ __forceinline__ void tc_gemm(const float* A, const float* __restrict__ W, float* ring,
                                         const Epi& epi, int tid) {
   constexpr int NSK = K / KS, TOTAL = (N / CW) * NSK;
+  constexpr bool THREE = TIER == tf32::TIER_3XTF32;
+  constexpr int SMALL = PRESPLIT && THREE ? K * LDW : 0;
   static_assert(K % KS == 0 && KS % 8 == 0 && N % CW == 0 && S >= 2, "product shape");
+  static_assert(THREE || PRESPLIT, "a one-pass tier takes weights rounded on the host");
   static_assert(LDR % 32 == 8, "slab rows must be 8 mod 32 floats apart");
   static_assert(LDA % 32 == 4, "A's row stride must be 4 mod 32 floats");
   static_assert(NT == THREADS || NT == 384, "the warp layouts are for 9 or 12 warps");
@@ -153,13 +169,35 @@ __device__ __forceinline__ void tc_gemm(const float* A, const float* __restrict_
     if constexpr (!PRESPLIT) split_slab<S, KS, NT>(ring, j, tid);
     __syncthreads();                   // slab j split everywhere; slab j - 1 read by all
     if (j + S - 1 < TOTAL)
-      stage_slab<LDW, NSK, S, KS, PRESPLIT ? K * LDW : 0, NT>(W, ring, j + S - 1, tid);
+      stage_slab<LDW, NSK, S, KS, SMALL, NT>(W, ring, j + S - 1, tid);
     tf32::cp_async_commit();
     const float* wb = ring + (j % S) * 2 * KS * LDR;
     const float* ws = wb + KS * LDR;
     const float* a0 = A + (rb + g) * LDA + (j % NSK) * KS + t;
+    if constexpr (!THREE) {
+      // one pass: the tier's operands, one mma a tile pair into the accumulator
+#pragma unroll 1
+      for (int kk = 0; kk < KS; kk += 8) {
+        uint32_t bt[3][2];
+#pragma unroll
+        for (int nt = 0; nt < 3; ++nt) {
+          if (nt >= nts) continue;
+          bt[nt][0] = tf32::operand<TIER>(a0[8 * nt * LDA + kk]);
+          bt[nt][1] = tf32::operand<TIER>(a0[8 * nt * LDA + kk + 4]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int o0 = (kk + t) * LDR + m_warp + 16 * mt + g, o1 = o0 + 4 * LDR;
+          const uint32_t at[4] = {__float_as_uint(wb[o0]), __float_as_uint(wb[o0 + 8]),
+                                  __float_as_uint(wb[o1]), __float_as_uint(wb[o1 + 8])};
+#pragma unroll
+          for (int nt = 0; nt < 3; ++nt)
+            if (nt < nts) tf32::mma(acc[mt][nt], at, bt[nt]);
+        }
+      }
+    }
 #pragma unroll 1   // unrolled, the k-steps' hoisted fragments outgrow 168 registers
-    for (int kk = 0; kk < KS; kk += 8) {
+    for (int kk = 0; kk < (THREE ? KS : 0); kk += 8) {
       uint32_t bb[3][2], bs[3][2];
 #pragma unroll
       for (int nt = 0; nt < 3; ++nt) {
@@ -223,8 +261,9 @@ __device__ __forceinline__ void frag_bias(const float* __restrict__ bias, int m0
 }
 
 // C[r, c] (=, +=) acc (+ bias[c]), with RELU relu(acc + bias[c]), for the
-// tile's rows.
-template <int LDC, bool BIAS, bool ADD, bool RELU = false>
+// tile's rows; RND: the stored value rounded to bf16 (the bf16 tier's
+// activations, the TPU kernels' .astype(act)).
+template <int LDC, bool BIAS, bool ADD, bool RELU = false, bool RND = false>
 struct EpSmem {
   float* c;
   const float* bias;
@@ -243,6 +282,7 @@ struct EpSmem {
           float v = d[mt][nt][i] + b[mt][i >> 1];
           if constexpr (RELU) v = fmaxf(v, 0.f);
           if constexpr (ADD) v += c[r * LDC + col];
+          if constexpr (RND) v = tf32::round_bf16(v);
           c[r * LDC + col] = v;
         }
   }

@@ -44,6 +44,19 @@
 // 9's [B, F, 17, HID].  Scratch written inside the launch is read through
 // L2 only (cp.async.cg, __ldcg), never through __ldg.
 //
+// TIER (mma_tf32.cuh; TIER_3XTF32 in video_kernel.cu, the one-pass tiers in
+// video_kernel_tiers.cu) is the --kernel_precision of the TPU kernels
+// (pallas_video_full.py:_temporal_layer and _st_kernel): every product, the
+// attention's too, in one pass of operands rounded to the tier, the weights
+// rounded on the host; under TIER_BF16 also Q|K|V and the residual stream
+// after each sublayer stored as bf16 and the probabilities rounded to bf16
+// (row 9's spatial phase as net_kernel.cuh's layer at that tier).  A
+// rounded probability needs the row's max and sum first, so T2 then runs
+// over the keys twice: the scores for the max and the sum, then the scores
+// again, P = bf16(exp(S - max) / sum) and O = P V.  The products q_d k_d
+// of a score are summed exact on the tensor cores, where the TPU kernel
+// rounds each to bf16 before its segment sum (net_kernel.cuh rounds them).
+//
 // With VIDK_STAMPS defined, thread 0 of block 0 sums clock64() cycles by
 // phase into vidk_cycles (probes/video_phases.py builds that variant).
 #pragma once
@@ -86,6 +99,7 @@ using netk::THREADS;
 using netk::ld4;
 using netk::st4;
 using netk::zero4;
+using tf32::mma;
 using tf32::mma3;
 using tf32::quad_max;
 using tf32::quad_sum;
@@ -111,7 +125,8 @@ static_assert(T_ACT_FLOATS % 4 == 0 && WARP_FLOATS % 4 == 0, "16-byte alignment"
 
 struct TemporalArgs {
   const float* ln1s; const float* ln1b; const float* ln2s; const float* ln2b;  // [HID]
-  // The channel products' weights W [K, N] as TF32 parts [2, K, N]: big, then small.
+  // The channel products' weights W [K, N] as TF32 parts [2, K, N]: big, then
+  // small (a one-pass tier: [K, N], rounded to the tier).
   const float* wqkv;   // [2, HID, 3*HID], q columns pre-scaled by 1/sqrt(DK)
   const float* bqkv;   // [3*HID], q part pre-scaled
   const float* wao; const float* bao;    // [2, HID, HID], [HID]
@@ -132,8 +147,9 @@ struct Flow {
 
 __device__ __forceinline__ int vectors(const Flow& f) { return f.windows * f.joints * f.frames; }
 
-// C[r, c] = acc + bias[c] for the tile's first nreal rows, C in global memory.
-template <int LDC>
+// C[r, c] = acc + bias[c] for the tile's first nreal rows, C in global
+// memory; RND: rounded to bf16.
+template <int LDC, bool RND = false>
 struct EpGlobal {
   float* c;
   const float* bias;
@@ -150,7 +166,8 @@ struct EpGlobal {
         for (int i = 0; i < 4; ++i) {
           const int r = netk::frag_row(rb, nt, i, t), col = netk::frag_col(m0, mt, i, g);
           if (nt >= nts || r >= nreal) continue;
-          c[static_cast<size_t>(r) * LDC + col] = d[mt][nt][i] + b[mt][i >> 1];
+          const float v = d[mt][nt][i] + b[mt][i >> 1];
+          c[static_cast<size_t>(r) * LDC + col] = RND ? tf32::round_bf16(v) : v;
         }
   }
 };
@@ -173,22 +190,22 @@ __device__ __forceinline__ void zero_floats(float* p, int n, int tid) {
 }
 
 // The first slabs of W_qkv into the ring, which must be free.
-template <int NT>
+template <int NT, int TIER>
 __device__ __forceinline__ void tc_prefetch_qkv(const TemporalArgs& w, float* ring, int tid) {
-  netk::tc_prefetch<HID, QKV, NET_STAGES, NET_KS, QKV, true, NT>(w.wqkv, ring, tid);
+  netk::tc_prefetch<HID, QKV, NET_STAGES, NET_KS, QKV, true, NT, TIER>(w.wqkv, ring, tid);
 }
 
 // T1 on a tile whose residual stream xs holds its nreal vectors (the rest
 // finite): ys = LN1(xs), qkv[r] = ys[r] W_qkv + b for r < nreal.  Starts
 // after the barrier that completes xs and after tc_prefetch_qkv since the
 // ring was last free; ends on a barrier.
-template <int NT>
+template <int NT, int TIER>
 __device__ __forceinline__ void qkv_tile(const TemporalArgs& w, const float* xs, float* ys,
                                          float* ring, float* qkv, int nreal, int tid) {
   netk::layer_norm_warp<NT / 32>(xs, ys, w.ln1s, w.ln1b, nullptr, 0, tid);
   __syncthreads();
-  netk::tc_gemm<HID, QKV, LDH, NET_STAGES, NET_KS, QKV, true, NT>(
-      ys, w.wqkv, ring, EpGlobal<QKV>{qkv, w.bqkv, nreal}, tid);
+  netk::tc_gemm<HID, QKV, LDH, NET_STAGES, NET_KS, QKV, true, NT, TIER>(
+      ys, w.wqkv, ring, EpGlobal<QKV, TIER == tf32::TIER_BF16>{qkv, w.bqkv, nreal}, tid);
   __syncthreads();
 }
 
@@ -196,27 +213,28 @@ __device__ __forceinline__ void qkv_tile(const TemporalArgs& w, const float* xs,
 // xs += relu(LN2(xs) W_ff1 + b_ff1) W_ff2 + b_ff2, stored to out.  hid is
 // the [72, LDHID] hidden tile.  Starts and ends on a barrier; the padded
 // rows of ys and hid hold zeros.
-template <int NT, int LDHID>
+template <int NT, int LDHID, int TIER>
 __device__ __forceinline__ void ffn_tile(const TemporalArgs& w, const Flow& f, int v0, float* xs,
                                          float* ys, float* hid, float* ring, int tid) {
   constexpr int S = NET_STAGES, KS = NET_KS;
+  constexpr bool RND = TIER == tf32::TIER_BF16;   // the residual stream stored as bf16
   const int nreal = min(ROWS, vectors(f) - v0);
-  netk::tc_prefetch<HID, HID, S, KS, HID, true, NT>(w.wao, ring, tid);
+  netk::tc_prefetch<HID, HID, S, KS, HID, true, NT, TIER>(w.wao, ring, tid);
   load_vectors<NT>(f.x + static_cast<size_t>(v0) * HID, xs, nreal, tid);
   load_vectors<NT>(f.att + static_cast<size_t>(v0) * HID, ys, nreal, tid);
   __syncthreads();
-  netk::tc_gemm<HID, HID, LDH, S, KS, HID, true, NT>(
-      ys, w.wao, ring, netk::EpSmem<LDH, true, true>{xs, w.bao}, tid);
+  netk::tc_gemm<HID, HID, LDH, S, KS, HID, true, NT, TIER>(
+      ys, w.wao, ring, netk::EpSmem<LDH, true, true, false, RND>{xs, w.bao}, tid);
   __syncthreads();
-  netk::tc_prefetch<HID, 2 * HID, S, KS, 2 * HID, true, NT>(w.wff1, ring, tid);
+  netk::tc_prefetch<HID, 2 * HID, S, KS, 2 * HID, true, NT, TIER>(w.wff1, ring, tid);
   netk::layer_norm_warp<NT / 32>(xs, ys, w.ln2s, w.ln2b, nullptr, 0, tid);
   __syncthreads();
-  netk::tc_gemm<HID, 2 * HID, LDH, S, KS, 2 * HID, true, NT>(
+  netk::tc_gemm<HID, 2 * HID, LDH, S, KS, 2 * HID, true, NT, TIER>(
       ys, w.wff1, ring, netk::EpSmem<LDHID, true, false, true>{hid, w.bff1}, tid);
   __syncthreads();
-  netk::tc_prefetch<2 * HID, HID, S, KS, HID, true, NT>(w.wff2, ring, tid);
-  netk::tc_gemm<2 * HID, HID, LDHID, S, KS, HID, true, NT>(
-      hid, w.wff2, ring, netk::EpSmem<LDH, true, true>{xs, w.bff2}, tid);
+  netk::tc_prefetch<2 * HID, HID, S, KS, HID, true, NT, TIER>(w.wff2, ring, tid);
+  netk::tc_gemm<2 * HID, HID, LDHID, S, KS, HID, true, NT, TIER>(
+      hid, w.wff2, ring, netk::EpSmem<LDH, true, true, false, RND>{xs, w.bff2}, tid);
   __syncthreads();
   float* out = f.out + static_cast<size_t>(v0) * HID;
   for (int i = tid; i < nreal * (HID / 4); i += NT) {
@@ -245,10 +263,32 @@ __device__ __forceinline__ void stage_keys(const Flow& f, size_t base, int hd, i
   }
 }
 
+// An operand of T2's products at a tier: TF32 parts, or one part rounded
+// to the one-pass tier (small unused).
+template <int TIER>
+__device__ __forceinline__ void split_t(float x, uint32_t& big, uint32_t& small) {
+  if constexpr (TIER == tf32::TIER_3XTF32) tf32::split(x, big, small);
+  else big = tf32::operand<TIER>(x), small = 0u;
+}
+
+// d += a b at the tier: 3xTF32 as a fresh partial, or one pass.
+template <int TIER>
+__device__ __forceinline__ void mma_t(float (&d)[4], const uint32_t (&ab)[4],
+                                      const uint32_t (&as)[4], const uint32_t (&bb)[2],
+                                      const uint32_t (&bs)[2]) {
+  if constexpr (TIER == tf32::TIER_3XTF32) mma3(d, ab, as, bb, bs);
+  else mma(d, ab, bb);
+}
+
 // One T2 task: queries q0 .. q0 + 15 of head hd of a row against all its
-// keys, by one warp, with buf its two buffers.
+// keys, by one warp, with buf its two buffers.  TWO: the keys are swept
+// twice, the first sweep only finding each row's max m and sum l, the second
+// adding P V with P = exp(S - m) / l, under TIER_BF16 rounded to bf16 (the
+// file's text).
+template <int TIER, bool TWO>
 __device__ __forceinline__ void attention_task(const Flow& f, size_t base, int hd, int q0,
                                                float* buf, int lane) {
+  static_assert(TWO || TIER != tf32::TIER_BF16, "a rounded probability needs two sweeps");
   const int g = lane >> 2, t = lane & 3, frames = f.frames;
   stage_keys(f, base, hd, 0, buf, lane);   // the first chunk lands while Q loads
   tf32::cp_async_commit();
@@ -263,16 +303,19 @@ __device__ __forceinline__ void attention_task(const Flow& f, size_t base, int h
           row < frames
               ? __ldcg(f.qkv + (base + static_cast<size_t>(row) * f.joints) * QKV + hd * DK + col)
               : 0.f;
-      tf32::split(v, qb[kk][i], qs[kk][i]);
+      split_t<TIER>(v, qb[kk][i], qs[kk][i]);
     }
-  float o[DK / 8][4] = {}, m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const int chunks = (frames + KEYS - 1) / KEYS;
-  for (int c = 0; c < chunks; ++c) {
-    if (c + 1 < chunks) stage_keys(f, base, hd, (c + 1) * KEYS, buf + ((c + 1) & 1) * BUF_FLOATS, lane);
+  float o[DK / 8][4] = {}, m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, den[2] = {0.f, 0.f};
+  const int chunks = (frames + KEYS - 1) / KEYS, steps = (TWO ? 2 : 1) * chunks;
+  for (int it = 0; it < steps; ++it) {
+    const int c = TWO ? it % chunks : it, next = TWO ? (it + 1) % chunks : it + 1;
+    const bool sweep = TWO && it < chunks;   // the first of two sweeps: max and sum only
+    if (TWO && it == chunks) den[0] = quad_sum(l[0]), den[1] = quad_sum(l[1]);
+    if (it + 1 < steps) stage_keys(f, base, hd, next * KEYS, buf + ((it + 1) & 1) * BUF_FLOATS, lane);
     tf32::cp_async_commit();
     tf32::cp_async_wait<1>();
     __syncwarp();
-    const float* ks = buf + (c & 1) * BUF_FLOATS;
+    const float* ks = buf + (it & 1) * BUF_FLOATS;
     const float* vs = ks + KEYS * LDK;
     const int k0 = c * KEYS, nkt = (min(KEYS, frames - k0) + 7) / 8;
 
@@ -286,60 +329,86 @@ __device__ __forceinline__ void attention_task(const Flow& f, size_t base, int h
 #pragma unroll
       for (int kk = 0; kk < DK / 8; ++kk) {
         uint32_t bb[2], bs[2];
-        tf32::split(ks[(8 * j + g) * LDK + 8 * kk + t], bb[0], bs[0]);
-        tf32::split(ks[(8 * j + g) * LDK + 8 * kk + t + 4], bb[1], bs[1]);
-        mma3(s[j], qb[kk], qs[kk], bb, bs);
+        split_t<TIER>(ks[(8 * j + g) * LDK + 8 * kk + t], bb[0], bs[0]);
+        split_t<TIER>(ks[(8 * j + g) * LDK + 8 * kk + t + 4], bb[1], bs[1]);
+        mma_t<TIER>(s[j], qb[kk], qs[kk], bb, bs);
       }
     }
-    // online softmax: rows g (entries 0, 1) and g + 8 (2, 3); key 8 j + 2 t + (i & 1)
-    float mn[2] = {m[0], m[1]};
+    float alpha[2] = {1.f, 1.f};
+    if (TWO && !sweep) {
+      // the second sweep: the rounded probabilities of the row's softmax
 #pragma unroll
-    for (int j = 0; j < KT; ++j)
+      for (int j = 0; j < KT; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (j < nkt && k0 + 8 * j + 2 * t + (i & 1) < frames) mn[i >> 1] = fmaxf(mn[i >> 1], s[j][i]);
-    float alpha[2];
+        for (int i = 0; i < 4; ++i) {
+          const bool real = j < nkt && k0 + 8 * j + 2 * t + (i & 1) < frames;
+          const float p = expf(s[j][i] - m[i >> 1]) / den[i >> 1];
+          s[j][i] = real ? (TIER == tf32::TIER_BF16 ? tf32::round_bf16(p) : p) : 0.f;
+        }
+    } else {
+      // online softmax: rows g (entries 0, 1) and g + 8 (2, 3); key 8 j + 2 t + (i & 1)
+      float mn[2] = {m[0], m[1]};
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mn[h] = quad_max(mn[h]);
-      alpha[h] = expf(m[h] - mn[h]);   // 0 on the first chunk (m = -inf)
-      m[h] = mn[h];
-      l[h] *= alpha[h];
-    }
+      for (int j = 0; j < KT; ++j)
 #pragma unroll
-    for (int j = 0; j < KT; ++j)
+        for (int i = 0; i < 4; ++i)
+          if (j < nkt && k0 + 8 * j + 2 * t + (i & 1) < frames)
+            mn[i >> 1] = fmaxf(mn[i >> 1], s[j][i]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool real = j < nkt && k0 + 8 * j + 2 * t + (i & 1) < frames;
-        s[j][i] = real ? expf(s[j][i] - mn[i >> 1]) : 0.f;
-        l[i >> 1] += s[j][i];
+      for (int h = 0; h < 2; ++h) {
+        mn[h] = quad_max(mn[h]);
+        alpha[h] = expf(m[h] - mn[h]);   // 0 on the first chunk (m = -inf)
+        m[h] = mn[h];
+        l[h] *= alpha[h];
       }
-    // O_chunk = P V: A column t (t + 4) of key tile j is key 8 j + 2 t (+ 1)
-    float oc[DK / 8][4] = {};
 #pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      if (j >= nkt) continue;
-      uint32_t pb[4], ps[4];
-      tf32::split(s[j][0], pb[0], ps[0]);
-      tf32::split(s[j][2], pb[1], ps[1]);
-      tf32::split(s[j][1], pb[2], ps[2]);
-      tf32::split(s[j][3], pb[3], ps[3]);
+      for (int j = 0; j < KT; ++j)
 #pragma unroll
-      for (int n = 0; n < DK / 8; ++n) {
-        uint32_t bb[2], bs[2];
-        tf32::split(vs[(8 * j + 2 * t) * LDK + 8 * n + g], bb[0], bs[0]);
-        tf32::split(vs[(8 * j + 2 * t + 1) * LDK + 8 * n + g], bb[1], bs[1]);
-        mma3(oc[n], pb, ps, bb, bs);
+        for (int i = 0; i < 4; ++i) {
+          const bool real = j < nkt && k0 + 8 * j + 2 * t + (i & 1) < frames;
+          s[j][i] = real ? expf(s[j][i] - mn[i >> 1]) : 0.f;
+          l[i >> 1] += s[j][i];
+        }
+    }
+    if (!sweep) {
+      // O_chunk = P V: A column t (t + 4) of key tile j is key 8 j + 2 t (+ 1);
+      // 3xTF32 into a chunk partial, a one-pass tier straight into the
+      // rescaled O
+      constexpr bool THREE = TIER == tf32::TIER_3XTF32;
+      float oc[DK / 8][4] = {};
+      if constexpr (!THREE) {
+#pragma unroll
+        for (int n = 0; n < DK / 8; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) o[n][i] *= alpha[i >> 1];
+      }
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        if (j >= nkt) continue;
+        uint32_t pb[4], ps[4];
+        split_t<TIER>(s[j][0], pb[0], ps[0]);
+        split_t<TIER>(s[j][2], pb[1], ps[1]);
+        split_t<TIER>(s[j][1], pb[2], ps[2]);
+        split_t<TIER>(s[j][3], pb[3], ps[3]);
+#pragma unroll
+        for (int n = 0; n < DK / 8; ++n) {
+          uint32_t bb[2], bs[2];
+          split_t<TIER>(vs[(8 * j + 2 * t) * LDK + 8 * n + g], bb[0], bs[0]);
+          split_t<TIER>(vs[(8 * j + 2 * t + 1) * LDK + 8 * n + g], bb[1], bs[1]);
+          mma_t<TIER>(THREE ? oc[n] : o[n], pb, ps, bb, bs);
+        }
+      }
+      if constexpr (THREE) {
+#pragma unroll
+        for (int n = 0; n < DK / 8; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) o[n][i] = o[n][i] * alpha[i >> 1] + oc[n][i];
       }
     }
-#pragma unroll
-    for (int n = 0; n < DK / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) o[n][i] = o[n][i] * alpha[i >> 1] + oc[n][i];
     __syncwarp();   // every lane is done with this buffer before it is staged again
   }
   tf32::cp_async_wait<0>();
-  const float den[2] = {quad_sum(l[0]), quad_sum(l[1])};
+  if (!TWO) den[0] = quad_sum(l[0]), den[1] = quad_sum(l[1]);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = q0 + g + 8 * h;
@@ -348,13 +417,14 @@ __device__ __forceinline__ void attention_task(const Flow& f, size_t base, int h
 #pragma unroll
     for (int n = 0; n < DK / 8; ++n)
       *reinterpret_cast<float2*>(dst + 8 * n) =
-          make_float2(o[n][2 * h] / den[h], o[n][2 * h + 1] / den[h]);
+          TWO ? make_float2(o[n][2 * h], o[n][2 * h + 1])
+              : make_float2(o[n][2 * h] / den[h], o[n][2 * h + 1] / den[h]);
   }
 }
 
 // T2: the tasks (row, head, 16-query tile), query tile fastest, over every
 // warp of the grid.  smem holds the NT / 32 warps' buffers.
-template <int NT>
+template <int NT, int TIER, bool TWO = TIER == tf32::TIER_BF16>
 __device__ __forceinline__ void attention_phase(const Flow& f, float* smem, int tid) {
   const int warp = tid >> 5, lane = tid & 31;
   const int qtiles = (f.frames + 15) / 16;
@@ -364,12 +434,12 @@ __device__ __forceinline__ void attention_phase(const Flow& f, float* smem, int 
     const int qt = task % qtiles, hd = (task / qtiles) % HEADS, n = task / (qtiles * HEADS);
     const size_t base =
         static_cast<size_t>(n / f.joints) * f.frames * f.joints + n % f.joints;
-    attention_task(f, base, hd, 16 * qt, buf, lane);
+    attention_task<TIER, TWO>(f, base, hd, 16 * qt, buf, lane);
   }
 }
 
 // T3 over every tile, grid-stride, in the tile xs | ys | hid | ring.
-template <int NT, int LDHID>
+template <int NT, int LDHID, int TIER>
 __device__ __forceinline__ void ffn_phase(const TemporalArgs& w, const Flow& f, float* xs,
                                           float* ys, float* hid, float* ring, int tid) {
   zero_floats<NT>(xs, 2 * ROWS_PAD * LDH, tid);     // xs and ys, adjacent
@@ -377,10 +447,11 @@ __device__ __forceinline__ void ffn_phase(const TemporalArgs& w, const Flow& f, 
   __syncthreads();
   const int tiles = (vectors(f) + ROWS - 1) / ROWS;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
-    ffn_tile<NT, LDHID>(w, f, tile * ROWS, xs, ys, hid, ring, tid);
+    ffn_tile<NT, LDHID, TIER>(w, f, tile * ROWS, xs, ys, hid, ring, tid);
 }
 
 // Row 10: the TemporalBlock of x [N, F, HID] (f.joints == 1, f.windows == N).
+template <int TIER>
 __global__ void __launch_bounds__(TEMPORAL_THREADS, 1) temporal_kernel(const TemporalArgs w,
                                                                        const Flow f) {
   constexpr int NT = TEMPORAL_THREADS;
@@ -399,19 +470,19 @@ __global__ void __launch_bounds__(TEMPORAL_THREADS, 1) temporal_kernel(const Tem
   const int tiles = (vectors(f) + ROWS - 1) / ROWS;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int v0 = tile * ROWS, nreal = min(ROWS, vectors(f) - v0);
-    tc_prefetch_qkv<NT>(w, ring, tid);
+    tc_prefetch_qkv<NT, TIER>(w, ring, tid);
     load_vectors<NT>(f.x + static_cast<size_t>(v0) * HID, xs, nreal, tid);
     __syncthreads();
-    qkv_tile<NT>(w, xs, ys, ring, f.qkv + static_cast<size_t>(v0) * QKV, nreal, tid);
+    qkv_tile<NT, TIER>(w, xs, ys, ring, f.qkv + static_cast<size_t>(v0) * QKV, nreal, tid);
   }
   VIDK_MARK(1);
   cooperative_groups::this_grid().sync();
   VIDK_MARK(2);
-  attention_phase<NT>(f, smem, tid);
+  attention_phase<NT, TIER>(f, smem, tid);
   VIDK_MARK(3);
   cooperative_groups::this_grid().sync();
   VIDK_MARK(4);
-  ffn_phase<NT, LDF>(w, f, xs, ys, hid, ring, tid);
+  ffn_phase<NT, LDF, TIER>(w, f, xs, ys, hid, ring, tid);
   VIDK_MARK(5);
 }
 
@@ -419,6 +490,7 @@ __global__ void __launch_bounds__(TEMPORAL_THREADS, 1) temporal_kernel(const Tem
 // bare stack over the B*F frames (a.x the layer's input [B, F, 17, HID],
 // a.out the spatial output, a.tp [1, B*F, HID]); f.x is a.out, f.out the
 // layer's output (f.joints == 17).
+template <int TIER>
 __global__ void __launch_bounds__(THREADS, 1) st_layer_kernel(const netk::NetArgs a,
                                                               const TemporalArgs w, const Flow f) {
   namespace nk = netk;
@@ -435,26 +507,29 @@ __global__ void __launch_bounds__(THREADS, 1) st_layer_kernel(const netk::NetArg
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int b0 = tile * nk::TB;
     const int nb = min(nk::TB, a.batch - b0);
-    nk::prefetch_layer(a, 0, s.ring, tid);
+    nk::prefetch_layer<0, THREADS, TIER>(a, 0, s.ring, tid);
     for (int i = tid; i < nk::ACT_FLOATS; i += THREADS) s.h[i] = 0.f;
     __syncthreads();
     nk::load_tile(a.x + static_cast<size_t>(b0) * N_PTS * HID, s.h, nb, tid);
     __syncthreads();
-    nk::stack_layer<true, 0, THREADS>(a, 0, s, b0, nb, tid);
+    // one layer: the one-pass builds drop the next layer's prefetch (its
+    // addresses, live through the layer, spilled at 168 registers); the
+    // parity build keeps its code as it was
+    nk::stack_layer<true, 0, THREADS, TIER, TIER == tf32::TIER_3XTF32>(a, 0, s, b0, nb, tid);
     VIDK_MARK(0);
-    tc_prefetch_qkv<THREADS>(w, s.ring, tid);
+    tc_prefetch_qkv<THREADS, TIER>(w, s.ring, tid);
     nk::store_tile(s.h, a.out + static_cast<size_t>(b0) * N_PTS * HID, nb, tid);
-    qkv_tile<THREADS>(w, s.h, s.y, s.ring, f.qkv + static_cast<size_t>(b0) * N_PTS * QKV,
-                      nb * N_PTS, tid);
+    qkv_tile<THREADS, TIER>(w, s.h, s.y, s.ring, f.qkv + static_cast<size_t>(b0) * N_PTS * QKV,
+                            nb * N_PTS, tid);
     VIDK_MARK(1);
   }
   cooperative_groups::this_grid().sync();
   VIDK_MARK(2);
-  attention_phase<THREADS>(f, smem, tid);
+  attention_phase<THREADS, TIER>(f, smem, tid);
   VIDK_MARK(3);
   cooperative_groups::this_grid().sync();
   VIDK_MARK(4);
-  ffn_phase<THREADS, nk::LDB>(w, f, s.h, s.y, s.big, s.ring, tid);
+  ffn_phase<THREADS, nk::LDB, TIER>(w, f, s.h, s.y, s.big, s.ring, tid);
   VIDK_MARK(5);
 }
 

@@ -42,6 +42,17 @@ which shares the weight prep and the folded-q arithmetic.
 The bare stack does the same work as the whole network less the two
 ChebConvs, again bound by the operations; its input and output are 96
 wide, 13 MB in all at B=1024, microseconds of bandwidth.
+
+The reduced tiers of ``--kernel_precision`` (``pallas_denoiser.py:_dot``
+and ``act``): :func:`tier_weights` gives a snapshot for ``"bf16"`` or
+``"default"`` (each product's weights rounded to the tier once, ``[L, K, N]``
+under ``"<name>_1p"``; under bf16 every other weight but the learned
+Laplacian rounded too, as the TPU wrappers cast them).  The wrappers
+launch that tier's build of the kernel (``csrc/net_kernel_tiers.cu``, built
+at the first use of a tier; a failed build or launch raises) and round
+their inputs as the TPU wrappers cast them; on the CPU the plain versions
+compute the same tier (``ops/tf32.py:tier_matmul``, rounded where the
+kernel rounds).  ``wrapper.tier_launches[tier]`` counts those launches.
 """
 
 from __future__ import annotations
@@ -58,7 +69,15 @@ import torch.nn.functional as F
 from diffpose_tpu_torch.graph import learned_adjacency_laplacian
 from diffpose_tpu_torch.models.layers import timestep_embedding
 from diffpose_tpu_torch.ops import _build
-from diffpose_tpu_torch.ops.tf32 import split_tf32
+from diffpose_tpu_torch.ops.tf32 import (
+    PARITY_TIER,
+    TIER_CODES,
+    check_tier,
+    round_bf16,
+    round_weight,
+    split_tf32,
+    tier_matmul,
+)
 
 Weights = Dict[str, Any]
 
@@ -78,6 +97,20 @@ _KERNEL_WEIGHTS = (
 )
 # Those of net_backbone's arguments: no input or output ChebConv.
 _BACKBONE_WEIGHTS = tuple(k for k in _KERNEL_WEIGHTS if k not in ("win", "bin", "wout", "bout"))
+# What the bf16 tier rounds besides the products' weights: everything the
+# TPU wrappers cast to act but the learned Laplacian (pallas_denoiser.py:475);
+# the input and output ChebConvs' only where they are inside the kernel.
+_ENDS_ROUNDED = ("win", "bin", "wout", "bout")
+_BF16_ROUNDED = ("ln1s", "ln1b", "ln2s", "ln2b", "wqkv", "bqkv", "wao", "bao",
+                 "wfc1", "bfc1", "wfc2", "bfc2", "wg1", "bg1", "wg2", "bg2")
+
+
+def kernel_names(names, tier: str) -> tuple:
+    """``names`` as the kernel of ``tier`` takes them: the products' weights as
+    TF32 parts (``"<k>_tf32"``) or rounded to a one-pass tier (``"<k>_1p"``)."""
+    if tier == PARITY_TIER:
+        return tuple(names)
+    return tuple(k[:-len("_tf32")] + "_1p" if k.endswith("_tf32") else k for k in names)
 
 
 def resolve_device(device) -> torch.device:
@@ -252,6 +285,60 @@ def prepare_weights(model, device="cuda", *, differentiable: bool = False) -> We
     return w
 
 
+def tier_of(w: Weights) -> str:
+    """The kernel tier a weight snapshot was made for (prepare_weights: the
+    parity grade, ``"bf16x3"``)."""
+    return w.get("tier", PARITY_TIER)
+
+
+def tier_weights(w: Weights, tier: str, split_keys=SPLIT_KEYS, rounded=_BF16_ROUNDED, *,
+                 ends: bool = True) -> Weights:
+    """An eval snapshot ``w`` (parity grade) at kernel tier ``tier``: each
+    product's stack of ``split_keys`` rounded to the tier once,
+    ``"<k>_1p"`` (the one-pass kernels' weights, ``[L, K, N]``); under
+    ``"bf16"`` also every weight of ``rounded`` (the TPU wrappers' cast to
+    bf16: all but the learned Laplacian and what stays outside the kernel)
+    and, with ``ends``, the input and output ChebConvs' (rows 1-2 hold them;
+    ``ends=False`` for the bare stack, whose callers run them in f32 outside).
+    ``"bf16x3"`` gives ``w``."""
+    check_tier(tier)
+    if tier_of(w) != PARITY_TIER:
+        raise ValueError(f"tier_weights takes parity-grade weights, got tier {tier_of(w)!r}")
+    if tier == PARITY_TIER:
+        return w
+    missing = [k for k in split_keys if f"{k}_tf32" not in w]
+    if missing:
+        raise ValueError(f"tier_weights takes an eval snapshot (prepare_weights(..., "
+                         f"differentiable=False)); these weights have no TF32 parts of {missing}")
+    out = {k: v for k, v in w.items() if not k.endswith("_tf32")}
+    with torch.no_grad():
+        if tier == "bf16":
+            keys = (*rounded, *_ENDS_ROUNDED) if ends else rounded
+            out.update({k: round_bf16(w[k]) for k in keys if k in w})
+        out.update({f"{k}_1p": round_weight(tier, out[k]) for k in split_keys})
+    out["tier"] = tier
+    return out
+
+
+def at_tier(w: Weights, tier: Optional[str], *, ends: bool = True) -> Weights:
+    """``w`` for a wrapper called with ``tier=``: ``None`` or ``w``'s own tier
+    gives ``w``; parity weights are rounded to the tier here, at every call
+    (prepare them once with :func:`tier_weights` instead)."""
+    if tier is None or tier == tier_of(w):
+        return w
+    if tier_of(w) != PARITY_TIER:
+        raise ValueError(f"weights prepared for tier {tier_of(w)!r} called at tier {tier!r}")
+    return tier_weights(w, tier, ends=ends)
+
+
+def round_inputs(tier: str, *xs):
+    """The inputs of a kernel as the TPU wrappers cast them: to bf16 under the
+    bf16 tier (``x.astype(act)``), unchanged otherwise; ``None`` stays."""
+    if tier != "bf16":
+        return xs
+    return tuple(None if x is None else round_bf16(x) for x in xs)
+
+
 def timestep_projections(w: Weights, t: torch.Tensor) -> torch.Tensor:
     """Timestep MLP and every layer's projection of it: ``[L, B, H]``."""
     temb = timestep_embedding(t, w["hid_dim"])
@@ -279,46 +366,65 @@ def _layer_norm(z, scale, shift):
 
 
 def net_plain(w: Weights, x: torch.Tensor, tp: Optional[torch.Tensor] = None, *,
-              matmul=torch.matmul) -> torch.Tensor:
+              matmul=None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: ``x [B, N, C_in]`` (and
-    ``tp [L, B, H]`` for the denoiser) → ``[B, N, C_out]``.  ``matmul``
-    computes the stack's channel products (``ops/tf32.py:matmul_3xtf32``
-    gives the kernel's tensor-core products); the input and output
-    ChebConvs are f32, as in the kernel."""
-    basis = w["basis"]
-    h = _layers_plain(w, _cheb(x, w["win"], w["bin"], basis), tp, matmul)
+    ``tp [L, B, H]`` for the denoiser) → ``[B, N, C_out]``, at ``w``'s tier
+    (:func:`tier_of`).  ``matmul`` computes the stack's channel products
+    (default: the tier's, ``ops/tf32.py:tier_matmul``;
+    ``ops/tf32.py:matmul_3xtf32`` gives the parity kernel's tensor-core
+    products); the input and output ChebConvs are f32, as in the kernel, on
+    the tier's weights and inputs (bf16: rounded, and the input ChebConv's
+    output rounded)."""
+    tier, basis = tier_of(w), w["basis"]
+    x, tp = round_inputs(tier, x, tp)
+    h = round_inputs(tier, _cheb(x, w["win"], w["bin"], basis))[0]
+    h = _layers_plain(w, h, tp, matmul or tier_matmul(tier), tier)
     return _cheb(h, w["wout"], w["bout"], basis)
 
 
 def backbone_plain(w: Weights, z: torch.Tensor, tp: torch.Tensor, *,
-                   matmul=torch.matmul) -> torch.Tensor:
+                   matmul=None) -> torch.Tensor:
     """The bare layer stack in plain PyTorch: ``z [B, N, H]``, ``tp [L, B, H]``
     → ``[B, N, H]`` (:func:`net_plain` without its two ChebConvs)."""
-    return _layers_plain(w, z, tp, matmul)
+    tier = tier_of(w)
+    z, tp = round_inputs(tier, z, tp)
+    return _layers_plain(w, z, tp, matmul or tier_matmul(tier), tier)
 
 
 def _layers_plain(w: Weights, h: torch.Tensor, tp: Optional[torch.Tensor],
-                  mm=torch.matmul) -> torch.Tensor:
+                  mm=torch.matmul, tier: str = PARITY_TIER) -> torch.Tensor:
+    """The stack at ``tier``: under bf16 the activations rounded where the
+    kernel rounds them (``csrc/net_kernel.cuh``: QKV, each score's products,
+    the probabilities, the residual stream after each sublayer)."""
     hid, heads = w["hid_dim"], w["num_heads"]
     bsz, n = h.shape[:2]
     basis = w["basis"]
+    bf16 = tier == "bf16"
+
+    def act(z):   # the TPU kernel's .astype(act)
+        return round_bf16(z) if bf16 else z
+
     for l in range(w["num_layers"]):
         y = _layer_norm(h, w["ln1s"][l], w["ln1b"][l])
-        qkv = mm(y, w["wqkv"][l]) + w["bqkv"][l]
+        qkv = act(mm(y, w["wqkv"][l]) + w["bqkv"][l])
         q, k, v = (z.reshape(bsz, n, heads, -1).transpose(1, 2) for z in qkv.split(hid, dim=-1))
-        probs = torch.softmax(q @ k.transpose(-1, -2), dim=-1)  # q holds 1/√d_k
+        if bf16:   # each product q_d k_d rounded, as the segment product of bf16 operands
+            s = round_bf16(q.unsqueeze(-2) * k.unsqueeze(-3)).sum(dim=-1)
+        else:
+            s = q @ k.transpose(-1, -2)                          # q holds 1/√d_k
+        probs = act(torch.softmax(s, dim=-1))
         att = (probs @ v).transpose(1, 2).reshape(bsz, n, hid)
-        h = h + (mm(att, w["wao"][l]) + w["bao"][l])
+        h = act(h + (mm(att, w["wao"][l]) + w["bao"][l]))
 
         lap = w["lap"][l]
         y = _layer_norm(h, w["ln2s"][l], w["ln2b"][l])
         y = F.relu(mm(lap @ y, w["wfc1"][l]) + w["bfc1"][l])
-        h = h + (mm(lap @ y, w["wfc2"][l]) + w["bfc2"][l])
+        h = act(h + (mm(lap @ y, w["wfc2"][l]) + w["bfc2"][l]))
 
         u = F.relu(_cheb(h, w["wg1"][l], w["bg1"][l], basis, mm))
         if tp is not None:
             u = u + tp[l][:, None, :]
-        h = h + F.relu(_cheb(u, w["wg2"][l], w["bg2"][l], basis, mm))
+        h = act(h + F.relu(_cheb(u, w["wg2"][l], w["bg2"][l], basis, mm)))
     return h
 
 
@@ -340,6 +446,12 @@ def _library() -> ctypes.CDLL:
     return bind(_build.load("net_kernel"))
 
 
+@functools.lru_cache(maxsize=None)
+def _tier_library() -> ctypes.CDLL:
+    """The one-pass tiers' build (``csrc/net_kernel_tiers.cu``), at first use."""
+    return bind_tiers(_build.load("net_kernel_tiers"))
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` (a build of ``csrc/net_kernel.cu``) with its entries typed."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -349,6 +461,19 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.net_backbone.restype = i32
     lib.net_error_string.argtypes = [i32]
     lib.net_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def bind_tiers(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/net_kernel_tiers.cu``) with its entries typed:
+    ``bind``'s, after a leading tier code."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.net_forward_tier.argtypes = [i32] * 10 + [ptr] * (3 + len(_KERNEL_WEIGHTS)) + [i32, ptr]
+    lib.net_forward_tier.restype = i32
+    lib.net_backbone_tier.argtypes = [i32] * 7 + [ptr] * (3 + len(_BACKBONE_WEIGHTS)) + [i32, ptr]
+    lib.net_backbone_tier.restype = i32
+    lib.net_tier_error_string.argtypes = [i32]
+    lib.net_tier_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -363,6 +488,7 @@ def _expected_shapes(w: Weights) -> Dict[str, tuple]:
         cheb_ptr=(n + 1,), cheb_idx=(w["cheb_nnz"],), cheb_val=(w["cheb_nnz"],),
     )
     shapes.update({f"{k}_tf32": (L, 2) + shapes[k][1:] for k in SPLIT_KEYS})
+    shapes.update({f"{k}_1p": shapes[k] for k in SPLIT_KEYS})
     return shapes
 
 
@@ -394,17 +520,19 @@ def _check_launch(w: Weights, x: torch.Tensor, tp: Optional[torch.Tensor], c_in:
     shapes = _expected_shapes(w)
     missing = [name for name in names if name not in w]
     if missing:
-        raise ValueError(f"the kernel takes the TF32 parts {missing} of prepare_weights(..., "
-                         f"differentiable=False); these weights have none")
+        raise ValueError(f"the kernel takes the TF32 parts (at a reduced tier its rounded weights, "
+                         f"tier_weights) {missing} of prepare_weights(..., differentiable=False); "
+                         f"these weights have none")
     for name in names:
         dtype = torch.int32 if name in ("cheb_ptr", "cheb_idx") else torch.float32
         _check_tensor(name, w[name], shapes[name], dtype, dev)
 
 
-def _raise_on(code: int, what: str):
+def _raise_on(code: int, what: str, tier: str = PARITY_TIER):
     if code != 0:
-        raise RuntimeError(f"{what} kernel: {_library().net_error_string(code).decode()} "
-                           f"(cudaError {code})")
+        text = (_library().net_error_string(code) if tier == PARITY_TIER
+                else _tier_library().net_tier_error_string(code))
+        raise RuntimeError(f"{what} kernel (tier {tier}): {text.decode()} (cudaError {code})")
 
 
 def _launch(w: Weights, x: torch.Tensor, tp: Optional[torch.Tensor]) -> torch.Tensor:
@@ -414,18 +542,24 @@ def _launch(w: Weights, x: torch.Tensor, tp: Optional[torch.Tensor]) -> torch.Te
                          f"for has_temb={w['has_temb']}, got {(w['c_in'], w['c_out'])}")
     if w["has_temb"] and tp is None:
         raise ValueError("the denoiser's kernel takes the timestep projections tp")
-    _check_launch(w, x, tp if w["has_temb"] else None, w["c_in"], _KERNEL_WEIGHTS)
+    tier = tier_of(w)
+    names = kernel_names(_KERNEL_WEIGHTS, tier)
+    x, tp = round_inputs(tier, x, tp if w["has_temb"] else None)
+    _check_launch(w, x, tp, w["c_in"], names)
     bsz, dev = x.shape[0], x.device
     out = torch.empty((bsz, w["n_pts"], w["c_out"]), dtype=torch.float32, device=dev)
     if bsz == 0:
         return out
-    code = _library().net_forward(
-        dev.index, int(w["has_temb"]), w["c_in"], w["c_out"], w["hid_dim"], w["num_heads"],
-        w["n_pts"], bsz, w["num_layers"],
-        x.data_ptr(), tp.data_ptr() if tp is not None else None, out.data_ptr(),
-        *[w[k].data_ptr() for k in _KERNEL_WEIGHTS], w["cheb_nnz"],
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(code, "net_forward")
+    args = (dev.index, int(w["has_temb"]), w["c_in"], w["c_out"], w["hid_dim"], w["num_heads"],
+            w["n_pts"], bsz, w["num_layers"],
+            x.data_ptr(), tp.data_ptr() if tp is not None else None, out.data_ptr(),
+            *[w[k].data_ptr() for k in names], w["cheb_nnz"],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if tier == PARITY_TIER:
+        code = _library().net_forward(*args)
+    else:
+        code = _tier_library().net_forward_tier(TIER_CODES[tier], *args)
+    _raise_on(code, "net_forward", tier)
     return out
 
 
@@ -433,57 +567,84 @@ def _launch_backbone(w: Weights, z: torch.Tensor, tp: torch.Tensor) -> torch.Ten
     """One launch of the kernel's bare-stack build; every input is checked first."""
     if tp is None:
         raise ValueError("the bare stack takes the timestep projections tp")
-    _check_launch(w, z, tp, w["hid_dim"], _BACKBONE_WEIGHTS)
+    tier = tier_of(w)
+    names = kernel_names(_BACKBONE_WEIGHTS, tier)
+    z, tp = round_inputs(tier, z, tp)
+    _check_launch(w, z, tp, w["hid_dim"], names)
     bsz, dev = z.shape[0], z.device
     out = torch.empty_like(z)
     if bsz == 0:
         return out
-    code = _library().net_backbone(
-        dev.index, w["hid_dim"], w["num_heads"], w["n_pts"], bsz, w["num_layers"],
-        z.data_ptr(), tp.data_ptr(), out.data_ptr(),
-        *[w[k].data_ptr() for k in _BACKBONE_WEIGHTS], w["cheb_nnz"],
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(code, "net_backbone")
+    args = (dev.index, w["hid_dim"], w["num_heads"], w["n_pts"], bsz, w["num_layers"],
+            z.data_ptr(), tp.data_ptr(), out.data_ptr(),
+            *[w[k].data_ptr() for k in names], w["cheb_nnz"],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if tier == PARITY_TIER:
+        code = _library().net_backbone(*args)
+    else:
+        code = _tier_library().net_backbone_tier(TIER_CODES[tier], *args)
+    _raise_on(code, "net_backbone", tier)
     return out
 
 
-def fused_denoiser(w: Weights, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+def count_launch(wrapper, tier: str):
+    """One launch of ``wrapper``'s kernel at ``tier``: ``wrapper.launches``
+    counts the parity build's, ``wrapper.tier_launches[tier]`` the others'."""
+    if tier == PARITY_TIER:
+        wrapper.launches += 1
+    else:
+        wrapper.tier_launches[tier] += 1
+
+
+def reset_counts(*wrappers):
+    for fn in wrappers:
+        fn.launches = 0
+        fn.tier_launches = {t: 0 for t in TIER_CODES}
+
+
+def fused_denoiser(w: Weights, x: torch.Tensor, t: torch.Tensor, *,
+                   tier: Optional[str] = None) -> torch.Tensor:
     """GCNDiff eval forward ``ε̂(x [B, 17, 5], t [B]) → [B, 17, 5]``: one kernel
-    launch for CUDA tensors, the plain version for CPU tensors."""
+    launch for CUDA tensors, the plain version for CPU tensors; at ``w``'s
+    tier, or at ``tier`` (:func:`at_tier`)."""
     if not w["has_temb"]:
         raise ValueError("fused_denoiser takes GCNDiff weights (with timestep projections)")
+    w = at_tier(w, tier)
     if x.device.type == "cpu":
         return denoiser_plain(w, x, t)
     out = _launch(w, x, timestep_projections(w, t))
-    fused_denoiser.launches += 1
+    count_launch(fused_denoiser, tier_of(w))
     return out
 
 
-def fused_lifter(w: Weights, x: torch.Tensor) -> torch.Tensor:
+def fused_lifter(w: Weights, x: torch.Tensor, *, tier: Optional[str] = None) -> torch.Tensor:
     """GCNPose eval forward ``[B, 17, 2] → [B, 17, 3]``: one kernel launch for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors, the plain version for CPU tensors; the tier as
+    :func:`fused_denoiser`'s."""
     if w["has_temb"]:
         raise ValueError("fused_lifter takes GCNPose weights (no timestep projections)")
+    w = at_tier(w, tier)
     if x.device.type == "cpu":
         return lifter_plain(w, x)
     out = _launch(w, x, None)
-    fused_lifter.launches += 1
+    count_launch(fused_lifter, tier_of(w))
     return out
 
 
-def fused_backbone(w: Weights, z: torch.Tensor, tp: torch.Tensor) -> torch.Tensor:
+def fused_backbone(w: Weights, z: torch.Tensor, tp: torch.Tensor, *,
+                   tier: Optional[str] = None) -> torch.Tensor:
     """The bare layer stack ``z [B, 17, 96], tp [L, B, 96] → [B, 17, 96]``
     (the implicit model's fixed-point body; GCNDiff or IGCN weights): one
-    kernel launch for CUDA tensors, the plain version for CPU tensors."""
+    kernel launch for CUDA tensors, the plain version for CPU tensors; the
+    tier as :func:`fused_denoiser`'s."""
     if not w["has_temb"]:
         raise ValueError("fused_backbone takes weights with timestep projections")
+    w = at_tier(w, tier)
     if z.device.type == "cpu":
         return backbone_plain(w, z, tp)
     out = _launch_backbone(w, z, tp)
-    fused_backbone.launches += 1
+    count_launch(fused_backbone, tier_of(w))
     return out
 
 
-fused_denoiser.launches = 0
-fused_lifter.launches = 0
-fused_backbone.launches = 0
+reset_counts(fused_denoiser, fused_lifter, fused_backbone)

@@ -25,15 +25,18 @@ from diffpose_tpu_torch.models.igcn import IGCN, bn_eval, bn_state, warm_start
 from diffpose_tpu_torch.ops.fused_denoiser import (
     Weights,
     _cheb,
+    at_tier,
     fused_backbone,
     resolve_device,
     timestep_projections,
 )
+from diffpose_tpu_torch.ops.tf32 import PARITY_TIER, check_tier
 
 __all__ = ["make_igcn_fn"]
 
 
-def make_igcn_fn(model: IGCN, device="cuda", backbone: Optional[Callable] = None):
+def make_igcn_fn(model: IGCN, device="cuda", backbone: Optional[Callable] = None, *,
+                 tier: str = PARITY_TIER):
     """Build ``fn(w, bn, x, t, z0=None, z0_weight=None, tolerance_override=None)
     → (out, aux)``, the fused equivalent of ``model.eval()(x, t, z0=...,
     z0_weight=..., differentiable=False)``.
@@ -47,9 +50,14 @@ def make_igcn_fn(model: IGCN, device="cuda", backbone: Optional[Callable] = None
     ``device="cuda"`` (the default) raises without a card; the inputs' device
     decides what runs: the kernel on the card, its plain version on the CPU.
     ``backbone(w, z, tp)`` replaces :func:`fused_backbone` (the plain twin:
-    ``fused_denoiser.backbone_plain``).
+    ``fused_denoiser.backbone_plain``).  ``tier``: the stack's
+    ``--kernel_precision`` (``fused_denoiser.tier_weights(..., ends=False)``:
+    ``w`` made at the tier once by the caller, or rounded here at every
+    call); the input and output ChebConvs, the BatchNorm and the solver stay
+    f32, as in the JAX package.
     """
     resolve_device(device)
+    check_tier(tier)
     stack = backbone or fused_backbone
 
     @torch.no_grad()
@@ -57,6 +65,7 @@ def make_igcn_fn(model: IGCN, device="cuda", backbone: Optional[Callable] = None
            tolerance_override=None):
         if isinstance(bn, IGCN):
             bn = bn_state(bn)
+        w = at_tier(w, tier, ends=False)   # the ChebConvs below stay f32
         basis = w["basis"]
         tp = timestep_projections(w, t.to(torch.float32))
         z = warm_start(_cheb(x.to(torch.float32), w["win"], w["bin"], basis), z0, z0_weight)

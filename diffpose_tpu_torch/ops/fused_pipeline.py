@@ -21,10 +21,12 @@ import torch
 from diffpose_tpu_torch.diffusion import ddim_sample
 from diffpose_tpu_torch.ops.fused_denoiser import (
     Weights,
+    at_tier,
     fused_denoiser,
     fused_lifter,
     resolve_device,
 )
+from diffpose_tpu_torch.ops.tf32 import PARITY_TIER, check_tier
 
 
 def lift_and_denoise(
@@ -47,15 +49,18 @@ def lift_and_denoise(
 
 
 def make_eval_fn(basis: np.ndarray, *, seq: Sequence[int], betas, test_times: int = 1,
-                 device="cuda"):
+                 device="cuda", tier: str = PARITY_TIER):
     """Build ``eval_one(pose_weights, diff_weights, x2d) → xyz [B, 17, 3]``.
 
     The weights come from :func:`~diffpose_tpu_torch.ops.fused_denoiser.prepare_weights`
     of a GCNPose and a GCNDiff built on ``basis``; ``x2d`` is moved to
     ``device``.  On a CUDA device each forward is one kernel launch; with
-    ``device="cpu"`` the plain PyTorch versions run.
+    ``device="cpu"`` the plain PyTorch versions run.  ``tier``: the kernels'
+    ``--kernel_precision`` (``fused_denoiser.tier_weights``: weights made at
+    the tier once by the caller, or rounded here at every call).
     """
     device = resolve_device(device)
+    check_tier(tier)
     basis = np.asarray(basis, np.float32)
     seq = tuple(int(s) for s in seq)
     betas = np.asarray(betas, np.float64)
@@ -66,8 +71,8 @@ def make_eval_fn(basis: np.ndarray, *, seq: Sequence[int], betas, test_times: in
                 raise ValueError("weights were prepared for another Chebyshev basis")
         x2d = torch.as_tensor(x2d, dtype=torch.float32, device=device)
         return lift_and_denoise(
-            functools.partial(fused_lifter, pose_weights),
-            functools.partial(fused_denoiser, diff_weights),
+            functools.partial(fused_lifter, at_tier(pose_weights, tier)),
+            functools.partial(fused_denoiser, at_tier(diff_weights, tier)),
             x2d, seq=seq, betas=betas, test_times=test_times)
 
     return eval_one

@@ -14,6 +14,11 @@ temporal blocks are torch operations in f32 (``_temporal_block``,
 ``pallas_video.py:53``, also plain products in the JAX package);
 ``"kernel"``: each is one launch of row 10 (``fused_temporal_layer``).
 
+At a reduced kernel tier (``tier="bf16"`` or ``"default"``, the JAX
+wrapper's ``precision``) rows 3 and 10 run that tier's kernels and the
+temporal blocks in torch operations stay f32, as the JAX wrapper leaves
+them to XLA (``video_tier_weights``' ``temporal_f32``).
+
 Under context parallelism (the model bound to a mesh,
 ``SpatioTemporalDiff.bind_mesh``) ``temporal_impl="torch"`` composes: row 3
 runs on this rank's ``B·F_local`` frames with ``tp [1, B·F_local, 96]``, the
@@ -29,6 +34,7 @@ import torch
 from diffpose_tpu_torch.ops.fused_denoiser import fused_backbone
 from diffpose_tpu_torch.ops.fused_video_full import (
     Weights,
+    check_tier,
     embed,
     from_rows,
     fused_temporal_layer,
@@ -36,20 +42,24 @@ from diffpose_tpu_torch.ops.fused_video_full import (
     spatial_projections,
     temporal_layer_plain,
     to_rows,
+    video_tier_weights,
     whole_windows,
 )
 
 TEMPORAL_IMPLS = ("torch", "kernel")
 
 
-def make_video_denoiser_fn(model, *, temporal_impl: str = "torch"):
+def make_video_denoiser_fn(model, *, temporal_impl: str = "torch", tier: str = "bf16x3"):
     """Build ``fn(vw, x [B, F, J, 5], t [B]) → ε̂``, the eval forward of a
     ``SpatioTemporalDiff`` over ``prepare_video_weights``' snapshot ``vw``:
     ``num_layers`` row-3 launches, and with ``temporal_impl="kernel"`` as many
-    row-10 launches.  ``x`` holds this rank's frames of each window where the
-    model is bound to a context axis (the module's docstring)."""
+    row-10 launches, at kernel tier ``tier`` (``video_tier_weights``: made
+    once by the caller, or here at every call).  ``x`` holds this rank's
+    frames of each window where the model is bound to a context axis (the
+    module's docstring)."""
     if temporal_impl not in TEMPORAL_IMPLS:
         raise ValueError(f"temporal_impl must be one of {TEMPORAL_IMPLS}, got {temporal_impl!r}")
+    check_tier(tier)
     num_layers, chunk = model.num_layers, model.attention_chunk
 
     def fn(vw: Weights, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -57,7 +67,8 @@ def make_video_denoiser_fn(model, *, temporal_impl: str = "torch"):
             whole_windows(model, "the fused_st eval forward (row 10)")
         b, f, j, _ = x.shape
         block, context = model.frame_block(f), model.context
-        tw = vw["temporal"]
+        vw = video_tier_weights(vw, tier)
+        tw = vw["temporal"] if temporal_impl == "kernel" else vw.get("temporal_f32", vw["temporal"])
         tps = spatial_projections(vw["spatial"], t, f)
         h = embed(vw, x, block)
         for l in range(num_layers):

@@ -50,6 +50,13 @@ Given ``matmul=ops/tf32.py:matmul_3xtf32``, the plain versions compute the
 kernels' arithmetic: the products at 3xTF32, the attention in the kernels'
 order (:func:`window_attention`).  ``fused_temporal_layer.launches`` and
 ``fused_st_layer.launches`` count kernel launches.
+
+The reduced tiers of ``--kernel_precision`` (``pallas_video_full.py``'s
+``precision`` and ``act``): :func:`video_tier_weights` gives a snapshot at
+``"bf16"`` or ``"default"``; the wrappers then launch that tier's build
+(``csrc/video_kernel_tiers.cu``, built at the first use of a tier; a failed
+build or launch raises) and count it in ``tier_launches[tier]``, and the
+plain versions compute the same tier.
 """
 
 from __future__ import annotations
@@ -58,7 +65,7 @@ import ctypes
 import functools
 import math
 from types import SimpleNamespace
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -69,17 +76,30 @@ from diffpose_tpu_torch.ops.fused_denoiser import (
     _BACKBONE_WEIGHTS,
     KERNEL_HEADS,
     KERNEL_HID,
-    SPLIT_KEYS,
     _check_launch,
     _check_tensor,
     _cheb,
     _layer_norm,
+    at_tier,
     backbone_plain,
+    count_launch,
+    kernel_names,
     prepare_weights,
+    reset_counts,
     resolve_device,
+    round_inputs,
+    tier_of,
+    tier_weights,
     timestep_projections,
 )
-from diffpose_tpu_torch.ops.tf32 import split_tf32
+from diffpose_tpu_torch.ops.tf32 import (
+    PARITY_TIER,
+    TIER_CODES,
+    check_tier,
+    round_bf16,
+    split_tf32,
+    tier_matmul,
+)
 from diffpose_tpu_torch.parallel.context import gather_frames
 
 Weights = Dict[str, Any]
@@ -100,7 +120,6 @@ KERNEL_KEYS = 32
 # that only the network's ends read: the I/O ChebConvs and the timestep MLP.
 _LAYER_STACKS = ("ln1s", "ln1b", "ln2s", "ln2b", "wqkv", "bqkv", "wao", "bao", "lap", "wfc1",
                  "bfc1", "wfc2", "bfc2", "wg1", "bg1", "wg2", "bg2", "wtp", "btp")
-_SPLIT_STACKS = tuple(f"{k}_tf32" for k in SPLIT_KEYS)     # eval weights only
 _ENDS = ("win", "bin", "wout", "bout", "t0k", "t0b", "t1k", "t1b")
 
 
@@ -128,7 +147,8 @@ def layer_weights(sw: Weights) -> List[Weights]:
     as a one-layer bare stack, row 3's and the train pair's weight set: its
     slice of every stack, the graph constants and the configuration, none of
     the network's ends."""
-    stacks = _LAYER_STACKS + tuple(k for k in _SPLIT_STACKS if k in sw)
+    # and the kernels' products (eval weights only: TF32 parts, or a tier's)
+    stacks = _LAYER_STACKS + tuple(k for k in sw if k.endswith(("_tf32", "_1p")))
     shared = {k: v for k, v in sw.items() if k not in stacks + _ENDS}
 
     def one(i):
@@ -192,6 +212,29 @@ def prepare_video_weights(model, device="cuda") -> Weights:
                 pos=model.pos_embed.detach().to(device=device, dtype=torch.float32, copy=True))
 
 
+def temporal_tier_weights(tw: Weights, tier: str) -> Weights:
+    """The temporal stacks ``tw`` (:func:`prepare_video_weights`' ``temporal``)
+    at kernel tier ``tier`` (``fused_denoiser.tier_weights``' rule: each
+    product rounded to the tier, ``"<k>_1p"``; under bf16 every stack
+    rounded, as ``pallas_video_full.py:251`` casts them)."""
+    return tier_weights(tw, tier, T_SPLIT_KEYS, T_KEYS, ends=False)
+
+
+def video_tier_weights(vw: Weights, tier: str) -> Weights:
+    """:func:`prepare_video_weights`' snapshot at kernel tier ``tier``: the
+    layers' spatial weights (rows 3 and 9) and ``temporal`` (rows 9 and 10)
+    at the tier; ``temporal_f32`` keeps the f32 stacks for the temporal
+    blocks in torch operations, and ``spatial`` (the I/O ChebConvs and the
+    timestep MLP, outside the kernels, f32 in the JAX wrappers too) stays."""
+    if check_tier(tier) == PARITY_TIER or vw.get("tier") == tier:
+        return vw
+    if vw.get("tier", PARITY_TIER) != PARITY_TIER:
+        raise ValueError(f"video_tier_weights takes parity-grade weights, got {vw['tier']!r}")
+    return dict(vw, layers=layer_weights(tier_weights(vw["spatial"], tier, ends=False)),
+                temporal=temporal_tier_weights(vw["temporal"], tier),
+                temporal_f32=vw["temporal"], tier=tier)
+
+
 def spatial_projections(sw: Weights, t: torch.Tensor, frames: int) -> List[torch.Tensor]:
     """The timestep MLP once, then each layer's projection of ``swish(temb)``
     repeated over the window's frames: ``[1, B·F, H]`` per layer."""
@@ -204,7 +247,7 @@ def spatial_projections(sw: Weights, t: torch.Tensor, frames: int) -> List[torch
 
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     matmul=torch.matmul) -> torch.Tensor:
+                     matmul=torch.matmul, tier: str = PARITY_TIER) -> torch.Tensor:
     """``softmax(q kᵀ) v`` over ``[..., F, d_k]`` (q carries the scale) in the
     kernels' order (``csrc/video_kernel.cuh``, T2): the keys in chunks of
     :data:`KERNEL_KEYS`; a chunk's scores, its row max carried from the
@@ -212,7 +255,11 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     by ``exp(m_old − m_new)``), ``exp(s − m)`` times its values with the
     keys padded by zeros to whole tiles of 8 (the padded keys masked out of
     the max and the sum); the output divided by the row sum at the end.
-    Both products through ``matmul``."""
+    Both products through ``matmul``.  ``tier="bf16"``: the kernels' two
+    sweeps, the whole row's softmax with each probability rounded to bf16,
+    then its product with the values."""
+    if tier == "bf16":
+        return matmul(round_bf16(torch.softmax(matmul(q, k.transpose(-1, -2)), dim=-1)), v)
     f = k.shape[-2]
     m = l = o = None
     for c0 in range(0, f, KERNEL_KEYS):
@@ -244,27 +291,37 @@ def temporal_layer_plain(tw: Weights, ht: torch.Tensor, layer: int, *,
     attention as :func:`window_attention` computes it with it.  ``context``
     (a ``MeshAxis``): ``ht`` holds this rank's frames of each window, and the
     keys and values of the whole window are gathered over the axis
-    (``parallel/context.py:gather_frames``)."""
-    l, heads = layer, tw["num_heads"]
+    (``parallel/context.py:gather_frames``).  ``tw`` at a reduced tier
+    (:func:`temporal_tier_weights`): row 10's function at that tier, the
+    products the tier's (or ``matmul``), the attention as
+    :func:`window_attention` computes it at the tier and, under bf16, the
+    input, Q|K|V and the residual stream after each sublayer rounded."""
+    l, heads, tier = layer, tw["num_heads"], tier_of(tw)
     n, f, hid = ht.shape
+    if matmul is None and tier != PARITY_TIER:
+        matmul = tier_matmul(tier)
     mm = torch.matmul if matmul is None else matmul
+
+    def act(z):   # the TPU kernel's .astype(act)
+        return round_bf16(z) if tier == "bf16" else z
 
     def split(z):
         return z.reshape(n, z.shape[1], heads, -1).transpose(1, 2)
 
+    ht = act(ht)
     y = _layer_norm(ht, tw["tln1s"][l], tw["tln1b"][l])
-    qkv = mm(y, tw["twqkv"][l]) + tw["tbqkv"][l]
+    qkv = act(mm(y, tw["twqkv"][l]) + tw["tbqkv"][l])
     kv = gather_frames(qkv[..., hid:], context)    # keys and values side by side: one gather
     q, k, v = split(qkv[..., :hid]), *(split(z) for z in kv.split(hid, dim=-1))
     if matmul is not None:
-        att = window_attention(q, k, v, matmul)
+        att = window_attention(q, k, v, matmul, tier)
     elif attention_chunk > 0 and k.shape[2] >= attention_chunk:
         att = chunked_attention(q, k, v, chunk_size=attention_chunk, scale=1.0)
     else:
         att = torch.softmax(q @ k.transpose(-1, -2), dim=-1) @ v
-    x = ht + (mm(att.transpose(1, 2).reshape(n, f, hid), tw["twao"][l]) + tw["tbao"][l])
+    x = act(ht + (mm(att.transpose(1, 2).reshape(n, f, hid), tw["twao"][l]) + tw["tbao"][l]))
     y = F.relu(mm(_layer_norm(x, tw["tln2s"][l], tw["tln2b"][l]), tw["tff1"][l]) + tw["tbff1"][l])
-    return x + (mm(y, tw["tff2"][l]) + tw["tbff2"][l])
+    return act(x + (mm(y, tw["tff2"][l]) + tw["tbff2"][l]))
 
 
 def to_rows(h: torch.Tensor) -> torch.Tensor:
@@ -284,10 +341,10 @@ def st_layer_plain(lw: List[Weights], tw: Weights, h: torch.Tensor, tp: torch.Te
     """One video layer, the function of row 9: ``backbone_plain`` with layer
     ``layer``'s one-layer spatial weights (of :func:`layer_weights`) on the
     ``B·F`` frames, then :func:`temporal_layer_plain` on the ``B·J`` rows;
-    ``matmul`` as there (the spatial channel products through it too)."""
+    ``matmul`` as there (the spatial channel products through it too); the
+    weights' tier as there and as ``backbone_plain``'s."""
     b, f, j, hid = h.shape
-    hs = backbone_plain(lw[layer], h.reshape(b * f, j, hid), tp,
-                        matmul=torch.matmul if matmul is None else matmul).reshape(b, f, j, hid)
+    hs = backbone_plain(lw[layer], h.reshape(b * f, j, hid), tp, matmul=matmul).reshape(b, f, j, hid)
     return from_rows(temporal_layer_plain(tw, to_rows(hs), layer, matmul=matmul), b)
 
 
@@ -299,6 +356,12 @@ def st_layer_plain(lw: List[Weights], tw: Weights, h: torch.Tensor, tp: torch.Te
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     return bind(_build.load("video_kernel"))
+
+
+@functools.lru_cache(maxsize=None)
+def _tier_library() -> ctypes.CDLL:
+    """The one-pass tiers' build (``csrc/video_kernel_tiers.cu``), at first use."""
+    return bind_tiers(_build.load("video_kernel_tiers"))
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -317,32 +380,53 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _raise_on(code: int, what: str):
+def bind_tiers(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the entries of a build of ``csrc/video_kernel_tiers.cu``:
+    ``bind``'s, after a leading tier code."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.temporal_forward_tier.argtypes = [i32] * 4 + [ptr] * (4 + len(_T_KERNEL)) + [ptr]
+    lib.temporal_forward_tier.restype = i32
+    n_spatial = len(_BACKBONE_WEIGHTS)
+    lib.st_layer_forward_tier.argtypes = ([i32] * 4 + [ptr] * (6 + n_spatial) + [i32]
+                                          + [ptr] * len(_T_KERNEL) + [ptr])
+    lib.st_layer_forward_tier.restype = i32
+    lib.video_tier_occupancy.argtypes = [i32, i32, i32] + [ctypes.POINTER(i32)] * 4
+    lib.video_tier_occupancy.restype = i32
+    lib.video_tier_error_string.argtypes = [i32]
+    lib.video_tier_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(code: int, what: str, tier: str = PARITY_TIER):
     if code != 0:
-        raise RuntimeError(f"{what} kernel: {_library().video_error_string(code).decode()} "
-                           f"(cudaError {code})")
+        text = (_library().video_error_string(code) if tier == PARITY_TIER
+                else _tier_library().video_tier_error_string(code))
+        raise RuntimeError(f"{what} kernel (tier {tier}): {text.decode()} (cudaError {code})")
 
 
 def _temporal_ptrs(tw: Weights, layer: int, dev: torch.device) -> list:
     """Layer ``layer``'s slice of every stack the kernels take (the products'
-    TF32 parts), checked, as pointers."""
+    TF32 parts, or their one-pass tier's weights), checked, as pointers."""
     L, H = tw["num_layers"], tw["hid_dim"]
     if (H, tw["num_heads"]) != (KERNEL_HID, KERNEL_HEADS):
         raise ValueError(f"the kernels are built for hid/heads {(KERNEL_HID, KERNEL_HEADS)}, "
                          f"got {(H, tw['num_heads'])}")
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} of a {L}-layer stack")
-    missing = [k for k in _T_KERNEL if k not in tw]
+    names = kernel_names(_T_KERNEL, tier_of(tw))
+    missing = [k for k in names if k not in tw]
     if missing:
-        raise ValueError(f"the kernels take the TF32 parts of prepare_video_weights; missing "
-                         f"{missing}")
+        raise ValueError(f"the kernels take the TF32 parts (at a reduced tier its rounded "
+                         f"weights, video_tier_weights) of prepare_video_weights; missing {missing}")
     shapes = dict(tln1s=(L, H), tln1b=(L, H), tln2s=(L, H), tln2b=(L, H),
-                  twqkv_tf32=(L, 2, H, 3 * H), tbqkv=(L, 3 * H), twao_tf32=(L, 2, H, H),
-                  tbao=(L, H), tff1_tf32=(L, 2, H, 2 * H), tbff1=(L, 2 * H),
-                  tff2_tf32=(L, 2, 2 * H, H), tbff2=(L, H))
-    for k in _T_KERNEL:
+                  twqkv=(L, H, 3 * H), tbqkv=(L, 3 * H), twao=(L, H, H),
+                  tbao=(L, H), tff1=(L, H, 2 * H), tbff1=(L, 2 * H),
+                  tff2=(L, 2 * H, H), tbff2=(L, H))
+    shapes.update({f"{k}_tf32": (L, 2) + shapes[k][1:] for k in T_SPLIT_KEYS})
+    shapes.update({f"{k}_1p": shapes[k] for k in T_SPLIT_KEYS})
+    for k in names:
         _check_tensor(k, tw[k], shapes[k], torch.float32, dev)
-    return [tw[k][layer].data_ptr() for k in _T_KERNEL]   # every layer slice is 16-byte aligned
+    return [tw[k][layer].data_ptr() for k in names]   # every layer slice is 16-byte aligned
 
 
 def _check_rows(name: str, x: torch.Tensor, shape: tuple):
@@ -361,16 +445,20 @@ def _launch_temporal(tw: Weights, ht: torch.Tensor, layer: int) -> torch.Tensor:
     """One cooperative launch of row 10; every input is checked first."""
     n, f, H = ht.shape
     _check_rows("ht", ht, (n, f, KERNEL_HID))
-    dev = ht.device
+    dev, tier = ht.device, tier_of(tw)
+    (ht,) = round_inputs(tier, ht)
     wptrs = _temporal_ptrs(tw, layer, dev)
     out = torch.empty_like(ht)
     if n == 0 or f == 0:
         return out
     qkv, att = _scratch(n * f, dev)
-    code = _library().temporal_forward(dev.index, n, f, ht.data_ptr(), out.data_ptr(),
-                                       qkv.data_ptr(), att.data_ptr(), *wptrs,
-                                       torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(code, "temporal_forward")
+    args = (dev.index, n, f, ht.data_ptr(), out.data_ptr(), qkv.data_ptr(), att.data_ptr(),
+            *wptrs, torch.cuda.current_stream(dev).cuda_stream)
+    if tier == PARITY_TIER:
+        code = _library().temporal_forward(*args)
+    else:
+        code = _tier_library().temporal_forward_tier(TIER_CODES[tier], *args)
+    _raise_on(code, "temporal_forward", tier)
     return out
 
 
@@ -380,61 +468,80 @@ def _launch_st(lw: List[Weights], tw: Weights, h: torch.Tensor, tp: torch.Tensor
     b, f, j, H = h.shape
     _check_rows("h", h, (b, f, j, KERNEL_HID))
     dev = h.device
-    w = lw[layer]
+    w, tier = lw[layer], tier_of(tw)
     if w["num_layers"] != 1:
         raise ValueError("row 9 takes the one-layer spatial weights of layer_weights()")
-    _check_launch(w, h.reshape(b * f, j, H), tp, H, _BACKBONE_WEIGHTS)
+    if tier_of(w) != tier:
+        raise ValueError(f"spatial weights of tier {tier_of(w)!r}, temporal of {tier!r}")
+    names = kernel_names(_BACKBONE_WEIGHTS, tier)
+    h, tp = round_inputs(tier, h, tp)
+    _check_launch(w, h.reshape(b * f, j, H), tp, H, names)
     wptrs = _temporal_ptrs(tw, layer, dev)
     out = torch.empty_like(h)
     if b == 0 or f == 0:
         return out
     spatial = torch.empty_like(h)
     qkv, att = _scratch(b * f * j, dev)
-    code = _library().st_layer_forward(
-        dev.index, b, f, h.data_ptr(), tp.data_ptr(), spatial.data_ptr(), out.data_ptr(),
-        qkv.data_ptr(), att.data_ptr(), *[w[k].data_ptr() for k in _BACKBONE_WEIGHTS],
-        w["cheb_nnz"], *wptrs, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(code, "st_layer_forward")
+    args = (dev.index, b, f, h.data_ptr(), tp.data_ptr(), spatial.data_ptr(), out.data_ptr(),
+            qkv.data_ptr(), att.data_ptr(), *[w[k].data_ptr() for k in names],
+            w["cheb_nnz"], *wptrs, torch.cuda.current_stream(dev).cuda_stream)
+    if tier == PARITY_TIER:
+        code = _library().st_layer_forward(*args)
+    else:
+        code = _tier_library().st_layer_forward_tier(TIER_CODES[tier], *args)
+    _raise_on(code, "st_layer_forward", tier)
     return out
 
 
-def kernel_occupancy(device: torch.device, kernel: str) -> Dict[str, int]:
+def kernel_occupancy(device: torch.device, kernel: str,
+                     tier: str = PARITY_TIER) -> Dict[str, int]:
     """Co-resident CTAs per SM, dynamic shared memory, registers a thread and
-    threads a CTA of row 10 (``kernel="temporal"``) or row 9 (``"st"``)."""
+    threads a CTA of row 10 (``kernel="temporal"``) or row 9 (``"st"``), at
+    ``tier``."""
     which = {"temporal": 0, "st": 1}[kernel]
     per_sm, smem, regs, threads = (ctypes.c_int() for _ in range(4))
-    _raise_on(_library().video_occupancy(device.index or 0, which, ctypes.byref(per_sm),
-                                         ctypes.byref(smem), ctypes.byref(regs),
-                                         ctypes.byref(threads)),
-              "video_occupancy")
+    refs = (ctypes.byref(per_sm), ctypes.byref(smem), ctypes.byref(regs), ctypes.byref(threads))
+    if check_tier(tier) == PARITY_TIER:
+        code = _library().video_occupancy(device.index or 0, which, *refs)
+    else:
+        code = _tier_library().video_tier_occupancy(TIER_CODES[tier], device.index or 0, which,
+                                                    *refs)
+    _raise_on(code, "video_occupancy", tier)
     return {"ctas_per_sm": per_sm.value, "smem_bytes": smem.value, "regs": regs.value,
             "threads": threads.value}
 
 
-def fused_temporal_layer(tw: Weights, ht: torch.Tensor, layer: int) -> torch.Tensor:
+def fused_temporal_layer(tw: Weights, ht: torch.Tensor, layer: int, *,
+                         tier: Optional[str] = None) -> torch.Tensor:
     """TemporalBlock ``layer`` on ``ht [N, F, 96]``: one launch of row 10 for
-    CUDA tensors, :func:`temporal_layer_plain` for CPU tensors."""
+    CUDA tensors, :func:`temporal_layer_plain` for CPU tensors; at ``tw``'s
+    tier, or at ``tier`` (parity stacks rounded here, at every call)."""
+    if tier is not None and tier != tier_of(tw):
+        tw = temporal_tier_weights(tw, tier)
     if ht.device.type == "cpu":
         return temporal_layer_plain(tw, ht, layer)
     out = _launch_temporal(tw, ht, layer)
-    fused_temporal_layer.launches += 1
+    count_launch(fused_temporal_layer, tier_of(tw))
     return out
 
 
 def fused_st_layer(lw: List[Weights], tw: Weights, h: torch.Tensor, tp: torch.Tensor,
-                   layer: int) -> torch.Tensor:
+                   layer: int, *, tier: Optional[str] = None) -> torch.Tensor:
     """Video layer ``layer`` on ``h [B, F, 17, 96]`` with ``tp [1, B·F, 96]``:
     one cooperative launch of row 9 for CUDA tensors, :func:`st_layer_plain`
-    for CPU tensors."""
+    for CPU tensors; at the weights' tier, or at ``tier`` (as
+    :func:`fused_temporal_layer`)."""
+    if tier is not None and tier != tier_of(tw):
+        lw = [*lw[:layer], at_tier(lw[layer], tier)]
+        tw = temporal_tier_weights(tw, tier)
     if h.device.type == "cpu":
         return st_layer_plain(lw, tw, h, tp, layer)
     out = _launch_st(lw, tw, h, tp, layer)
-    fused_st_layer.launches += 1
+    count_launch(fused_st_layer, tier_of(tw))
     return out
 
 
-fused_temporal_layer.launches = 0
-fused_st_layer.launches = 0
+reset_counts(fused_temporal_layer, fused_st_layer)
 
 
 def embed(vw: Weights, x: torch.Tensor, frames: slice = slice(None)) -> torch.Tensor:
@@ -463,16 +570,20 @@ def whole_windows(model, what: str):
                          "forward, row 3 a spatial block, under a context axis)")
 
 
-def make_video_full_fn(model):
+def make_video_full_fn(model, *, tier: str = PARITY_TIER):
     """Build ``fn(vw, x [B, F, J, 5], t [B]) → ε̂``: the eval forward of a
     ``SpatioTemporalDiff`` with every layer one launch of row 9 (the JAX
     default ``layers_per_call=1``); ``vw`` is :func:`prepare_video_weights`'
-    snapshot.  Counterpart of ``make_pallas_video_full_fn``.  Whole windows
-    only: under a context axis of more than one rank it raises."""
+    snapshot, at kernel tier ``tier`` (:func:`video_tier_weights`: made once
+    by the caller, or here at every call).  Counterpart of
+    ``make_pallas_video_full_fn``.  Whole windows only: under a context axis
+    of more than one rank it raises."""
     frames, num_layers = model.frames, model.num_layers
+    check_tier(tier)
 
     def fn(vw: Weights, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         whole_windows(model, "the fused_full eval forward (row 9)")
+        vw = video_tier_weights(vw, tier)
         if x.shape[1] != frames:
             raise ValueError(f"the model takes {frames}-frame windows, got {x.shape[1]}")
         tps = spatial_projections(vw["spatial"], t, frames)

@@ -141,3 +141,59 @@ def matmul_1xtf32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     to TF32 and one accumulator through K / 8 ``mma.sync`` in order: the
     1xTF32 mode of the attention probe (``csrc/probe_attention.cu``)."""
     return _chain([_products(_steps(round_tf32(a), -1), _steps(round_tf32(w), -2))])
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float32) rounded to bf16 and held in float32: to nearest, ties to
+    even, as the TPU kernels' ``.astype(bfloat16)`` and ``csrc/mma_tf32.cuh:
+    to_bf16`` round (a bf16 value is exact in TF32 and in float32)."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"round_bf16 takes float32, got {x.dtype}")
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def matmul_1xbf16(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` (shapes as :func:`matmul_3xtf32`) with both operands rounded
+    to bf16 and one accumulator through K / 8 ``mma.sync`` in order: how the
+    one-pass ``tc_gemm`` of the bf16 tier computes it (``csrc/tc_gemm.cuh``,
+    the TF32 ``mma.sync`` on bf16 values, whose products are exact)."""
+    return _chain([_products(_steps(round_bf16(a), -1), _steps(round_bf16(w), -2))])
+
+
+# --kernel_precision's tiers (the JAX kernels' `precision`), and the code each
+# one-pass tier has in the CUDA sources (csrc/mma_tf32.cuh: TIER_BF16, TIER_1XTF32).
+KERNEL_TIERS = ("bf16x3", "bf16", "default")
+PARITY_TIER = "bf16x3"
+TIER_CODES = {"bf16": 1, "default": 2}
+
+
+def check_tier(tier: str) -> str:
+    if tier not in KERNEL_TIERS:
+        raise ValueError(f"kernel tier must be one of {KERNEL_TIERS}, got {tier!r}")
+    return tier
+
+
+def matmul_bf16(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The bf16 tier's product in plain PyTorch: both operands rounded to
+    bf16, the exact products summed in float32 (``jnp.dot`` of bf16 operands
+    with ``preferred_element_type=float32``; :func:`matmul_1xbf16` is the
+    card's order of the sum)."""
+    return torch.matmul(round_bf16(a), round_bf16(w))
+
+
+def matmul_tf32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The default tier's product in plain PyTorch: both operands rounded to
+    TF32, the exact products summed in float32 (:func:`matmul_1xtf32` is the
+    card's order and truncation of the sum)."""
+    return torch.matmul(round_tf32(a), round_tf32(w))
+
+
+def tier_matmul(tier: str):
+    """The channel product of a tier's plain versions."""
+    return {"bf16x3": torch.matmul, "bf16": matmul_bf16, "default": matmul_tf32}[check_tier(tier)]
+
+
+def round_weight(tier: str, w: torch.Tensor) -> torch.Tensor:
+    """A product's weight as a one-pass tier's kernel takes it, rounded once
+    on the host (``tc_gemm``'s one-pass weights)."""
+    return {"bf16": round_bf16, "default": round_tf32}[tier](w).contiguous()

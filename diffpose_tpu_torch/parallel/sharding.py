@@ -235,7 +235,7 @@ def make_sharded_train_sweep_step(model, optimizer, betas, mesh, *, sweep: int,
 def make_sharded_eval_step(diff_model, pose_model, betas, seq, mesh, *,
                            test_times: int = 1, eta: float = 0.0, use_ema: bool = False,
                            sweep: int = 1, hyp_axis: Optional[str] = None,
-                           impl: str = "module", device="cuda") -> Callable:
+                           impl: str = "module", device="cuda", tier: str = "bf16x3") -> Callable:
     """The multi-rank eval step: frames shard over ``data``; with ``hyp_axis``
     (a second mesh axis) each rank also solves ``test_times / hyp_size`` of
     the hypotheses and their mean is a sum over that axis's group.
@@ -248,7 +248,7 @@ def make_sharded_eval_step(diff_model, pose_model, betas, seq, mesh, *,
     from diffpose_tpu_torch.train.steps import make_eval_step
 
     local = make_eval_step(diff_model, pose_model, betas, seq, test_times=test_times, eta=eta,
-                           use_ema=use_ema, impl=impl, device=device,
+                           use_ema=use_ema, impl=impl, device=device, tier=tier,
                            hyp_axis=mesh_axis(mesh, hyp_axis) if hyp_axis else None)
     if sweep <= 1:
         return local
@@ -320,7 +320,7 @@ def make_sharded_implicit_eval_step(implicit_model, pose_model, mesh, *, t_infer
                                     test_times: int = 1, use_ema: bool = False,
                                     gmm_base_seed: int = 0,
                                     use_warm_start: bool = False, impl: str = "module",
-                                    device="cuda") -> Callable:
+                                    device="cuda", tier: str = "bf16x3") -> Callable:
     """Sharded direct-inference eval: frames shard over ``data`` and each rank
     runs its own fixed-point solve, so convergence and the Anderson history
     are per shard (the reference's chunked eval, where each chunk solves
@@ -339,7 +339,7 @@ def make_sharded_implicit_eval_step(implicit_model, pose_model, mesh, *, t_infer
     local = make_implicit_eval_step(implicit_model, pose_model, t_infer=t_infer,
                                     test_times=test_times, use_ema=use_ema,
                                     gmm_base_seed=gmm_base_seed, use_warm_start=use_warm_start,
-                                    impl=impl, device=device)
+                                    impl=impl, device=device, tier=tier)
 
     def step(state, pose, batch, generator=None, z0=None, z0_weight=None, prepared=None):
         out = list(local(state, pose, batch, generator, z0, z0_weight, prepared=prepared))
@@ -425,7 +425,8 @@ def make_sharded_video_eval_step(model, betas, seq, mesh, *, frames_total: int,
                                  data_axis: Optional[str] = "data",
                                  cp_axis: Optional[str] = None, test_times: int = 1,
                                  eta: float = 0.0, mask=None, use_ema: bool = False,
-                                 denoise_override=None, device="cuda") -> Callable:
+                                 denoise_override=None, device="cuda",
+                                 tier: str = "bf16x3") -> Callable:
     """Windowed DDIM eval over the mesh: ``step(state, batch, generator=None,
     prepared=None) → (p1, p2, pred)`` over this rank's block, ``[B_local,
     F_local]`` errors (:func:`gather_windows` joins them).  The per-(window,
@@ -439,6 +440,6 @@ def make_sharded_video_eval_step(model, betas, seq, mesh, *, frames_total: int,
     _bound(model, mesh, cp_axis)
     return make_video_eval_step(
         model, betas, seq, test_times=test_times, eta=eta, mask=mask, use_ema=use_ema,
-        frames_total=frames_total, denoise_override=denoise_override, device=device,
+        frames_total=frames_total, denoise_override=denoise_override, device=device, tier=tier,
         data_axis=mesh_axis(mesh, data_axis) if data_axis else None,
         cp_axis=mesh_axis(mesh, cp_axis) if cp_axis else None)

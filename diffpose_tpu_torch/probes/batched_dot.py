@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from diffpose_tpu_torch.ops import _build
 from diffpose_tpu_torch.ops.fused_denoiser import _check_tensor, resolve_device
 from diffpose_tpu_torch.ops.tf32 import matmul_1xtf32, matmul_3xtf32
-from diffpose_tpu_torch.probes import device_ms, time_ms
+from diffpose_tpu_torch.probes import device_clock, device_ms, time_ms
 
 MODES = {"1xtf32": 1, "3xtf32": 3}
 SHAPES = ((136, 81, 24), (16 * 17 * 4, 81, 24))
@@ -144,6 +144,7 @@ def run() -> Dict[tuple, dict]:
                              "ms": time_ms(lambda: batched_attention(q, k, v, mode)),
                              "device_ms": device_ms(lambda: batched_attention(q, k, v, mode),
                                                     "attention_kernel"),
+                             "device_clock": device_clock(),
                              **kernel_grid(dev, shape[0], shape[1], mode)}
             out[shape] = rec
     return out

@@ -89,7 +89,7 @@ def _nine_warps(d: Path):
 
 
 def _in_cta_split(d: Path):
-    _edit(d, "net_kernel.cuh", lambda s: _sub(s, ", true, NT>(", ", false, NT>("))
+    _edit(d, "net_kernel.cuh", lambda s: _sub(s, ", true, NT, TIER>(", ", false, NT, TIER>("))
 
 
 def _ks32_s3(d: Path):
@@ -99,8 +99,8 @@ def _ks32_s3(d: Path):
 
 def _recip_div(d: Path):
     def net(s):
-        s = _sub(s, "      const float p = s[m] / sum;",
-                 "      const float p = s[m] * (1.f / sum);")
+        s = _sub(s, "round_bf16(s[m] / sum) : s[m] / sum;",
+                 "round_bf16(s[m] * (1.f / sum)) : s[m] * (1.f / sum);")
         return s
 
     def gemm(s):

@@ -44,7 +44,7 @@ from diffpose_tpu_torch.train.implicit_steps import (
     make_implicit_train_sweep_step,
 )
 from diffpose_tpu_torch.train.state import TrainState
-from diffpose_tpu_torch.train.trainer import DiffposeRunner
+from diffpose_tpu_torch.train.trainer import DiffposeRunner, under_matmul_grade
 
 logger = logging.getLogger(__name__)
 
@@ -168,6 +168,7 @@ class ImplicitRunner(DiffposeRunner):
     # Evaluation
     # ------------------------------------------------------------------
 
+    @under_matmul_grade("eval")
     def evaluate(self, is_train: bool = False,
                  state: Optional[TrainState] = None) -> Tuple[float, float]:
         if not self.use_implicit:
@@ -183,7 +184,8 @@ class ImplicitRunner(DiffposeRunner):
             t_cfg = self.config.testing
             kwargs = dict(t_infer=t_cfg.test_num_diffusion_timesteps,
                           test_times=t_cfg.test_times, use_ema=self.use_ema_eval,
-                          use_warm_start=warm, impl=self.denoiser_impl, device=self.device)
+                          use_warm_start=warm, impl=self.denoiser_impl, device=self.device,
+                          tier=self.kernel_precision)
             if self.mesh is not None:   # frames over data, every hypothesis on each rank
                 fn = make_sharded_implicit_eval_step(self.model_diff, self.model_pose, self.mesh,
                                                      **kwargs)

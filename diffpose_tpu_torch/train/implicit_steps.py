@@ -30,7 +30,12 @@ from diffpose_tpu_torch.data.gmm import sample_gmm_batch_per_sample
 from diffpose_tpu_torch.metrics import mpjpe_per_sample, p_mpjpe_per_sample
 from diffpose_tpu_torch.models.ema import ema_update
 from diffpose_tpu_torch.models.igcn import bn_state
-from diffpose_tpu_torch.ops.fused_denoiser import fused_lifter, prepare_weights, resolve_device
+from diffpose_tpu_torch.ops.fused_denoiser import (
+    fused_lifter,
+    prepare_weights,
+    resolve_device,
+    tier_weights,
+)
 from diffpose_tpu_torch.ops.fused_igcn import make_igcn_fn
 from diffpose_tpu_torch.ops.fused_igcn_train import make_igcn_train_fn
 from diffpose_tpu_torch.parallel.mesh import MeshAxis
@@ -195,27 +200,29 @@ def make_implicit_train_sweep_step(model, optimizer, betas, *, sweep: int,
 
 
 @torch.no_grad()
-def _weights_of(state, pose, use_ema: bool, device):
-    """The lifter's and the IGCN's stacked weights and the IGCN's BatchNorm
+def _weights_of(state, pose, use_ema: bool, device, tier: str = "bf16x3"):
+    """The lifter's and the IGCN's stacked weights at the kernels' tier (the
+    IGCN's ChebConvs, outside the kernel, f32) and the IGCN's BatchNorm
     state, the EMA shadow in place of the live parameters with ``use_ema``
     (the running buffers stay live: EMA covers parameters only)."""
     ema = state.ema_params if use_ema and state.ema_params is not None else None
     with _swapped_in(state.model, ema):
-        diff_w = prepare_weights(state.model, device=device)
+        diff_w = tier_weights(prepare_weights(state.model, device=device), tier, ends=False)
         bn = {k: v.clone() for k, v in bn_state(state.model).items()}
-    return prepare_weights(pose, device=device), diff_w, bn
+    return tier_weights(prepare_weights(pose, device=device), tier), diff_w, bn
 
 
 def make_implicit_eval_step(implicit_model, pose_model, *, t_infer: int, test_times: int = 1,
                             mask=None, use_ema: bool = False, gmm_base_seed: int = 0,
-                            use_warm_start: bool = False, impl: str = "module", device="cuda"):
+                            use_warm_start: bool = False, impl: str = "module", device="cuda",
+                            tier: str = "bf16x3"):
     """Direct-inference eval: lift → ONE fixed-point solve at ``t_infer`` →
     hypothesis mean → P1/P2 (``diffpose_tpu/train/implicit_steps.py:211-283``).
 
     ``impl="fused"``: the lift is ``fused_lifter`` (kernel row 2) and the
     solve ``ops/fused_igcn.py:make_igcn_fn`` (row 3 once per iteration); on
     a CPU device their plain versions.  ``impl="module"``: the modules'
-    forwards.
+    forwards.  ``tier``: the kernels' ``--kernel_precision``.
 
     Returns ``eval_step(state, pose, batch, generator=None, z0=None,
     z0_weight=None, prepared=None) → (p1 [B], p2 [B], pred_xyz [B, J, 3],
@@ -229,10 +236,10 @@ def make_implicit_eval_step(implicit_model, pose_model, *, t_infer: int, test_ti
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     _check_mask(mask)
     device = resolve_device(device)
-    solve = make_igcn_fn(implicit_model, device=device) if impl == "fused" else None
+    solve = make_igcn_fn(implicit_model, device=device, tier=tier) if impl == "fused" else None
 
     def prepare(state, pose):
-        return _weights_of(state, pose, use_ema, device) if impl == "fused" else None
+        return _weights_of(state, pose, use_ema, device, tier) if impl == "fused" else None
 
     @torch.no_grad()
     def eval_step(state: TrainState, pose, batch: dict, generator=None, z0=None, z0_weight=None,

@@ -41,6 +41,7 @@ from diffpose_tpu_torch.ops.fused_denoiser import (
     fused_lifter,
     prepare_weights,
     resolve_device,
+    tier_weights,
 )
 from diffpose_tpu_torch.ops.fused_train import build_train_stack, fused_train_forward
 from diffpose_tpu_torch.ops.philox import philox_masks
@@ -230,7 +231,7 @@ def _swapped_in(model, params):
 def make_eval_step(diff_model, pose_model, betas, seq: Sequence[int], *, test_times: int = 1,
                    eta: float = 0.0, add_start_noise: bool = False, use_ema: bool = False,
                    gmm_base_seed: int = 0, impl: str = "module", device="cuda",
-                   hyp_axis: Optional[MeshAxis] = None):
+                   hyp_axis: Optional[MeshAxis] = None, tier: str = "bf16x3"):
     """Build the evaluation step (lift → DDIM loop → hypothesis mean).
     Counterpart of ``diffpose_tpu/train/steps.py:make_eval_step``.
 
@@ -259,9 +260,10 @@ def make_eval_step(diff_model, pose_model, betas, seq: Sequence[int], *, test_ti
     Returns ``eval_step(state, pose_model, batch, generator, prepared=None)
     → (p1 [B], p2 [B], pred_xyz [B, J, 3])``, tensors on ``device``.
     ``eval_step.prepare(state, pose_model)`` stacks the weights of the
-    models under evaluation once (``impl="fused"``); pass its result as
-    ``prepared`` to every batch of one evaluation, or leave it out and the
-    step prepares them itself.
+    models under evaluation once (``impl="fused"``), at the kernels' tier
+    ``tier`` (``--kernel_precision``, ``fused_denoiser.tier_weights``); pass
+    its result as ``prepared`` to every batch of one evaluation, or leave it
+    out and the step prepares them itself.
     """
     if impl not in EVAL_IMPLS:
         raise ValueError(f"impl must be one of {EVAL_IMPLS}, got {impl!r}")
@@ -280,8 +282,8 @@ def make_eval_step(diff_model, pose_model, betas, seq: Sequence[int], *, test_ti
         if impl != "fused":
             return None
         with _swapped_in(state.model, ema_of(state)):
-            diff_w = prepare_weights(state.model, device=device)
-        return prepare_weights(pose, device=device), diff_w
+            diff_w = tier_weights(prepare_weights(state.model, device=device), tier)
+        return tier_weights(prepare_weights(pose, device=device), tier), diff_w
 
     @torch.no_grad()
     def eval_step(state, pose, batch: dict, generator: Optional[torch.Generator] = None,

@@ -23,6 +23,8 @@ and checkpoints, and every rank loads on resume.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import logging
 import os
 import time
@@ -42,6 +44,7 @@ from diffpose_tpu_torch.models import GCNDiff, GCNPose
 from diffpose_tpu_torch.models.convert import load_torch_states
 from diffpose_tpu_torch.models.ema import ema_register
 from diffpose_tpu_torch.ops.fused_denoiser import resolve_device
+from diffpose_tpu_torch.ops.tf32 import PARITY_TIER, check_tier
 from diffpose_tpu_torch.parallel.mesh import barrier, is_main_rank, mesh_axis
 from diffpose_tpu_torch.parallel.sharding import (
     gather_rows,
@@ -62,7 +65,65 @@ DENOISER_IMPLS = ("module", "fused")
 DROPOUT_IMPLS = ("masks", "prng")
 # The JAX package's name of its parity (f32) kernel grade: the CUDA kernels'
 # 3xTF32 tensor-core products (f32 FMA on row 4's narrow paths) are that grade.
-F32_KERNEL_GRADE = "bf16x3"
+F32_KERNEL_GRADE = PARITY_TIER
+# --matmul_precision: the grade of the torch operations around the kernels.
+MATMUL_PRECISIONS = ("float32", "BF16_BF16_F32_X3", "default")
+
+
+def check_precisions(kernel_precision: str, matmul_precisions, train_impl: str):
+    """The runners' checks of ``--kernel_precision`` and ``--matmul_precision``:
+    every value the JAX runners take; a reduced kernel tier with the fused or
+    plain train stack (rows 5-8, no reduced tier yet) raises."""
+    check_tier(kernel_precision)
+    for value in matmul_precisions:
+        if value not in MATMUL_PRECISIONS:
+            raise ValueError(f"matmul precision must be one of {MATMUL_PRECISIONS}, got {value!r}")
+    if kernel_precision != PARITY_TIER and train_impl in ("fused", "plain"):
+        raise NotImplementedError(
+            f"--kernel_precision {kernel_precision} with --train_impl {train_impl}: the train "
+            "kernels (rows 5-8) and their plain stack have no reduced tier yet (ROADMAP item "
+            "14b); train with --train_impl module, or at --kernel_precision bf16x3")
+
+
+def warn_default_tier(kernel_precision: str):
+    """The JAX runner's warning for the default tier on a training run
+    (``diffpose_tpu/train/trainer.py:307-311``)."""
+    if kernel_precision == "default":
+        logger.warning("--kernel_precision default: single-pass (1xTF32) kernel products are "
+                       "not parity-grade (use bf16x3 for reference-accuracy training and eval)")
+
+
+@contextlib.contextmanager
+def matmul_grade(precision: str, device: torch.device):
+    """``--matmul_precision`` on ``device``'s torch matrix products and
+    convolutions for the block: ``float32`` TF32 off; ``default`` TF32 on,
+    the card's single pass, as JAX's ``default`` is on a GPU;
+    ``BF16_BF16_F32_X3`` at the f32 grade (PyTorch has no three-pass split of
+    an f32 product).  The flags are process-global: each runner sets them
+    around its own train and eval and restores them after."""
+    if device.type != "cuda":
+        yield
+        return
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = precision == "default"
+    try:
+        yield
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+
+
+def under_matmul_grade(kind: str):
+    """A runner method run under ``matmul_grade(self.<kind>_matmul_precision)``."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(self, *args, **kwargs):
+            with matmul_grade(getattr(self, f"{kind}_matmul_precision"), self.device):
+                return fn(self, *args, **kwargs)
+        return wrapped
+    return deco
 
 
 class DiffposeRunner:
@@ -106,17 +167,8 @@ class DiffposeRunner:
             raise ValueError(f"train_impl must be one of {TRAIN_IMPLS}, got {train_impl!r}")
         if dropout_impl not in DROPOUT_IMPLS:
             raise ValueError(f"dropout_impl must be one of {DROPOUT_IMPLS}, got {dropout_impl!r}")
-        if kernel_precision != F32_KERNEL_GRADE:
-            raise NotImplementedError(
-                f"--kernel_precision {kernel_precision}: only the f32 grade "
-                f"({F32_KERNEL_GRADE!r}) exists; the reduced-precision kernel tiers are not "
-                "ported yet (ROADMAP north star, 'Parity precision is f32')")
-        for name, value in (("eval", eval_matmul_precision), ("train", train_matmul_precision)):
-            if value != "float32":
-                raise NotImplementedError(
-                    f"{name} matmul precision {value!r}: only float32 (TF32 off) exists; the "
-                    "reduced tiers are not ported yet (ROADMAP north star, 'Parity precision "
-                    "is f32')")
+        check_precisions(kernel_precision, (eval_matmul_precision, train_matmul_precision),
+                         train_impl)
         self.config = config
         self.seed = seed
         self.skip_type = skip_type
@@ -153,9 +205,6 @@ class DiffposeRunner:
         if mesh is not None and mesh.device_type != self.device.type:
             raise ValueError(f"the mesh is over {mesh.device_type!r} ranks, the runner's device "
                              f"is {self.device}")
-        if self.device.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
 
         d = config.diffusion
         self.betas = get_beta_schedule(
@@ -325,8 +374,10 @@ class DiffposeRunner:
         ema = ema_register(self.model_diff) if self.config.model.ema else None
         return TrainState.create(self.model_diff, optimizer, ema_params=ema)
 
+    @under_matmul_grade("train")
     def train(self, resume: bool = False) -> Dict[str, list]:
         assert self.model_diff is not None and self.train_data is not None
+        warn_default_tier(self.kernel_precision)
         loader = self._make_loader(self.train_data, shuffle=True)
         steps_per_epoch = len(loader)
         optimizer, step_fn = self._build_train_step(steps_per_epoch)
@@ -442,7 +493,7 @@ class DiffposeRunner:
         self._eval_builds += 1
         t_cfg = self.config.testing
         kwargs = dict(test_times=t_cfg.test_times, eta=self.eta, use_ema=self.use_ema_eval,
-                      impl=self.denoiser_impl, device=self.device)
+                      impl=self.denoiser_impl, device=self.device, tier=self.kernel_precision)
         if self.mesh is not None:
             fn = make_sharded_eval_step(
                 self.model_diff, self.model_pose, self.betas, seq, self.mesh,
@@ -462,6 +513,7 @@ class DiffposeRunner:
         batch's order, as host arrays."""
         return tuple(gather_rows(v, self._data).cpu().numpy() for v in per_sample)
 
+    @under_matmul_grade("eval")
     def evaluate(self, is_train: bool = False, state: Optional[TrainState] = None) -> Tuple[float, float]:
         assert self.model_diff is not None and self.model_pose is not None
         assert self.test_data is not None and self.pose_params is not None

@@ -56,7 +56,14 @@ from diffpose_tpu_torch.parallel.sharding import (
 from diffpose_tpu_torch.train.checkpoint import Checkpointer
 from diffpose_tpu_torch.train.optim import make_optimizer
 from diffpose_tpu_torch.train.state import TrainState
-from diffpose_tpu_torch.train.trainer import DROPOUT_IMPLS, F32_KERNEL_GRADE, TRAIN_IMPLS
+from diffpose_tpu_torch.train.trainer import (
+    DROPOUT_IMPLS,
+    F32_KERNEL_GRADE,
+    TRAIN_IMPLS,
+    check_precisions,
+    under_matmul_grade,
+    warn_default_tier,
+)
 from diffpose_tpu_torch.train.video_steps import make_video_eval_step, make_video_train_step
 
 logger = logging.getLogger(__name__)
@@ -64,14 +71,15 @@ logger = logging.getLogger(__name__)
 VIDEO_DENOISER_IMPLS = ("module", "fused", "fused_st", "fused_full")
 
 
-def video_denoise_override(model, impl: str):
+def video_denoise_override(model, impl: str, tier: str = F32_KERNEL_GRADE):
     """The fused eval forward that ``impl`` (one of :data:`VIDEO_DENOISER_IMPLS`)
-    names, for ``make_video_eval_step``'s ``denoise_override``; None for the
-    module."""
+    names at kernel tier ``tier``, for ``make_video_eval_step``'s
+    ``denoise_override``; None for the module."""
     if impl == "fused_full":
-        return make_video_full_fn(model)
+        return make_video_full_fn(model, tier=tier)
     if impl in ("fused", "fused_st"):
-        return make_video_denoiser_fn(model, temporal_impl="kernel" if impl == "fused_st" else "torch")
+        return make_video_denoiser_fn(model, tier=tier,
+                                      temporal_impl="kernel" if impl == "fused_st" else "torch")
     return None
 
 
@@ -119,17 +127,8 @@ class VideoRunner:
                                      ("dropout_impl", dropout_impl, DROPOUT_IMPLS)):
             if value not in allowed:
                 raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
-        if kernel_precision != F32_KERNEL_GRADE:
-            raise NotImplementedError(
-                f"--kernel_precision {kernel_precision}: only the f32 grade "
-                f"({F32_KERNEL_GRADE!r}) exists; the reduced-precision kernel tiers are not "
-                "ported yet (ROADMAP north star, 'Parity precision is f32')")
-        for name, value in (("eval", eval_matmul_precision), ("train", train_matmul_precision)):
-            if value != "float32":
-                raise NotImplementedError(
-                    f"{name} matmul precision {value!r}: only float32 (TF32 off) exists; the "
-                    "reduced tiers are not ported yet (ROADMAP north star, 'Parity precision "
-                    "is f32')")
+        check_precisions(kernel_precision, (eval_matmul_precision, train_matmul_precision),
+                         train_impl)
         self.config = config
         self.video_cfg = config.video or VideoConfig()
         self.seed = seed
@@ -159,9 +158,6 @@ class VideoRunner:
         if mesh is not None and mesh.device_type != self.device.type:
             raise ValueError(f"the mesh is over {mesh.device_type!r} ranks, the runner's device "
                              f"is {self.device}")
-        if self.device.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
 
         d = config.diffusion
         self.betas = get_beta_schedule(
@@ -261,8 +257,10 @@ class VideoRunner:
             step_fn = make_video_train_step(self.model, optimizer, self.betas, **kwargs)
         return optimizer, step_fn
 
+    @under_matmul_grade("train")
     def train(self, resume: bool = False) -> Dict[str, list]:
         assert self.model is not None and self.train_data is not None
+        warn_default_tier(self.kernel_precision)
         loader = self._make_loader(self.train_data, shuffle=True)
         steps_per_epoch = len(loader)
         optimizer, step_fn = self._build_train_step(steps_per_epoch)
@@ -319,8 +317,9 @@ class VideoRunner:
             t_cfg = self.config.testing
             kwargs = dict(test_times=t_cfg.test_times, eta=self.eta, mask=self.mask,
                           use_ema=self.use_ema_eval,
-                          denoise_override=video_denoise_override(self.model, self.denoiser_impl),
-                          device=self.device)
+                          denoise_override=video_denoise_override(self.model, self.denoiser_impl,
+                                                                  self.kernel_precision),
+                          device=self.device, tier=self.kernel_precision)
             if self.mesh is not None:
                 self._eval_cache[key] = make_sharded_video_eval_step(
                     self.model, self.betas, seq, self.mesh, frames_total=self.video_cfg.frames,
@@ -329,6 +328,7 @@ class VideoRunner:
                 self._eval_cache[key] = make_video_eval_step(self.model, self.betas, seq, **kwargs)
         return self._eval_cache[key]
 
+    @under_matmul_grade("eval")
     def evaluate(self, is_train: bool = False,
                  state: Optional[TrainState] = None) -> Tuple[float, float]:
         assert self.model is not None and self.test_data is not None

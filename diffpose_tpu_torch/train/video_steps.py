@@ -41,7 +41,7 @@ from diffpose_tpu_torch.diffusion.ddim import (
 from diffpose_tpu_torch.metrics import mpjpe_per_sample, p_mpjpe_per_sample
 from diffpose_tpu_torch.models.ema import ema_update
 from diffpose_tpu_torch.ops.fused_denoiser import resolve_device
-from diffpose_tpu_torch.ops.fused_video_full import prepare_video_weights
+from diffpose_tpu_torch.ops.fused_video_full import prepare_video_weights, video_tier_weights
 from diffpose_tpu_torch.ops.fused_video_train import (
     TemporalMasks,
     make_temporal_masks,
@@ -212,7 +212,7 @@ def make_video_eval_step(model, betas, seq: Sequence[int], *, test_times: int = 
                          gmm_base_seed: int = 0, cp_axis: Optional[MeshAxis] = None,
                          data_axis: Optional[MeshAxis] = None,
                          frames_total: Optional[int] = None, denoise_override=None,
-                         device="cuda"):
+                         device="cuda", tier: str = "bf16x3"):
     """Window eval: per-frame GMM draw of the 2D input and a zero xyz guess →
     DDIM over the window → hypothesis mean → root-centred per-frame P1/P2
     ``[B, F]``.  Counterpart of ``diffpose_tpu/train/video_steps.py:37``.
@@ -230,7 +230,8 @@ def make_video_eval_step(model, betas, seq: Sequence[int], *, test_times: int = 
     ``denoise_override(vw, x, t) → ε̂`` replaces the module forward with a
     fused one (``ops/fused_video.py``, ``ops/fused_video_full.py``) over
     ``vw = eval_step.prepare(state)``, the weights' snapshot (the EMA
-    shadow with ``use_ema``).  Returns ``eval_step(state, batch, generator
+    shadow with ``use_ema``) at the kernels' tier ``tier``
+    (``video_tier_weights``).  Returns ``eval_step(state, batch, generator
     =None, prepared=None) → (p1 [B, F], p2 [B, F], pred_xyz [B, F, J, 3])``.
     """
     device = resolve_device(device)
@@ -245,7 +246,7 @@ def make_video_eval_step(model, betas, seq: Sequence[int], *, test_times: int = 
         if denoise_override is None:
             return None
         with _swapped_in(state.model, ema_of(state)):
-            return prepare_video_weights(state.model, device=device)
+            return video_tier_weights(prepare_video_weights(state.model, device=device), tier)
 
     @torch.no_grad()
     def eval_step(state, batch: dict, generator: Optional[torch.Generator] = None,

@@ -121,10 +121,11 @@ def test_second_evaluate_builds_nothing_and_is_deterministic():
 
 @pytest.mark.parametrize("variants,exc,match", [
     ([dict(mesh=object())], TypeError, "DeviceMesh"),
-    ([dict(kernel_precision="bf16"), dict(kernel_precision="default")],
-     NotImplementedError, "f32 grade"),
-    ([dict(train_matmul_precision="BF16_BF16_F32_X3"), dict(eval_matmul_precision="default")],
-     NotImplementedError, "float32"),
+    ([dict(kernel_precision="bf16", train_impl="fused"),
+      dict(kernel_precision="default", train_impl="plain")],
+     NotImplementedError, "ROADMAP item 14b"),
+    ([dict(train_matmul_precision="bf16"), dict(eval_matmul_precision="highest"),
+      dict(kernel_precision="fp8")], ValueError, "must be one of"),
     ([dict(denoiser_impl="pallas_full"), dict(denoiser_impl="pallas_st")], ValueError,
      "video family"),
     ([dict(train_impl="pallas"), dict(dropout_impl="tpu"), dict(denoiser_impl="xla")],

@@ -78,7 +78,7 @@ def test_runner_refuses_what_has_no_counterpart_and_evaluates_twice_alike():
     config.video.frames, config.video.num_layers, config.training.batch_size = 5, 1, 2
     for kwargs, exc in ((dict(mesh=object()), TypeError),
                         (dict(denoiser_impl="pallas_full"), ValueError),
-                        (dict(kernel_precision="bf16"), NotImplementedError)):
+                        (dict(kernel_precision="bf16", train_impl="fused"), NotImplementedError)):
         with pytest.raises(exc):
             VideoRunner(config, device="cpu", **kwargs)
     # whole-window paths under a context axis (a world of one): refused, not replaced
