@@ -335,7 +335,7 @@ from diffpose_tpu_torch.probes import (ProfilerBlind, ablate, batched_dot, devic
                                        profiled, profiler_sees_device, tf32_gemm, time_ms,
                                        video_phases)
 from diffpose_tpu_torch.ops.fused_denoiser import _cheb, _layer_norm
-from diffpose_tpu_torch.ops.tf32 import matmul_3xtf32
+from diffpose_tpu_torch.ops.tf32 import TIER_CODES, matmul_3xtf32
 from diffpose_tpu_torch.ops.fused_video_full import fused_st_layer, fused_temporal_layer
 from diffpose_tpu_torch.ops.fused_pipeline import lift_and_denoise, make_eval_fn
 from diffpose_tpu_torch.ops.philox import philox_masks
@@ -585,47 +585,51 @@ def train_bytes(w, batch: int, masks: bool = True):
     return {"fwd": fwd, "bwd": bwd}
 
 
-def train_bounds(w, batch: int):
+def train_bounds(w, batch: int, tier: str = "bf16x3"):
     """Rows 5-8's least times at one shape, {(kind, masks): (ms, by, fp32_ms)}:
     the channel products at the dense TF32 tensor-core peak, three passes
-    (3xTF32), plus the rest at the FP32 peak, against the bytes; and, for
-    comparison with the earlier design, every operation at the FP32 peak
+    (3xTF32; at a reduced ``tier`` its passes at its operands' peak,
+    ``TIER_RATES``), plus the rest at the FP32 peak, against the bytes; and,
+    for comparison with the earlier design, every operation at the FP32 peak
     against the bytes with the masks counted for both pairs (the bound that
     design was given)."""
     flops, old_bytes = train_flops(w, batch), train_bytes(w, batch)
+    passes, peak = TIER_RATES[tier]
     out = {}
     for masks in (True, False):
         nbytes = train_bytes(w, batch, masks)
         for kind, (prod, rest) in flops.items():
-            ops_ms = 1e3 * (3 * prod / PEAK_TF32 + rest / PEAK_FP32)
+            ops_ms = 1e3 * (passes * prod / peak + rest / PEAK_FP32)
             bytes_ms = 1e3 * nbytes[kind] / PEAK_BYTES
             ms, by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
             out[(kind, masks)] = (ms, by, bound_of(prod + rest, old_bytes[kind])[0])
     return out
 
 
-def train_pair_times(w, h0, tp, seed, gen, rates, card, shape: str):
-    """Rows 5-8 at one shape, each launch timed turn by turn (explicit,
-    seeded, seeded, explicit), beside both bounds; {(kind, masks): ms}."""
+def train_pair_times(w, h0, tp, seed, gen, rates, card, shape: str, tier: str = "bf16x3"):
+    """Rows 5-8 at one shape (at ``tier``: that build), each launch timed turn
+    by turn (explicit, seeded, seeded, explicit), beside both bounds;
+    {(kind, masks): ms}."""
     L, bsz = w["num_layers"], h0.shape[0]
     ikeep = ft._inv_keep(rates)
     km = ft.kernel_masks(make_dropout_masks(gen, num_layers=L, n_pts=w["n_pts"], batch=bsz,
                                             num_heads=w["num_heads"], hid_dim=w["hid_dim"],
                                             rates=rates))
     drop = ft._seeded(seed, rates)
-    st = ft._launch_fwd(w, h0, tp, drop, ikeep)[1]
+    st = ft._launch_fwd(w, h0, tp, drop, ikeep, tier=tier)[1]
     dd5 = torch.randn_like(h0)
-    runs = {"fwd": (lambda: ft._launch_fwd(w, h0, tp, km, ikeep),
-                    lambda: ft._launch_fwd(w, h0, tp, drop, ikeep)),
-            "bwd": (lambda: ft._launch_bwd(w, km, st, dd5, ikeep),
-                    lambda: ft._launch_bwd(w, drop, st, dd5, ikeep))}
-    bounds, ms = train_bounds(w, bsz), {}
+    runs = {"fwd": (lambda: ft._launch_fwd(w, h0, tp, km, ikeep, tier=tier),
+                    lambda: ft._launch_fwd(w, h0, tp, drop, ikeep, tier=tier)),
+            "bwd": (lambda: ft._launch_bwd(w, km, st, dd5, ikeep, tier=tier),
+                    lambda: ft._launch_bwd(w, drop, st, dd5, ikeep, tier=tier))}
+    bounds, ms = train_bounds(w, bsz, tier), {}
     for kind, (explicit, seeded) in runs.items():
         a, b, c, d = time_ms(explicit), time_ms(seeded), time_ms(seeded), time_ms(explicit)
         ms[(kind, True)], ms[(kind, False)] = (a + d) / 2, (b + c) / 2
     for (kind, masks), t in ms.items():
         bms, by, fp32 = bounds[(kind, masks)]
-        print(f"train {kind} kernel ({'masks' if masks else 'prng '}) {shape}: {t:.4f} ms  bound "
+        print(f"train {kind} kernel ({'masks' if masks else 'prng '}) {shape}"
+              f"{'' if tier == 'bf16x3' else ' tier ' + tier}: {t:.4f} ms  bound "
               f"{bms:.4f} ms ({by}; {100 * bms / t:.1f}%)  FP32-only bound {fp32:.4f} ms "
               f"({100 * fp32 / t:.1f}%)  [{card}]")
     return ms, bounds
@@ -1020,13 +1024,25 @@ def reset_launch_counts():
     for fn in (fused_lifter, fused_denoiser, fused_backbone, ft.stack_fwd, ft.stack_bwd,
                ft.stack_fwd_prng, ft.stack_bwd_prng, fused_temporal_layer, fused_st_layer):
         fn.launches = 0
-    for fn in TIER_WRAPPERS.values():
+    for fn in (*TIER_WRAPPERS.values(), *TRAIN_TIER_WRAPPERS.values()):
         fn.tier_launches = {t: 0 for t in TIERS}
 
 
 # The wrappers of rows 1-3 and 9-10, which also count their tier launches.
 TIER_WRAPPERS = {"lifter": fused_lifter, "denoiser": fused_denoiser, "backbone": fused_backbone,
                  "st": fused_st_layer, "temporal": fused_temporal_layer}
+
+
+# The train kernels' wrappers (rows 5-8), which count their tier launches too.
+TRAIN_TIER_WRAPPERS = {"fwd": ft.stack_fwd, "bwd": ft.stack_bwd, "fwd_prng": ft.stack_fwd_prng,
+                       "bwd_prng": ft.stack_bwd_prng}
+
+
+def train_tier_counts() -> dict:
+    """Rows 5-8's launches by tier since ``reset_launch_counts``, the parity
+    build's under ``bf16x3``."""
+    return {t: {k: (fn.launches if t == "bf16x3" else fn.tier_launches[t])
+                for k, fn in TRAIN_TIER_WRAPPERS.items()} for t in ("bf16x3", *TIERS)}
 
 
 def tier_launch_counts() -> dict:
@@ -2802,23 +2818,34 @@ def video_parallel_phases(dev, basis, gen, card):
 # ---------------------------------------------------------------------------
 
 
-def tier_held(got, plain, f32, what: str) -> dict:
+def tier_numbers(got, plain, f32) -> dict:
     """A tier kernel's output against its plain tier version and the float32
-    plain version (``TIER_MAX_SHARE`` and its siblings say why these bounds);
-    returns the numbers."""
+    plain version: max and mean |kernel - plain|, the plain tier's max and
+    mean distance from f32, the kernel's mean distance from f32."""
     d, t = (got - plain).abs(), (plain - f32).abs()
-    k32 = float((got - f32).abs().mean())
-    rec = dict(max_abs_err=float(d.max()), mean_abs_err=float(d.mean()),
-               tier_max_from_f32=float(t.max()), tier_mean_from_f32=float(t.mean()),
-               kernel_mean_from_f32=k32)
+    return dict(max_abs_err=float(d.max()), mean_abs_err=float(d.mean()),
+                tier_max_from_f32=float(t.max()), tier_mean_from_f32=float(t.mean()),
+                kernel_mean_from_f32=float((got - f32).abs().mean()))
+
+
+def tier_ok(rec: dict) -> bool:
+    """``tier_numbers`` within the tier's own scale (``TIER_MAX_SHARE`` and
+    its siblings say why these bounds)."""
+    return (rec["max_abs_err"] <= TIER_MAX_SHARE * rec["tier_max_from_f32"]
+            and rec["mean_abs_err"] <= TIER_MEAN_SHARE * rec["tier_mean_from_f32"]
+            and rec["kernel_mean_from_f32"] >= TIER_FLOOR_SHARE * rec["tier_mean_from_f32"])
+
+
+def tier_held(got, plain, f32, what: str) -> dict:
+    """A tier kernel's output held to its plain tier version (``tier_ok``);
+    returns the numbers."""
+    rec = tier_numbers(got, plain, f32)
     print(f"  {what}: max|kernel-plain| {rec['max_abs_err']:.3e} (plain tier from f32 "
           f"{rec['tier_max_from_f32']:.3e}), mean {rec['mean_abs_err']:.3e} (from f32 "
-          f"{rec['tier_mean_from_f32']:.3e}; kernel from f32 {k32:.3e})")
+          f"{rec['tier_mean_from_f32']:.3e}; kernel from f32 {rec['kernel_mean_from_f32']:.3e})")
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
-    check(rec["max_abs_err"] <= TIER_MAX_SHARE * rec["tier_max_from_f32"]
-          and rec["mean_abs_err"] <= TIER_MEAN_SHARE * rec["tier_mean_from_f32"]
-          and k32 >= TIER_FLOOR_SHARE * rec["tier_mean_from_f32"],
-          f"{what}: the tier kernel is not within its tier's bounds of its plain version: {rec}")
+    check(tier_ok(rec), f"{what}: the tier kernel is not within its tier's bounds of its plain "
+          f"version: {rec}")
     return rec
 
 
@@ -3098,6 +3125,265 @@ def fast_eval_phases(dev, pose, diff, wd, g, card):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# The train kernels' reduced tiers (phases 36-37)
+# ---------------------------------------------------------------------------
+
+
+def tier_held_all(got: dict, plain: dict, f32: dict, what: str) -> dict:
+    """``tier_held`` on every tensor of ``got`` (each against the same key of
+    the plain tier version and of the float32 plain version), printed as one
+    line of the worst shares of the plain tier's distance from f32; returns
+    them.  A tensor that no rounding of the tier reaches (its plain tier
+    version equals the float32 one, as a one-layer stack's first stashes do)
+    has no tier scale: it is held to the parity grade's bounds instead
+    (``TOL_KERNEL``, or ``grad_close`` under ``GRAD_REL``)."""
+    recs = {k: tier_numbers(got[k], plain[k], f32[k]) for k in got}
+    live = [k for k, r in recs.items() if r["tier_mean_from_f32"] > 0]   # the tier rounded it
+    for k in set(recs) - set(live):
+        check(recs[k]["max_abs_err"] <= TOL_KERNEL or grad_close(got[k], plain[k]) < GRAD_REL,
+              f"{what} {k} (not rounded at the tier): {recs[k]}")
+
+    def worst(num, den, pick=max):
+        k = pick(live, key=lambda k: recs[k][num] / recs[k][den])
+        return recs[k][num] / recs[k][den], k
+
+    (mx, kx), (mn, kn), (fl, kf) = (worst("max_abs_err", "tier_max_from_f32"),
+                                    worst("mean_abs_err", "tier_mean_from_f32"),
+                                    worst("kernel_mean_from_f32", "tier_mean_from_f32", min))
+    rec = dict(max_abs_err=max(r["max_abs_err"] for r in recs.values()), max_share=mx,
+               mean_share=mn, floor_share=fl, tensors=len(recs), not_rounded=len(recs) - len(live))
+    print(f"  {what}: {len(recs)} tensors ({rec['not_rounded']} not rounded at the tier), "
+          f"max|kernel-plain| {rec['max_abs_err']:.3e}; worst shares of the plain tier's distance "
+          f"from f32: max {mx:.3f} ({kx}), mean {mn:.3f} ({kn}); least kernel-from-f32 share "
+          f"{fl:.3f} ({kf})")
+    for k, r in recs.items():
+        check(bool(torch.isfinite(got[k]).all()), f"{what} {k}: non-finite output")
+        check(k not in live or tier_ok(r), f"{what} {k}: the tier kernel is not within its tier's "
+              f"bounds of its plain version: {r}")
+    return rec
+
+
+def tier_train_shapes(dev, basis, diff, gen, g):
+    """Rows 5-8's three main-path shapes: (tag, weights, h0, tp, rates): the
+    frame stack at B=1024, the implicit stack at B=512, a video spatial block
+    (one layer) at 1,296 rows."""
+    from diffpose_tpu_torch.ops import fused_video_full as fv
+    from diffpose_tpu_torch.ops import fused_video_train as fvt
+
+    shapes = []
+    w = prepare_weights(diff, dev)
+    x = torch.randn((BATCH, 17, 5), generator=g, device=dev)
+    t = torch.randint(0, len(BETAS), (BATCH,), generator=g, device=dev).float()
+    with torch.no_grad():
+        tp = timestep_projections(w, t)
+        h0 = _cheb(x, w["win"], w["bin"], w["basis"]).contiguous()
+    shapes.append((f"B={BATCH}", w, h0, tp, None))
+    wi = prepare_weights(seeded_igcn(basis, dev, gen), dev)
+    shapes.append((f"B={IMPLICIT_BATCH}", wi,
+                   torch.randn((IMPLICIT_BATCH, 17, 96), generator=g, device=dev),
+                   torch.randn((wi["num_layers"], IMPLICIT_BATCH, 96), generator=g, device=dev),
+                   None))
+    video = seeded_video(basis, dev, gen, VIDEO_FRAMES)
+    wv = fv.layer_weights(prepare_weights(fv.SpatialBlocks(video), dev))[0]
+    rows = VIDEO_BATCH * VIDEO_FRAMES
+    shapes.append((f"{rows} rows x 1 layer", wv, torch.randn((rows, 17, 96), generator=g, device=dev),
+                   torch.randn((1, rows, 96), generator=g, device=dev),
+                   fvt.video_dropout_rates(video)))
+    return shapes
+
+
+def tier_train_phases(dev, basis, diff, gen, g, card):
+    """Phase 36: rows 5-8 at both reduced tiers against their plain tier
+    versions at the three main-path shapes (the seeded pair's masks dumped
+    and handed to the plain versions; the backward given the plain tier
+    forward's stashes), every output and weight gradient held to the tier's
+    own scale, each kernel timed beside its one-pass bound.  Returns
+    {tier: {kind: record}} for the kernels' JSON line."""
+    recs = {tier: {k: {} for k in ("fwd", "bwd", "fwd_prng", "bwd_prng")} for tier in TIERS}
+    seed = torch.tensor([SEED + 36], dtype=torch.int32, device=dev)
+    usage = ptxas_usage("train_kernel_tiers")
+    for tag, w, h0, tp, rates in tier_train_shapes(dev, basis, diff, gen, g):
+        L, bsz = w["num_layers"], h0.shape[0]
+        ikeep = ft._inv_keep(rates)
+        km = ft.kernel_masks(make_dropout_masks(g, num_layers=L, n_pts=17, batch=bsz, num_heads=4,
+                                                hid_dim=96, rates=rates))
+        dd5 = torch.randn((bsz, 17, 96), generator=g, device=dev)
+        for tier in TIERS:
+            print(f"phase 36, tier {tier}, {tag}: rows 5-8 against their plain {tier} versions")
+            for prng in (False, True):
+                if prng:
+                    drop = ft._seeded(seed, rates)
+                    d5, st, masks = ft._launch_fwd(w, h0, tp, drop, ikeep, dump=True, tier=tier)
+                else:
+                    drop = masks = km
+                    d5, st = ft._launch_fwd(w, h0, tp, km, ikeep, tier=tier)
+                torch.cuda.synchronize()
+                with torch.no_grad():
+                    d5t, stt = ft.plain_fwd(w, h0, tp, masks, rates=rates, tier=tier)
+                    d5f, stf = ft.plain_fwd(w, h0, tp, masks, rates=rates)
+                mode = "prng" if prng else "masks"
+                fwd = tier_held_all({"d5": d5, **st}, {"d5": d5t, **stt}, {"d5": d5f, **stf},
+                                    f"row {7 if prng else 5} fwd ({mode})")
+                sts = {k: v.contiguous() for k, v in stt.items()}
+                da0, dtp, ds = ft._launch_bwd(w, drop, sts, dd5, ikeep, tier=tier)
+                torch.cuda.synchronize()
+                with torch.no_grad():
+                    plain = ft.plain_bwd(w, masks, sts, dd5, rates=rates, tier=tier)
+                    f32 = ft.plain_bwd(w, masks, sts, dd5, rates=rates)
+                    outs = [dict(da0=o[0], dtp=o[1], **o[2], **{
+                        f"grad_{k}": v for k, v in ft.weight_grads(w, sts, o[2]).items()})
+                        for o in ((da0, dtp, ds), plain, f32)]
+                bwd = tier_held_all(*outs, f"row {8 if prng else 6} bwd ({mode})")
+                for kind, rec in ((f"fwd{'_prng' if prng else ''}", fwd),
+                                  (f"bwd{'_prng' if prng else ''}", bwd)):
+                    recs[tier][kind][tag] = rec
+                del outs, plain, f32, stt, stf, sts
+            ms, bounds = train_pair_times(w, h0, tp, seed, g, rates, card, tag, tier=tier)
+            for kind in ("fwd", "bwd"):
+                for masks_mode, suffix in ((True, ""), (False, "_prng")):
+                    bms, by, _ = bounds[(kind, masks_mode)]
+                    recs[tier][kind + suffix][tag].update(ms=ms[(kind, masks_mode)], bound_ms=bms,
+                                                          bound_by=by)
+    out = {}
+    for tier in TIERS:
+        out[tier] = {}
+        for kind, by_shape in recs[tier].items():
+            main, b512, video = (by_shape[k] for k in by_shape)     # the shapes in order
+            entry = (f"train_{'forward' if kind.startswith('fwd') else 'backward'}_kernelILb"
+                     f"{int(kind.endswith('prng'))}ELi{TIER_CODES[tier]}E")
+            out[tier][kind] = dict(
+                ms=main["ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                max_abs_err=main["max_abs_err"], shares={k: main[k] for k in (
+                    "max_share", "mean_share", "floor_share")},
+                ms_b512=b512["ms"], bound_ms_b512=b512["bound_ms"],
+                max_abs_err_b512=b512["max_abs_err"], ms_video=video["ms"],
+                bound_ms_video=video["bound_ms"], max_abs_err_video=video["max_abs_err"],
+                ptxas=next(v for k, v in usage.items() if entry in k))
+    return out
+
+
+def tier_step_grads(kind: str, model, draws, tier: str, how: str, basis):
+    """The output and the first step's raw gradients (before the clip, as one
+    vector) of ``kind``'s training forward on ``draws`` (explicit masks):
+    ``how`` "fused" (the tier's kernels), "plain" (their plain tier versions
+    behind the same autograd function) or "f32" (the parity grade's plain
+    stack)."""
+    from diffpose_tpu_torch.ops import fused_video_train as fvt
+
+    m = copy.deepcopy(model).train()
+    t = draws.t.to(torch.float32)
+    cfg = dict(num_layers=m.num_layers, num_heads=m.num_heads, hid_dim=m.hid_dim)
+    if how == "f32":
+        tier, how = "bf16x3", "plain"
+    if kind == "frame":
+        stack = ft.build_train_stack(basis, **cfg, tier=tier, plain=how == "plain")
+        out = ft.fused_train_forward(m, draws.x_t, t, draws.masks, stack)
+        loss = ((draws.e - out) ** 2).sum(dim=(1, 2)).mean()
+    elif kind == "implicit":
+        stack = ft.build_train_stack(basis, **cfg, tier=tier, plain=True) if how == "plain" else None
+        out = make_igcn_train_fn(m, dropout="masks", stack=stack, tier=tier)(draws.x_t, t,
+                                                                              draws.masks)[0]
+        loss = ((draws.e - out) ** 2).sum(dim=(1, 2)).mean()
+    else:
+        out = fvt.make_video_train_fn(m, dropout="masks", tier=tier, plain=how == "plain")(
+            draws.x_t, t, draws.masks, draws.tmasks)
+        loss = ((draws.e - out) ** 2).sum(dim=(1, 2, 3)).mean()
+    grads = torch.autograd.grad(loss, list(m.parameters()))
+    return {"out": out.detach(), "grads": torch.cat([v.reshape(-1) for v in grads])}
+
+
+def tier_train_step_phases(dev, basis, diff, gen, g, card):
+    """Phase 37: for each family one fused step against one plain step at
+    each tier (explicit masks; the output and the first step's gradients
+    held to the tier's own scale against the parity grade's plain step on
+    the same draws); then a short ``--train_impl fused --dropout_impl prng``
+    run of main_frame, main_implicit and main_video at each tier: exit 0, a
+    finite loss, the default tier's warning in the frame and implicit logs,
+    the video family's default run on the parity build only.  Returns the
+    tier launches of rows 5-8: rows 5-6 from the fused steps, rows 7-8 from
+    the frame run."""
+    from diffpose_tpu_torch.cli import main_frame, main_implicit, main_video
+    from diffpose_tpu_torch.data.synthetic import make_synthetic_dataset as synth
+    from diffpose_tpu_torch.train.video_steps import make_video_train_step
+
+    launches = {t: {} for t in TIERS}
+    fams = []
+    data = synth(num_frames=BATCH, seed=SEED + 37)
+    batch = {"poses_3d": torch.as_tensor(data.poses_3d, device=dev),
+             "poses_2d_gmm": torch.as_tensor(data.poses_2d_gmm, device=dev)}
+    fams.append(("frame", diff, make_draw(BETAS, dev, num_layers=diff.num_layers, num_heads=4,
+                                          hid_dim=96, dropout="masks", masks_dtype=torch.uint8),
+                 batch))
+    igcn = with_solver(seeded_igcn(basis, dev, gen), *PAR_IMPLICIT_SOLVE)
+    fams.append(("implicit", igcn, make_draw(BETAS, dev, num_layers=igcn.num_layers, num_heads=4,
+                                             hid_dim=96, dropout="masks",
+                                             masks_dtype=torch.uint8),
+                 {k: v[:IMPLICIT_BATCH] for k, v in batch.items()}))
+    video = seeded_video(basis, dev, gen, VIDEO_FRAMES)
+    vopt = make_optimizer(video.parameters(), lr=TRAIN_LR)
+    vstep = make_video_train_step(video, vopt, BETAS, impl="fused", device=dev, dropout="masks")
+    fams.append(("video", video, vstep.draw, video_windows(VIDEO_BATCH, VIDEO_FRAMES, SEED + 37)))
+    for kind, model, draw, b in fams:
+        draws = draw(b, torch.Generator(device=dev).manual_seed(SEED + 37))
+        f32 = tier_step_grads(kind, model, draws, "bf16x3", "f32", basis)
+        for tier in TIERS:
+            reset_launch_counts()
+            got = tier_step_grads(kind, model, draws, tier, "fused", basis)
+            torch.cuda.synchronize()
+            counts = train_tier_counts()
+            plain = tier_step_grads(kind, model, draws, tier, "plain", basis)
+            print(f"phase 37, tier {tier}: the {kind} step, fused against plain (launches "
+                  f"{counts[tier]})")
+            tier_held_all(got, plain, f32, f"{kind} step")
+            check(counts[tier]["fwd"] > 0 and counts[tier]["bwd"] > 0
+                  and counts["bf16x3"]["fwd"] == counts["bf16x3"]["bwd"] == 0,
+                  f"the fused {kind} step at {tier} ran the parity build or no tier kernel: {counts}")
+            for k in ("fwd", "bwd"):
+                launches[tier][f"{k}_{kind}_step"] = counts[tier][k]
+            del got, plain
+        del f32
+
+    exp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_tiers_"))
+    runs = (("frame", main_frame, ["--config", CLI_CONFIG, "--synthetic_frames", str(TIER_CLI_FRAMES),
+                                   "--batch_size", str(BATCH)]),
+            ("implicit", main_implicit, ["--config", IMPLICIT_CONFIG, "--use_implicit",
+                                         "--synthetic_frames", str(2 * IMPLICIT_BATCH),
+                                         "--batch_size", str(IMPLICIT_BATCH)]),
+            ("video", main_video, ["--config", VIDEO_CONFIG, "--synthetic_windows",
+                                   str(TIER_CLI_WINDOWS)]))
+    for kind, cli, args in runs:
+        for tier in TIERS:
+            doc = f"{kind}_{tier}"
+            reset_launch_counts()
+            check(cli.main(args + ["--exp", str(exp), "--doc", doc, "--ni", "--train", "--n_epochs",
+                                   "1", "--train_impl", "fused", "--dropout_impl", "prng",
+                                   "--denoiser_impl", "fused", "--kernel_precision", tier]) == 0,
+                  f"main_{kind} --train --kernel_precision {tier} failed")
+            torch.cuda.synchronize()
+            counts = train_tier_counts()
+            log = (exp / doc / "stdout.txt").read_text()
+            losses = [float(v) for v in re.findall(r"\| loss ([0-9.eE+-]+|nan|inf) \|", log)]
+            warned = "TRAIN kernels" in log
+            print(f"main_{kind} --train --kernel_precision {tier}: epoch losses {losses}, default-tier "
+                  f"warning {warned}, seeded launches by build {counts}")
+            check(len(losses) == 1 and all(v == v and abs(v) != float("inf") for v in losses),
+                  f"main_{kind} at {tier}: epoch losses {losses}")
+            trains_at = "bf16x3" if kind == "video" and tier == "default" else tier
+            check(warned == (kind != "video" and tier == "default"),
+                  f"main_{kind} at {tier}: the default-tier warning {'missing' if not warned else 'given'}")
+            others = [t for t in ("bf16x3", *TIERS) if t != trains_at]
+            check(counts[trains_at]["fwd_prng"] > 0 and counts[trains_at]["bwd_prng"] > 0
+                  and all(counts[t]["fwd_prng"] == counts[t]["bwd_prng"] == 0 for t in others),
+                  f"main_{kind} at {tier} trained on another build than {trains_at}: {counts}")
+            if kind == "frame":
+                for k in ("fwd_prng", "bwd_prng"):
+                    launches[tier][k] = counts[tier][k]
+    logging.getLogger().handlers.clear()
+    shutil.rmtree(exp)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
@@ -3130,7 +3416,7 @@ def main() -> int:
     # whose spatial phase is its layer, and rows 4 and 12 (registers: the lines above)
     for name, entries in (("net_kernel", 3), ("probe_kernel", 6), ("video_kernel", 2),
                           ("cheb_kernel", 7), ("probe_attention", 2), ("net_kernel_tiers", 6),
-                          ("video_kernel_tiers", 4)):
+                          ("video_kernel_tiers", 4), ("train_kernel_tiers", 8)):
         check_no_spills(name, entries)
     print(f"  dynamic shared memory of every net_forward_kernel build and of row 9: "
           f"{ablate._library().probe_smem_bytes()} bytes")
@@ -3270,6 +3556,10 @@ def main() -> int:
         video_tiers = tier_video_phases(dev, basis, gen, g, card)
         utils_rec = utils_phases(dev, basis, wp, wd, g, card)
         fast = fast_eval_phases(dev, pose, diff, wd, g, card)
+    t_train_tiers = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    train_tiers = tier_train_phases(dev, basis, diff, gen, g, card)
+    train_tier_launches = tier_train_step_phases(dev, basis, diff, gen, g, card)
     t_end = time.perf_counter()
     video = video_runs["train"]
     for rec, key in zip(prng_records, ("fwd_prng", "bwd_prng")):
@@ -3285,6 +3575,17 @@ def main() -> int:
             rec[f"bound_ms_{tag}"], _, rec[f"bound_ms_fp32_{tag}"] = pair_bounds[(kind, masks)]
         entry = f"train_{'forward' if kind == 'fwd' else 'backward'}_kernelILb{0 if masks else 1}"
         rec["ptxas"] = next(v for k, v in usage.items() if entry in k)
+    # rows 5-8's tiers (phase 36) and their launches (phase 37: rows 5-6 in the
+    # fused steps, the frame step's as the main path's; rows 7-8 in main_frame --train)
+    for rec, kind in zip(kernels[2:6], ("fwd", "bwd", "fwd_prng", "bwd_prng")):
+        rec["tiers"] = {}
+        for tier in TIERS:
+            n = train_tier_launches[tier]
+            by_step = {f: n[f"{kind}_{f}_step"] for f in ("frame", "implicit", "video")
+                       if f"{kind}_{f}_step" in n}
+            rec["tiers"][tier] = dict(train_tiers[tier][kind],
+                                      launches=n[kind] if kind in n else by_step["frame"],
+                                      **({"launches_by_step": by_step} if by_step else {}))
     kernels.insert(2, dict(backbone_record, launches=implicit_counts["backbone"],
                            video_launches=video["backbone"], ptxas=net_ptxas("backbone"),
                            **row3_video))
@@ -3323,7 +3624,8 @@ def main() -> int:
           f"GraFormer and probes (22-24) {t_parallel - t_graformer:.1f}, parallelism (25-27) "
           f"{t_video_parallel - t_parallel:.1f}, video parallelism and the dry run (28-31) "
           f"{t_tiers - t_video_parallel:.1f} (by phase {video_secs}), the tiers, the utilities "
-          f"and the fast eval (32-35) {t_end - t_tiers:.1f}")
+          f"and the fast eval (32-35) {t_train_tiers - t_tiers:.1f}, the train kernels' tiers "
+          f"(36-37) {t_end - t_train_tiers:.1f}")
 
     print(card)
     print(json.dumps({"kernels": kernels}))

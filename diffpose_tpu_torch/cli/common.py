@@ -120,9 +120,13 @@ def add_common_flags(parser: argparse.ArgumentParser):
                         "paths in f32 FMA).  The eval kernels (rows 1-3, 9-10) also "
                         "run bf16 (one tensor-core pass on bf16 operands, activations "
                         "rounded to bf16 where the TPU kernels cast them) and default "
-                        "(one TF32 pass).  The train kernels (rows 5-8) have no reduced "
-                        "tier yet: bf16 or default with --train_impl fused or plain "
-                        "raises; --train_impl module trains at any tier")
+                        "(one TF32 pass), and so do the train kernels (rows 5-8) and "
+                        "their plain stack with --train_impl fused or plain (bf16 there "
+                        "rounds the products' operands and, as the TPU kernels do, the "
+                        "attention's segment products).  At default the frame and "
+                        "implicit families warn when they train on the kernels; the "
+                        "video family trains its kernels at the parity grade, as the "
+                        "JAX runner does")
     parser.add_argument("--denoiser_impl", default="module",
                         choices=("module", "fused", "pallas", "fused_st", "pallas_st",
                                  "fused_full", "pallas_full"),

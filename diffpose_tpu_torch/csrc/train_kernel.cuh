@@ -46,6 +46,24 @@
 // thread between barriers, as in net_kernel.cuh.  With 9 warps a thread has
 // at most 168 registers (3 warps share an SM quarter's 16K); every stage is
 // written to fit them: ptxas reports no spill for any instantiation.
+//
+// TIER (mma_tf32.cuh; TIER_3XTF32 in train_kernel.cu, the one-pass tiers in
+// train_kernel_tiers.cu) is the --kernel_precision of the TPU kernels
+// (pallas_train.py's `precision`, pallas_denoiser.py:_dot): every channel
+// product through tc_gemm at that tier, on weights rounded on the host
+// (ops/fused_train.py:rounded_stacks) and activations rounded as they load.
+// TIER_BF16 also rounds where pallas_train.py:_attention_fwd and
+// _attention_bwd round through _dot_exact_w: each product q_d k_d before the
+// per-head sum (scores, forward and backward), each probability before the
+// dropout and the sum over V (and dv), each v_d datt_d mask/keep before the
+// per-head sum that gives dp, and the softmax gradient before it multiplies
+// k and q.  Stashes, the LayerNorms, the mixes, biases and every sum stay
+// f32.  The one-pass tiers take the TPU kernel's order where a rounding does
+// not commute with the learned-adjacency mix: the forward mixes lap . r1
+// before the fc2 product (the parity build: lap . (r1 W_fc2), a narrower
+// mix), and the backward multiplies df2 W_fc2^T before the lap^T mix (the
+// parity build mixes first).  Every `if constexpr` on the tier leaves the
+// parity build's code as it was.
 #pragma once
 
 #include <cmath>
@@ -591,12 +609,33 @@ __device__ __forceinline__ float head_dot(const float4 (&a)[DK / 4], const float
   return acc;
 }
 
+// head_dot at the bf16 tier: each product rounded to bf16, then times s
+// (SCALED) and rounded again, the roundings summed in f32
+// (pallas_train.py's _dot_exact_w of a product against the 0/1 segment
+// matrix; SCALED: dp's v_d datt_d mask/keep).
+template <bool SCALED = false>
+__device__ __forceinline__ float head_dot_bf16(const float4 (&a)[DK / 4], const float* row,
+                                               float s = 1.f) {
+  float acc = 0.f;
+#pragma unroll
+  for (int d = 0; d < DK / 4; ++d) {
+    const float4 kv = ld4(row + 4 * d);
+    const float p[4] = {__fmul_rn(a[d].x, kv.x), __fmul_rn(a[d].y, kv.y),
+                        __fmul_rn(a[d].z, kv.z), __fmul_rn(a[d].w, kv.w)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc += tf32::round_bf16(SCALED ? __fmul_rn(p[i], s) : p[i]);
+  }
+  return acc;
+}
+
 // netk::attention with dropout on the probabilities: p * mask * ikp.
-// scratch: TB * HEADS * 17 rows of 17 floats.
-template <bool PRNG>
+// scratch: TB * HEADS * 17 rows of 17 floats.  TIER_BF16: the scores' and
+// the probabilities' roundings (the file's text).
+template <bool PRNG, int TIER = tf32::TIER_3XTF32>
 __device__ __forceinline__ void attention_dropout(const float* qkv, float* out, float* scratch,
                                                   const Probs<PRNG> mp, float ikp,
                                                   int nb, int tid) {
+  constexpr bool RND = TIER == tf32::TIER_BF16;
   for (int it = tid; it < nb * HEADS * N_PTS; it += THREADS) {
     const int n = it % N_PTS;
     const int hd = (it / N_PTS) % HEADS;
@@ -611,7 +650,9 @@ __device__ __forceinline__ void attention_dropout(const float* qkv, float* out, 
       for (int d = 0; d < DK / 4; ++d) q[d] = ld4(base + n * LDB + 4 * d);
 #pragma unroll 1
       for (int m = 0; m < N_PTS; ++m) {
-        const float sv = head_dot(q, base + m * LDB + HID);
+        float sv;
+        if constexpr (RND) sv = head_dot_bf16(q, base + m * LDB + HID);
+        else sv = head_dot(q, base + m * LDB + HID);
         srow[m] = sv;
         mx = fmaxf(mx, sv);
       }
@@ -628,7 +669,9 @@ __device__ __forceinline__ void attention_dropout(const float* qkv, float* out, 
     for (int d = 0; d < DK / 4; ++d) o[d] = zero4();
 #pragma unroll 1
     for (int m = 0; m < N_PTS; ++m) {
-      const float p = mp.keep(kept, m) ? srow[m] / sum * ikp : 0.f;
+      float p;
+      if constexpr (RND) p = mp.keep(kept, m) ? tf32::round_bf16(srow[m] / sum) * ikp : 0.f;
+      else p = mp.keep(kept, m) ? srow[m] / sum * ikp : 0.f;
       const float* vr = base + m * LDB + 2 * HID;
 #pragma unroll
       for (int d = 0; d < DK / 4; ++d) fma4(o[d], p, ld4(vr + 4 * d));
@@ -646,8 +689,33 @@ constexpr size_t FWD_SMEM_BYTES = sizeof(float) * FWD_SMEM_FLOATS;
 static_assert(FWD_RING >= TB * HEADS * PAIRS, "the attention's scores borrow the ring");
 static_assert(FWD_SMEM_BYTES <= 232448, "forward tile exceeds an SM's shared memory");
 
-template <bool PRNG>
+// The products of the forward and of the backward at TIER: tc_gemm and
+// tc_prefetch over the pass's ring, on weights [K, N] (N wide rows), split
+// in the CTA at the parity grade and rounded on the host at a one-pass tier.
+template <int K, int N, int LDA, int S, int KS, int TIER, class Epi>
+__device__ __forceinline__ void stack_gemm(const float* A, const float* __restrict__ W, float* ring,
+                                     const Epi& epi, int tid) {
+  tc_gemm<K, N, LDA, S, KS, N, TIER != tf32::TIER_3XTF32, THREADS, TIER>(A, W, ring, epi, tid);
+}
+template <int K, int N, int S, int KS, int TIER>
+__device__ __forceinline__ void stack_prefetch(const float* __restrict__ W, float* ring, int tid) {
+  tc_prefetch<K, N, S, KS, N, TIER != tf32::TIER_3XTF32, THREADS, TIER>(W, ring, tid);
+}
+
+// The thread index a layer of the forward works with: at a one-pass tier
+// taken anew each layer and opaque to the compiler, so that nothing derived
+// from it is held across the layer loop (at 168 registers the seeded 1xTF32
+// build spilled 8 bytes of such addresses); at the parity grade the index
+// itself.
+template <int TIER>
+__device__ __forceinline__ int layer_index(int tid) {
+  if constexpr (TIER != tf32::TIER_3XTF32) asm volatile("" : "+r"(tid));
+  return tid;
+}
+
+template <bool PRNG, int TIER = tf32::TIER_3XTF32>
 __global__ void __launch_bounds__(THREADS, 1) train_forward_kernel(const FwdArgs a) {
+  constexpr int S = FWD_STAGES, KS = FWD_KS;
   extern __shared__ float4 smem4[];
   float* h = reinterpret_cast<float*>(smem4);
   float* y = h + ROWS_PAD * LDH;
@@ -674,64 +742,87 @@ __global__ void __launch_bounds__(THREADS, 1) train_forward_kernel(const FwdArgs
   __syncthreads();
 
   for (int l = 0; l < a.num_layers; ++l) {
+    const int lt = layer_index<TIER>(tid);
     // first row of this tile in the [L, B*17, .] arrays, and its sample in [L, B, .]
     const size_t smp = static_cast<size_t>(l) * a.batch + b0;
     const size_t row = smp * N_PTS;
     const size_t wsq = static_cast<size_t>(l) * HID * HID;
 
     // attention sublayer: h += dropout(out_proj(attention_dropout(LN1(h))))
-    tc_prefetch<HID, 3 * HID, FWD_STAGES, FWD_KS>(a.wqkv + 3 * wsq, ring, tid);
-    store_rows<HID>(h, LDH, a.ha + row * HID, nb, tid);
-    layer_norm_warp(h, y, a.ln1s + l * HID, a.ln1b + l * HID, a.y1 + row * HID, nreal, tid);
-    for (int i = tid; i < PAIRS; i += THREADS) lap[i] = a.lap[l * PAIRS + i];
+    stack_prefetch<HID, 3 * HID, S, KS, TIER>(a.wqkv + 3 * wsq, ring, lt);
+    store_rows<HID>(h, LDH, a.ha + row * HID, nb, lt);
+    layer_norm_warp(h, y, a.ln1s + l * HID, a.ln1b + l * HID, a.y1 + row * HID, nreal, lt);
+    for (int i = lt; i < PAIRS; i += THREADS) lap[i] = a.lap[l * PAIRS + i];
     __syncthreads();
-    tc_gemm<HID, 3 * HID, LDH, FWD_STAGES, FWD_KS>(
-        y, a.wqkv + 3 * wsq, ring, EpSmem<LDB, true, false>{big, a.bqkv + l * 3 * HID}, tid);
+    stack_gemm<HID, 3 * HID, LDH, S, KS, TIER>(
+        y, a.wqkv + 3 * wsq, ring, EpSmem<LDB, true, false>{big, a.bqkv + l * 3 * HID}, lt);
     __syncthreads();
-    attention_dropout(big, y, ring, probs_of<PRNG>(a.drop, l, b0, smp), a.ikp, nb, tid);
+    attention_dropout<PRNG, TIER>(big, y, ring, probs_of<PRNG>(a.drop, l, b0, smp), a.ikp, nb,
+                                  lt);
     __syncthreads();
-    tc_prefetch<HID, HID, FWD_STAGES, FWD_KS>(a.wao + wsq, ring, tid);
-    store_rows<HID>(y, LDH, a.att + row * HID, nb, tid);
-    tc_gemm<HID, HID, LDH, FWD_STAGES, FWD_KS>(
+    stack_prefetch<HID, HID, S, KS, TIER>(a.wao + wsq, ring, lt);
+    store_rows<HID>(y, LDH, a.att + row * HID, nb, lt);
+    stack_gemm<HID, HID, LDH, S, KS, TIER>(
         y, a.wao + wsq, ring,
         EpResidual<PRNG>{h, a.bao + l * HID, site_of<PRNG>(a.drop, 1, l, b0, smp), a.iks,
                          a.hb + row * HID, nreal},
-        tid);
+        lt);
     __syncthreads();
 
-    // GraphNet sublayer: h += dropout(lap . (relu(fc1(lap . LN2(h))) @ W_fc2) + b_fc2)
-    tc_prefetch<HID, 2 * HID, FWD_STAGES, FWD_KS>(a.wfc1 + 2 * wsq, ring, tid);
-    layer_norm_warp(h, y, a.ln2s + l * HID, a.ln2b + l * HID, nullptr, nreal, tid);
+    // GraphNet sublayer: h += dropout(lap . (relu(fc1(lap . LN2(h)))) @ W_fc2 + b_fc2)
+    stack_prefetch<HID, 2 * HID, S, KS, TIER>(a.wfc1 + 2 * wsq, ring, lt);
+    layer_norm_warp(h, y, a.ln2s + l * HID, a.ln2b + l * HID, nullptr, nreal, lt);
     __syncthreads();
-    mix<HID, LDH, LDB, kMixStore, true>(y, big, cptr, cidx, cval, lap, nullptr, nullptr, nb, tid);
+    mix<HID, LDH, LDB, kMixStore, true>(y, big, cptr, cidx, cval, lap, nullptr, nullptr, nb, lt);
     __syncthreads();
-    tc_gemm<HID, 2 * HID, LDB, FWD_STAGES, FWD_KS>(
+    stack_gemm<HID, 2 * HID, LDB, S, KS, TIER>(
         big, a.wfc1 + 2 * wsq, ring,
-        EpReluStash<2 * HID>{big + HID, a.bfc1 + l * 2 * HID, a.r1 + row * 2 * HID, nreal}, tid);
+        EpReluStash<2 * HID>{big + HID, a.bfc1 + l * 2 * HID, a.r1 + row * 2 * HID, nreal}, lt);
     __syncthreads();
-    tc_prefetch<2 * HID, HID, FWD_STAGES, FWD_KS>(a.wfc2 + 2 * wsq, ring, tid);
-    tc_gemm<2 * HID, HID, LDB, FWD_STAGES, FWD_KS>(big + HID, a.wfc2 + 2 * wsq, ring,
-                                         EpSmem<LDH, false, false>{y, nullptr}, tid);
-    __syncthreads();
-    tc_prefetch<HID, 3 * HID, FWD_STAGES, FWD_KS>(a.wg1 + 3 * wsq, ring, tid);
-    lap_residual(y, h, lap, a.bfc2 + l * HID, site_of<PRNG>(a.drop, 2, l, b0, smp), a.iks,
-                 a.hc + row * HID, nb, tid);
+    stack_prefetch<2 * HID, HID, S, KS, TIER>(a.wfc2 + 2 * wsq, ring, lt);
+    if constexpr (TIER == tf32::TIER_3XTF32) {
+      // lap . (r1 @ W_fc2): the product, then the HID-wide mix with the residual
+      stack_gemm<2 * HID, HID, LDB, S, KS, TIER>(big + HID, a.wfc2 + 2 * wsq, ring,
+                                           EpSmem<LDH, false, false>{y, nullptr}, lt);
+      __syncthreads();
+      stack_prefetch<HID, 3 * HID, S, KS, TIER>(a.wg1 + 3 * wsq, ring, lt);
+      lap_residual(y, h, lap, a.bfc2 + l * HID, site_of<PRNG>(a.drop, 2, l, b0, smp), a.iks,
+                   a.hc + row * HID, nb, lt);
+    } else {
+      // (lap . r1) @ W_fc2, the TPU kernel's order: r1's two halves mixed
+      // into big's first 2 HID columns one after the other (the second half
+      // is written where the first is read), then the product with the
+      // dropout and the residual in its epilogue
+      mix<HID, LDB, LDB, kMixStore, true>(big + HID, big, cptr, cidx, cval, lap, nullptr, nullptr,
+                                          nb, lt);
+      __syncthreads();
+      mix<HID, LDB, LDB, kMixStore, true>(big + 2 * HID, big + HID, cptr, cidx, cval, lap,
+                                          nullptr, nullptr, nb, lt);
+      __syncthreads();
+      stack_gemm<2 * HID, HID, LDB, S, KS, TIER>(
+          big, a.wfc2 + 2 * wsq, ring,
+          EpResidual<PRNG>{h, a.bfc2 + l * HID, site_of<PRNG>(a.drop, 2, l, b0, smp), a.iks,
+                           a.hc + row * HID, nreal},
+          lt);
+      __syncthreads();
+      stack_prefetch<HID, 3 * HID, S, KS, TIER>(a.wg1 + 3 * wsq, ring, lt);
+    }
     __syncthreads();
 
     // residual Chebyshev block: h += dropout(relu(cheb2(dropout(relu(cheb1(h))) + tp)))
-    tc_gemm<HID, 3 * HID, LDH, FWD_STAGES, FWD_KS>(h, a.wg1 + 3 * wsq, ring,
-                                         EpSmem<LDB, false, false>{big, nullptr}, tid);
+    stack_gemm<HID, 3 * HID, LDH, S, KS, TIER>(h, a.wg1 + 3 * wsq, ring,
+                                         EpSmem<LDB, false, false>{big, nullptr}, lt);
     __syncthreads();
-    tc_prefetch<HID, 3 * HID, FWD_STAGES, FWD_KS>(a.wg2 + 3 * wsq, ring, tid);
+    stack_prefetch<HID, 3 * HID, S, KS, TIER>(a.wg2 + 3 * wsq, ring, lt);
     cheb1_dropout_tp(big, y, cptr, cidx, cval, a.bg1 + l * HID,
                      site_of<PRNG>(a.drop, 3, l, b0, smp), a.ikc, a.tp + smp * HID,
-                     a.rc1 + row * HID, a.u + row * HID, nb, tid);
+                     a.rc1 + row * HID, a.u + row * HID, nb, lt);
     __syncthreads();
-    tc_gemm<HID, 3 * HID, LDH, FWD_STAGES, FWD_KS>(y, a.wg2 + 3 * wsq, ring,
-                                         EpSmem<LDB, false, false>{big, nullptr}, tid);
+    stack_gemm<HID, 3 * HID, LDH, S, KS, TIER>(y, a.wg2 + 3 * wsq, ring,
+                                         EpSmem<LDB, false, false>{big, nullptr}, lt);
     __syncthreads();
     cheb2_residual(big, h, cptr, cidx, cval, a.bg2 + l * HID,
-                   site_of<PRNG>(a.drop, 4, l, b0, smp), a.ikc, a.rd1 + row * HID, nb, tid);
+                   site_of<PRNG>(a.drop, 4, l, b0, smp), a.ikc, a.rd1 + row * HID, nb, lt);
     __syncthreads();
   }
   store_rows<HID>(h, LDH, a.d5 + static_cast<size_t>(b0) * N_PTS * HID, nb, tid);
@@ -813,6 +904,32 @@ __device__ __forceinline__ void lap_mix_t(const float* in, float* out, const flo
   }
 }
 
+// The one-pass tiers' fc2 backward: out[b, m, :HID] (LDB) = sum_n lap[n, m] *
+// in[b, n, :HID] (LDB), where r1 > 0 (r1 and the d-stash 2 HID wide, their
+// columns of this half), also into the d-stash for the real rows; absent
+// rows 0 (EpGate's function after the mix instead of before it).
+__device__ __forceinline__ void lap_mix_t_gate(const float* in, float* out, const float* lap,
+                                               const float* __restrict__ r1,
+                                               float* __restrict__ dstash, int nreal, int tid) {
+  constexpr int NG = HID / 4;
+  for (int it = tid; it < ROWS * NG; it += THREADS) {
+    const int r = it / NG;
+    const int c = 4 * (it % NG);
+    const int m = r % N_PTS;
+    const float* src = in + (r / N_PTS) * N_PTS * LDB + c;
+    float4 v = zero4();
+#pragma unroll
+    for (int n = 0; n < N_PTS; ++n) fma4(v, lap[n * N_PTS + m], ld4(src + n * LDB));
+    if (r < nreal) {
+      v = gate4(v, ldg4(r1 + r * 2 * HID + c));
+      st4(dstash + r * 2 * HID + c, v);
+    } else {
+      v = zero4();
+    }
+    st4(out + r * LDB + c, v);
+  }
+}
+
 // dtp[b, :] = sum over the joints of du[b, :, :]
 __device__ __forceinline__ void joint_sum(const float* du, float* __restrict__ dtp, int nb,
                                           int tid) {
@@ -833,11 +950,13 @@ __device__ __forceinline__ void joint_sum(const float* du, float* __restrict__ d
 // of sp, written over k[m] and v[m], which no thread reads any more.  Phase 3:
 // dq[n] over q[n] (dqs is a free HID-wide buffer).  The dropout decisions of
 // a query's row are fetched (or drawn) once, in phase 1; phase 2 meets them
-// again in the dropped probabilities of sp.
-template <bool PRNG>
+// again in the dropped probabilities of sp.  TIER_BF16: the roundings of the
+// file's text (the recomputed scores and probabilities, dp's terms, ds).
+template <bool PRNG, int TIER = tf32::TIER_3XTF32>
 __device__ __forceinline__ void attention_bwd(float* qkv, const float* datt,
                                               const Probs<PRNG> mp, float ikp,
                                               float* sp, float* dqs, int nb, int tid) {
+  constexpr bool RND = TIER == tf32::TIER_BF16;
   const int n = tid % N_PTS;
   const int hd = (tid / N_PTS) % HEADS;
   const int b = tid / (N_PTS * HEADS);
@@ -860,7 +979,9 @@ __device__ __forceinline__ void attention_bwd(float* qkv, const float* datt,
       for (int d = 0; d < DK / 4; ++d) q[d] = ld4(base + n * LDB + 4 * d);
 #pragma unroll 1
       for (int m = 0; m < N_PTS; ++m) {
-        const float sv = head_dot(q, base + m * LDB + HID);
+        float sv;
+        if constexpr (RND) sv = head_dot_bf16(q, base + m * LDB + HID);
+        else sv = head_dot(q, base + m * LDB + HID);
         prow[m] = sv;
         mx = fmaxf(mx, sv);
       }
@@ -870,7 +991,13 @@ __device__ __forceinline__ void attention_bwd(float* qkv, const float* datt,
 #pragma unroll
       for (int d = 0; d < DK / 4; ++d) da[d] = ld4(dbase + n * LDH + 4 * d);
 #pragma unroll 1
-      for (int m = 0; m < N_PTS; ++m) drow[m] = head_dot(da, base + m * LDB + 2 * HID);
+      for (int m = 0; m < N_PTS; ++m) {
+        if constexpr (RND)   // dp, its terms dropped, scaled and rounded
+          drow[m] = mp.keep(kept, m) ? head_dot_bf16<true>(da, base + m * LDB + 2 * HID, ikp)
+                                     : 0.f;
+        else
+          drow[m] = head_dot(da, base + m * LDB + 2 * HID);
+      }
     }
     float sum = 0.f;
 #pragma unroll 1
@@ -882,8 +1009,13 @@ __device__ __forceinline__ void attention_bwd(float* qkv, const float* datt,
     float rowdot = 0.f;
 #pragma unroll 1
     for (int m = 0; m < N_PTS; ++m) {
-      const float dpk = drow[m] * (mp.keep(kept, m) ? ikp : 0.f);
-      drow[m] = dpk;
+      float dpk;
+      if constexpr (RND) {
+        dpk = drow[m];
+      } else {
+        dpk = drow[m] * (mp.keep(kept, m) ? ikp : 0.f);
+        drow[m] = dpk;
+      }
       rowdot = fmaf(prow[m] / sum, dpk, rowdot);
     }
     float4 dq[DK / 4];
@@ -892,9 +1024,10 @@ __device__ __forceinline__ void attention_bwd(float* qkv, const float* datt,
 #pragma unroll 1
     for (int m = 0; m < N_PTS; ++m) {
       const float pv = prow[m] / sum;
-      const float dsv = pv * (drow[m] - rowdot);
+      float dsv = pv * (drow[m] - rowdot);
+      if constexpr (RND) dsv = tf32::round_bf16(dsv);
       drow[m] = dsv;
-      prow[m] = pv * (mp.keep(kept, m) ? ikp : 0.f);
+      prow[m] = (RND ? tf32::round_bf16(pv) : pv) * (mp.keep(kept, m) ? ikp : 0.f);
       const float* kr = base + m * LDB + HID;
 #pragma unroll
       for (int d = 0; d < DK / 4; ++d) fma4(dq[d], dsv, ld4(kr + 4 * d));
@@ -935,8 +1068,9 @@ __device__ __forceinline__ void attention_bwd(float* qkv, const float* datt,
   }
 }
 
-template <bool PRNG>
+template <bool PRNG, int TIER = tf32::TIER_3XTF32>
 __global__ void __launch_bounds__(THREADS, 1) train_backward_kernel(const BwdArgs a) {
+  constexpr int S = BWD_STAGES, KS = BWD_KS;
   extern __shared__ float4 smem4[];
   float* dh = reinterpret_cast<float*>(smem4);
   float* ba = dh + ROWS_PAD * LDH;
@@ -970,7 +1104,7 @@ __global__ void __launch_bounds__(THREADS, 1) train_backward_kernel(const BwdArg
     const size_t wsq = static_cast<size_t>(l) * HID * HID;
 
     // Chebyshev block: h_out = hc + rd1*m4*ikc, rd1 = relu(cheb2(u)), u = rc1*m3*ikc + tp
-    tc_prefetch<3 * HID, HID, BWD_STAGES, BWD_KS>(a.wg2t + 3 * wsq, ring, tid);
+    stack_prefetch<3 * HID, HID, S, KS, TIER>(a.wg2t + 3 * wsq, ring, tid);
     dropout_bwd(dh, ba, site_of<PRNG>(a.drop, 4, l, b0, smp), a.ikc, a.rd1 + row * HID,
                 a.dc2 + row * HID, nb, tid);
     for (int i = tid; i < PAIRS; i += THREADS) lap[i] = a.lap[l * PAIRS + i];
@@ -978,36 +1112,55 @@ __global__ void __launch_bounds__(THREADS, 1) train_backward_kernel(const BwdArg
     mix_t(ba, big, tptr, tidx, tval, tid);
     __syncthreads();
     // du into ba, dc1 = du * m3 * ikc where rc1 > 0 into bb
-    tc_gemm<3 * HID, HID, LDB, BWD_STAGES, BWD_KS>(
+    stack_gemm<3 * HID, HID, LDB, S, KS, TIER>(
         big, a.wg2t + 3 * wsq, ring,
         EpDu<PRNG>{ba, bb, site_of<PRNG>(a.drop, 3, l, b0, smp), a.ikc, a.rc1 + row * HID,
                    a.dc1 + row * HID, nreal},
         tid);
     __syncthreads();
-    tc_prefetch<3 * HID, HID, BWD_STAGES, BWD_KS>(a.wg1t + 3 * wsq, ring, tid);
+    stack_prefetch<3 * HID, HID, S, KS, TIER>(a.wg1t + 3 * wsq, ring, tid);
     joint_sum(ba, a.dtp + smp * HID, nb, tid);
     mix_t(bb, big, tptr, tidx, tval, tid);
     __syncthreads();
-    tc_gemm<3 * HID, HID, LDB, BWD_STAGES, BWD_KS>(big, a.wg1t + 3 * wsq, ring,
-                                         EpSmem<LDH, false, true>{dh, nullptr}, tid);  // dh = d hc
+    stack_gemm<3 * HID, HID, LDB, S, KS, TIER>(big, a.wg1t + 3 * wsq, ring,
+                                               EpSmem<LDH, false, true>{dh, nullptr}, tid);  // dh = d hc
     __syncthreads();
 
-    // GraphNet: hc = hb + f2*m2*iks, f2 = lap.(r1 @ W2) + b2, r1 = relu(fc1(lap.LN2(hb)))
-    tc_prefetch<HID, 2 * HID, BWD_STAGES, BWD_KS>(a.wfc2t + 2 * wsq, ring, tid);
+    // GraphNet: hc = hb + f2*m2*iks, f2 = (lap.r1) @ W2 + b2, r1 = relu(fc1(lap.LN2(hb)))
+    stack_prefetch<HID, 2 * HID, S, KS, TIER>(a.wfc2t + 2 * wsq, ring, tid);
     dropout_bwd(dh, ba, site_of<PRNG>(a.drop, 2, l, b0, smp), a.iks, nullptr,
                 a.df2 + row * HID, nb, tid);
     __syncthreads();
-    lap_mix_t(ba, bb, lap, tid);
+    if constexpr (TIER == tf32::TIER_3XTF32) {
+      // df1 = (lap^T . df2) @ W2^T where r1 > 0: the mix, then the product
+      lap_mix_t(ba, bb, lap, tid);
+      __syncthreads();
+      stack_gemm<HID, 2 * HID, LDH, S, KS, TIER>(
+          bb, a.wfc2t + 2 * wsq, ring,
+          EpGate{big, a.r1 + row * 2 * HID, a.df1 + row * 2 * HID, nreal}, tid);
+      __syncthreads();
+      stack_prefetch<2 * HID, HID, S, KS, TIER>(a.wfc1t + 2 * wsq, ring, tid);
+    } else {
+      // df1 = lap^T . (df2 @ W2^T) where r1 > 0, the TPU kernel's order: the
+      // product into big's last 2 HID columns, then its halves mixed into
+      // the first 2 HID one after the other (the second half is written
+      // where the first is read)
+      stack_gemm<HID, 2 * HID, LDH, S, KS, TIER>(ba, a.wfc2t + 2 * wsq, ring,
+                                                 EpSmem<LDB, false, false>{big + HID, nullptr},
+                                                 tid);
+      __syncthreads();
+      stack_prefetch<2 * HID, HID, S, KS, TIER>(a.wfc1t + 2 * wsq, ring, tid);
+      lap_mix_t_gate(big + HID, big, lap, a.r1 + row * 2 * HID, a.df1 + row * 2 * HID, nreal,
+                     tid);
+      __syncthreads();
+      lap_mix_t_gate(big + 2 * HID, big + HID, lap, a.r1 + row * 2 * HID + HID,
+                     a.df1 + row * 2 * HID + HID, nreal, tid);
+      __syncthreads();
+    }
+    stack_gemm<2 * HID, HID, LDB, S, KS, TIER>(big, a.wfc1t + 2 * wsq, ring,
+                                               EpSmem<LDH, false, false>{ba, nullptr}, tid);  // d g1
     __syncthreads();
-    tc_gemm<HID, 2 * HID, LDH, BWD_STAGES, BWD_KS>(
-        bb, a.wfc2t + 2 * wsq, ring,
-        EpGate{big, a.r1 + row * 2 * HID, a.df1 + row * 2 * HID, nreal}, tid);
-    __syncthreads();
-    tc_prefetch<2 * HID, HID, BWD_STAGES, BWD_KS>(a.wfc1t + 2 * wsq, ring, tid);
-    tc_gemm<2 * HID, HID, LDB, BWD_STAGES, BWD_KS>(big, a.wfc1t + 2 * wsq, ring,
-                                         EpSmem<LDH, false, false>{ba, nullptr}, tid);  // d g1
-    __syncthreads();
-    tc_prefetch<HID, 3 * HID, BWD_STAGES, BWD_KS>(a.wqkv + 3 * wsq, ring, tid);
+    stack_prefetch<HID, 3 * HID, S, KS, TIER>(a.wqkv + 3 * wsq, ring, tid);
     lap_mix_t(ba, bb, lap, tid);                                                     // d y2
     __syncthreads();
     ln_bwd_add_warp(dh, bb, a.hb + row * HID, a.ln2s + l * HID, nreal, tid);         // dh = d hb
@@ -1018,19 +1171,20 @@ __global__ void __launch_bounds__(THREADS, 1) train_backward_kernel(const BwdArg
                 a.do1 + row * HID, nb, tid);
     load_rows<HID>(a.y1 + row * HID, bb, LDH, nb, tid);
     __syncthreads();
-    tc_gemm<HID, 3 * HID, LDH, BWD_STAGES, BWD_KS>(
+    stack_gemm<HID, 3 * HID, LDH, S, KS, TIER>(
         bb, a.wqkv + 3 * wsq, ring, EpSmem<LDB, true, false>{big, a.bqkv + l * 3 * HID}, tid);
     __syncthreads();
-    tc_prefetch<HID, HID, BWD_STAGES, BWD_KS>(a.waot + wsq, ring, tid);
-    tc_gemm<HID, HID, LDH, BWD_STAGES, BWD_KS>(ba, a.waot + wsq, ring,
-                                     EpSmem<LDH, false, false>{bb, nullptr}, tid);     // d att
+    stack_prefetch<HID, HID, S, KS, TIER>(a.waot + wsq, ring, tid);
+    stack_gemm<HID, HID, LDH, S, KS, TIER>(ba, a.waot + wsq, ring,
+                                           EpSmem<LDH, false, false>{bb, nullptr}, tid);     // d att
     __syncthreads();
-    attention_bwd(big, bb, probs_of<PRNG>(a.drop, l, b0, smp), a.ikp, sp, ba, nb, tid);
+    attention_bwd<PRNG, TIER>(big, bb, probs_of<PRNG>(a.drop, l, b0, smp), a.ikp, sp, ba, nb,
+                              tid);
     __syncthreads();
-    tc_prefetch<3 * HID, HID, BWD_STAGES, BWD_KS>(a.wqkvt + 3 * wsq, ring, tid);
+    stack_prefetch<3 * HID, HID, S, KS, TIER>(a.wqkvt + 3 * wsq, ring, tid);
     store_rows<3 * HID>(big, LDB, a.dqkv + row * 3 * HID, nb, tid);
-    tc_gemm<3 * HID, HID, LDB, BWD_STAGES, BWD_KS>(big, a.wqkvt + 3 * wsq, ring,
-                                         EpSmem<LDH, false, false>{ba, nullptr}, tid);  // d y1
+    stack_gemm<3 * HID, HID, LDB, S, KS, TIER>(big, a.wqkvt + 3 * wsq, ring,
+                                               EpSmem<LDH, false, false>{ba, nullptr}, tid);  // d y1
     __syncthreads();
     ln_bwd_add_warp(dh, ba, a.ha + row * HID, a.ln1s + l * HID, nreal, tid);         // dh = d ha
     __syncthreads();

@@ -30,12 +30,13 @@ from typing import Optional
 from diffpose_tpu_torch.models.igcn import IGCN
 from diffpose_tpu_torch.ops.fused_denoiser import prepare_weights
 from diffpose_tpu_torch.ops.fused_train import build_train_stack
+from diffpose_tpu_torch.ops.tf32 import PARITY_TIER
 
 __all__ = ["make_igcn_train_fn", "make_fused_implicit_train_step"]
 
 
 def make_igcn_train_fn(model: IGCN, *, dropout: str = "prng", remat: bool = False,
-                       stack=None):
+                       stack=None, tier: str = PARITY_TIER):
     """Build ``fn(x, t, masks_or_seed, z0=None, z0_weight=None,
     tolerance_override=None) → (out, aux, running)``, the fused training
     forward of ``model`` (its parameters under autograd).
@@ -45,12 +46,13 @@ def make_igcn_train_fn(model: IGCN, *, dropout: str = "prng", remat: bool = Fals
     ``iterations`` (an int32 tensor), ``residual``, ``fixed_point`` (and
     ``alpha``, damped); ``running``: the BatchNorm's running buffers after
     this step, which the caller writes.  ``stack(w, h0, tp, masks_or_seed)``
-    replaces the kernel pair (the tests' plain twin).
+    replaces the kernel pair (the tests' plain twin).  ``tier``: the kernel
+    pair's ``--kernel_precision``.
     """
     basis = model.gconv_input.basis.detach().cpu().numpy()
     stack_fn = stack or build_train_stack(basis, num_layers=model.num_layers,
                                           num_heads=model.num_heads, hid_dim=model.hid_dim,
-                                          dropout=dropout)
+                                          dropout=dropout, tier=tier)
 
     def fn(x, t, masks_or_seed, z0=None, z0_weight=None,
            tolerance_override: Optional[float] = None):

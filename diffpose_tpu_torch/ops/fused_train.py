@@ -5,8 +5,10 @@ _stack_fwd_kernel`` and ``:531 _stack_bwd_kernel`` (the explicit-mask
 dropout mode) and ``:314 _stack_fwd_kernel_prng`` and ``:581
 _stack_bwd_kernel_prng`` (dropout drawn in the kernels from a step seed).
 The CUDA source is ``csrc/train_kernel.cuh`` (device code, templated on the
-dropout's source), ``csrc/philox.cuh`` (the generator and its keying) and
-``csrc/train_kernel.cu`` (launch).
+dropout's source and the tier), ``csrc/philox.cuh`` (the generator and its
+keying), ``csrc/train_entry.cuh`` (checks and launches) and the entries of the
+parity and the tier builds, ``csrc/train_kernel.cu`` and
+``csrc/train_kernel_tiers.cu``.
 
 * **forward** (:func:`stack_fwd`): the training forward of all L layers
   including dropout, one launch; writes the stack's output and the
@@ -64,13 +66,24 @@ Design, and where it differs from the TPU kernels:
   waits for the host.  About 2,000 Philox calls per sample and layer in each
   kernel add integer work; the bound stays the float operations' one.
 
-On CPU tensors the wrappers run the plain versions: ``layers_forward`` and
-:func:`stack_bwd_plain`, the hand-written backward in tensor operations
-(the formulas the CUDA kernel implements), the seeded ones with
-``ops/philox.py:philox_masks``, which gives the kernels' bits.  On CUDA
-tensors they launch the kernels or raise.  ``stack_fwd.launches``,
-``stack_bwd.launches``, ``stack_fwd_prng.launches`` and
-``stack_bwd_prng.launches`` count kernel launches.
+Reduced tiers (``--kernel_precision bf16|default``, ``tier=`` on the
+wrappers and :func:`build_train_stack`): the same kernels built at a
+one-pass TIER (``csrc/train_kernel_tiers.cu``, a library of its own, built at
+a tier's first use): every channel product one tensor-core pass on operands
+rounded to bf16 or TF32, the weights rounded once a snapshot on the host
+(:func:`rounded_stacks`), at bf16 also the attention's segment products
+rounded where ``pallas_train.py`` rounds them (``csrc/train_kernel.cuh``'s
+text); their plain versions are ``layers_forward`` and
+:func:`stack_bwd_plain` at ``tier=``.
+
+On CPU tensors the wrappers run the plain versions (:func:`plain_fwd` and its
+siblings): ``layers_forward`` and :func:`stack_bwd_plain`, the hand-written
+backward in tensor operations (the formulas the CUDA kernel implements), the
+seeded ones with ``ops/philox.py:philox_masks``, which gives the kernels'
+bits.  On CUDA tensors they launch the kernels or raise.
+``stack_fwd.launches``, ``stack_bwd.launches``, ``stack_fwd_prng.launches``
+and ``stack_bwd_prng.launches`` count the parity build's launches,
+``<wrapper>.tier_launches[tier]`` a tier build's.
 """
 
 from __future__ import annotations
@@ -92,13 +105,24 @@ from diffpose_tpu_torch.ops.fused_denoiser import (
     Weights,
     _check_tensor,
     _cheb,
+    count_launch,
     prepare_weights,
+    reset_counts,
     timestep_projections,
 )
 from diffpose_tpu_torch.ops.philox import keep_thresholds, philox_masks
+from diffpose_tpu_torch.ops.tf32 import (
+    PARITY_TIER,
+    TIER_CODES,
+    check_tier,
+    round_bf16,
+    round_weight,
+    tier_matmul,
+)
 from diffpose_tpu_torch.ops.train_ref import (
     STASH_KEYS,
     DropoutMasks,
+    attention_scores,
     layers_forward,
     resolve_rates,
 )
@@ -163,16 +187,25 @@ def _cheb_bwd_data(dy, wcat, basis, mm=torch.matmul):
 
 
 def stack_bwd_plain(w: Weights, masks: DropoutMasks, st: Dict[str, torch.Tensor],
-                    dd5: torch.Tensor, *, rates=None, matmul=None):
+                    dd5: torch.Tensor, *, rates=None, matmul=None, tier: str = PARITY_TIER):
     """The backward kernel's function in tensor operations.
 
     From the gradient ``dd5 [B, N, H]`` of the stack's output: ``dA0``
     (gradient of the stack's input), ``dtp [L, B, H]`` and the d-stashes
     ``DSTASH_KEYS``, each ``[L, B, N, width]``.  ``matmul`` computes the
-    channel products (``torch.matmul`` by default; ``ops/tf32.py:
-    matmul_3xtf32`` gives the kernel's tensor-core products).
+    channel products (by default the tier's, ``ops/tf32.py:tier_matmul``;
+    ``ops/tf32.py:matmul_3xtf32`` gives the parity kernel's tensor-core
+    products).  ``tier``: the kernels' ``--kernel_precision``.  At a one-pass
+    tier the fc2 backward multiplies ``df2 @ W_fc2ᵀ`` first and mixes with
+    ``lapᵀ`` after, as ``pallas_train.py:_layer_bwd_math`` does (a rounding
+    of the operands does not commute with the mix; the parity kernel mixes
+    first); at bf16 the attention backward rounds where
+    ``pallas_train.py:_attention_bwd`` does: the recomputed scores and
+    probabilities as the forward, each ``v_d·datt_d·mask/keep`` before its
+    per-head sum, and the softmax gradient before it multiplies k and q.
     """
-    mm = matmul or torch.matmul
+    mm = matmul or tier_matmul(tier)
+    bf16 = tier == "bf16"
     ikp, iks, ikc = _inv_keep(rates)
     hid, heads, basis = w["hid_dim"], w["num_heads"], w["basis"]
     bsz, n = dd5.shape[:2]
@@ -199,7 +232,10 @@ def stack_bwd_plain(w: Weights, masks: DropoutMasks, st: Dict[str, torch.Tensor]
         # GraphNet: hc = hb + f2·m2·iks
         lap_t = w["lap"][l].t()
         df2 = d_hc * (masks.gnet_out[l].to(f) * iks)
-        df1 = mm(lap_t @ df2, w["wfc2"][l].t()) * (st["r1"][l] > 0)
+        if tier == PARITY_TIER:
+            df1 = mm(lap_t @ df2, w["wfc2"][l].t()) * (st["r1"][l] > 0)
+        else:
+            df1 = (lap_t @ mm(df2, w["wfc2"][l].t())) * (st["r1"][l] > 0)
         dy2 = lap_t @ mm(df1, w["wfc1"][l].t())
         d_hb = d_hc + _ln_bwd(dy2, st["hb"][l], w["ln2s"][l])
 
@@ -208,11 +244,18 @@ def stack_bwd_plain(w: Weights, masks: DropoutMasks, st: Dict[str, torch.Tensor]
         datt = split_heads(mm(do1, w["wao"][l].t()))
         qkv = mm(st["y1"][l], w["wqkv"][l]) + w["bqkv"][l]
         q, k, v = (split_heads(z) for z in qkv.split(hid, dim=-1))
-        p = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
+        p = torch.softmax(attention_scores(q, k, bf16), dim=-1)
         mp = masks.probs[l].to(f) * ikp
-        dv = (p * mp).transpose(-1, -2) @ datt
-        dp = (datt @ v.transpose(-1, -2)) * mp
+        if bf16:
+            dv = (round_bf16(p) * mp).transpose(-1, -2) @ datt
+            # dp[n, m] = Σ_d bf16(v[m, d]·datt[n, d]·mp[n, m])
+            dp = round_bf16(v.unsqueeze(-3) * datt.unsqueeze(-2) * mp.unsqueeze(-1)).sum(dim=-1)
+        else:
+            dv = (p * mp).transpose(-1, -2) @ datt
+            dp = (datt @ v.transpose(-1, -2)) * mp
         dsc = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+        if bf16:
+            dsc = round_bf16(dsc)
         dq, dk = dsc @ k, dsc.transpose(-1, -2) @ q
         dqkv = torch.cat([merge_heads(dq), merge_heads(dk), merge_heads(dv)], dim=-1)
         dh = d_hb + _ln_bwd(mm(dqkv, w["wqkv"][l].t()), st["ha"][l], w["ln1s"][l])
@@ -291,24 +334,57 @@ _BWD_WEIGHTS = ("ln1s", "ln2s", "wqkv", "bqkv", "wqkv_t", "wao_t", "lap",
                 "wfc1_t", "wfc2_t", "wg1_t", "wg2_t")
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load("train_kernel")
+def _entry_types():
+    """The argument types of the forward and the backward entry."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     u32 = ctypes.c_uint
     drop = [i32, ptr] + [u32] * 3          # seeded, seed, three thresholds
-    lib.train_stack_forward.argtypes = (
-        [i32] * 6 + [f32] * 3 + drop + [ptr] * (2 + 2 * len(MASK_KEYS) + len(_FWD_WEIGHTS))
-        + [i32] + [ptr] * (1 + len(STASH_KEYS)) + [ptr])
-    lib.train_stack_forward.restype = i32
-    lib.train_stack_backward.argtypes = (
-        [i32] * 6 + [f32] * 3 + drop + [ptr] * (1 + len(MASK_KEYS) + len(BWD_STASH_KEYS)
-                                                 + len(_BWD_WEIGHTS) + 3) + [i32]
-        + [ptr] * (2 + len(DSTASH_KEYS)) + [ptr])
-    lib.train_stack_backward.restype = i32
-    lib.train_error_string.argtypes = [i32]
+    fwd = ([i32] * 6 + [f32] * 3 + drop + [ptr] * (2 + 2 * len(MASK_KEYS) + len(_FWD_WEIGHTS))
+           + [i32] + [ptr] * (1 + len(STASH_KEYS)) + [ptr])
+    bwd = ([i32] * 6 + [f32] * 3 + drop + [ptr] * (1 + len(MASK_KEYS) + len(BWD_STASH_KEYS)
+                                                    + len(_BWD_WEIGHTS) + 3) + [i32]
+           + [ptr] * (2 + len(DSTASH_KEYS)) + [ptr])
+    return fwd, bwd
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = _build.load("train_kernel")
+    fwd, bwd = _entry_types()
+    lib.train_stack_forward.argtypes, lib.train_stack_forward.restype = fwd, ctypes.c_int
+    lib.train_stack_backward.argtypes, lib.train_stack_backward.restype = bwd, ctypes.c_int
+    lib.train_error_string.argtypes = [ctypes.c_int]
     lib.train_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _tier_library() -> ctypes.CDLL:
+    """The one-pass tiers' build (``csrc/train_kernel_tiers.cu``), at first
+    use: the parity library's entries after a leading tier code."""
+    lib = _build.load("train_kernel_tiers")
+    fwd, bwd = _entry_types()
+    i32 = ctypes.c_int
+    lib.train_stack_forward_tier.argtypes, lib.train_stack_forward_tier.restype = [i32] + fwd, i32
+    lib.train_stack_backward_tier.argtypes, lib.train_stack_backward_tier.restype = [i32] + bwd, i32
+    lib.train_tier_error_string.argtypes = [i32]
+    lib.train_tier_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def rounded_stacks(w: Weights, tier: str) -> Dict[str, torch.Tensor]:
+    """The channel products' weights as a one-pass tier's kernels take them:
+    each of ``_BWD_TRANSPOSED`` rounded to the tier once (``"<k>"``, and
+    transposed for the backward, ``"<k>_t"``), without gradient.  Kept in
+    ``w`` under ``"rounded_<tier>"``, so that a weight snapshot (one train
+    step's) is rounded once however many launches take it."""
+    key = f"rounded_{tier}"
+    if key not in w:
+        with torch.no_grad():
+            out = {k: round_weight(tier, w[k].detach()) for k in _BWD_TRANSPOSED}
+            out.update({f"{k}_t": v.transpose(1, 2).contiguous() for k, v in list(out.items())})
+        w[key] = out
+    return w[key]
 
 
 def _stack_shapes(w: Weights) -> Dict[str, tuple]:
@@ -360,17 +436,21 @@ def _mask_shapes(L, bsz, heads, n, H) -> Dict[str, tuple]:
     return {"probs": (L, bsz, heads, n, n), **{k: (L, bsz, n, H) for k in MASK_KEYS[1:]}}
 
 
-def _raise_on(code: int, what: str):
+def _raise_on(code: int, what: str, tier: str = PARITY_TIER):
     if code != 0:
-        msg = _library().train_error_string(code).decode()
-        raise RuntimeError(f"{what} kernel: {msg} (cudaError {code})")
+        msg = (_library().train_error_string(code) if tier == PARITY_TIER
+               else _tier_library().train_tier_error_string(code)).decode()
+        raise RuntimeError(f"{what} kernel (tier {tier}): {msg} (cudaError {code})")
 
 
-def _launch_fwd(w: Weights, h0, tp, drop, ikeep: Rates, *, dump: bool = False):
+def _launch_fwd(w: Weights, h0, tp, drop, ikeep: Rates, *, dump: bool = False,
+                tier: str = PARITY_TIER):
     """One launch of the forward kernel; every input is checked first.
     ``drop``: the masks' dict, or a :class:`_Drop`.  With ``dump`` (seeded
     dropout only) also returns the masks the kernel drew, in
-    :func:`kernel_masks`' layout."""
+    :func:`kernel_masks`' layout.  ``tier``: the parity build, or a one-pass
+    tier's (``csrc/train_kernel_tiers.cu``) on :func:`rounded_stacks`."""
+    check_tier(tier)
     if not isinstance(drop, _Drop):
         drop = _Drop(drop, None, (0, 0, 0))
     if dump and drop.seed is None:
@@ -389,21 +469,27 @@ def _launch_fwd(w: Weights, h0, tp, drop, ikeep: Rates, *, dump: bool = False):
           for k in STASH_KEYS}
     dumped = {k: torch.empty(shape, dtype=torch.uint8, device=dev)
               for k, shape in _mask_shapes(L, bsz, w["num_heads"], n, H).items()} if dump else {}
+    prods = w if tier == PARITY_TIER else {**w, **rounded_stacks(w, tier)}
     seeded, seed_ptr, thp, ths, thc, *mask_ptrs = drop.args()
-    code = _library().train_stack_forward(
-        dev.index, H, w["num_heads"], n, bsz, L, *ikeep, seeded, seed_ptr, thp, ths, thc,
-        h0.data_ptr(), tp.data_ptr(), *mask_ptrs,
-        *[dumped[k].data_ptr() if dump else None for k in MASK_KEYS],
-        *[w[k].data_ptr() for k in _FWD_WEIGHTS], w["cheb_nnz"],
-        d5.data_ptr(), *[st[k].data_ptr() for k in STASH_KEYS],
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(code, "train_stack_forward")
+    args = (dev.index, H, w["num_heads"], n, bsz, L, *ikeep, seeded, seed_ptr, thp, ths, thc,
+            h0.data_ptr(), tp.data_ptr(), *mask_ptrs,
+            *[dumped[k].data_ptr() if dump else None for k in MASK_KEYS],
+            *[prods[k].data_ptr() for k in _FWD_WEIGHTS], w["cheb_nnz"],
+            d5.data_ptr(), *[st[k].data_ptr() for k in STASH_KEYS],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if tier == PARITY_TIER:
+        code = _library().train_stack_forward(*args)
+    else:
+        code = _tier_library().train_stack_forward_tier(TIER_CODES[tier], *args)
+    _raise_on(code, "train_stack_forward", tier)
     return (d5, st, dumped) if dump else (d5, st)
 
 
-def _launch_bwd(w: Weights, drop, st, dd5, ikeep: Rates):
+def _launch_bwd(w: Weights, drop, st, dd5, ikeep: Rates, *, tier: str = PARITY_TIER):
     """One launch of the backward kernel; every input is checked first.
-    ``drop``: the masks' dict, or a :class:`_Drop`."""
+    ``drop``: the masks' dict, or a :class:`_Drop`; ``tier`` as
+    :func:`_launch_fwd`'s."""
+    check_tier(tier)
     if not isinstance(drop, _Drop):
         drop = _Drop(drop, None, (0, 0, 0))
     bsz, L, H, n, dev = _check_common(w, drop, dd5)
@@ -416,7 +502,11 @@ def _launch_bwd(w: Weights, drop, st, dd5, ikeep: Rates):
         _check_tensor(k, wb[k], shapes[k], torch.float32, dev)
     for k in _BWD_TRANSPOSED:
         _check_tensor(k, w[k], shapes[k], torch.float32, dev)
-        wb[k + "_t"] = w[k].transpose(1, 2).contiguous()
+    if tier == PARITY_TIER:
+        wb.update({k + "_t": w[k].transpose(1, 2).contiguous() for k in _BWD_TRANSPOSED})
+    else:
+        rw = rounded_stacks(w, tier)
+        wb.update(wqkv=rw["wqkv"], **{k + "_t": rw[k + "_t"] for k in _BWD_TRANSPOSED})
     tptr, tidx, tval = w["chebt_ptr"], w["chebt_idx"], w["chebt_val"]
     _check_tensor("chebt_ptr", tptr, (KERNEL_CHEB_TERMS * n + 1,), torch.int32, dev)
     _check_tensor("chebt_idx", tidx, (tval.numel(),), torch.int32, dev)
@@ -426,38 +516,54 @@ def _launch_bwd(w: Weights, drop, st, dd5, ikeep: Rates):
     dtp = torch.empty((L, bsz, H), dtype=torch.float32, device=dev)
     ds = {k: torch.empty((L, bsz, n, _DSTASH_WIDTH.get(k, 1) * H), dtype=torch.float32,
                          device=dev) for k in DSTASH_KEYS}
-    code = _library().train_stack_backward(
-        dev.index, H, w["num_heads"], n, bsz, L, *ikeep, *drop.args()[:5],
-        dd5.data_ptr(), *drop.args()[5:],
-        *[st[k].data_ptr() for k in BWD_STASH_KEYS], *[wb[k].data_ptr() for k in _BWD_WEIGHTS],
-        tptr.data_ptr(), tidx.data_ptr(), tval.data_ptr(), tval.numel(),
-        da0.data_ptr(), dtp.data_ptr(), *[ds[k].data_ptr() for k in DSTASH_KEYS],
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(code, "train_stack_backward")
+    args = (dev.index, H, w["num_heads"], n, bsz, L, *ikeep, *drop.args()[:5],
+            dd5.data_ptr(), *drop.args()[5:],
+            *[st[k].data_ptr() for k in BWD_STASH_KEYS], *[wb[k].data_ptr() for k in _BWD_WEIGHTS],
+            tptr.data_ptr(), tidx.data_ptr(), tval.data_ptr(), tval.numel(),
+            da0.data_ptr(), dtp.data_ptr(), *[ds[k].data_ptr() for k in DSTASH_KEYS],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if tier == PARITY_TIER:
+        code = _library().train_stack_backward(*args)
+    else:
+        code = _tier_library().train_stack_backward_tier(TIER_CODES[tier], *args)
+    _raise_on(code, "train_stack_backward", tier)
     return da0, dtp, ds
 
 
+def plain_fwd(w: Weights, h0, tp, km: Dict[str, torch.Tensor], *, rates=None,
+              tier: str = PARITY_TIER):
+    """:func:`stack_fwd`'s function in tensor operations, on any device."""
+    return layers_forward(w, h0, tp, masks_from_kernel(km, h0.dtype), rates=rates,
+                          return_stashes=True, tier=tier)
+
+
+def plain_bwd(w: Weights, km: Dict[str, torch.Tensor], st, dd5, *, rates=None,
+              tier: str = PARITY_TIER):
+    """:func:`stack_bwd`'s function in tensor operations, on any device."""
+    return stack_bwd_plain(w, masks_from_kernel(km, dd5.dtype), st, dd5, rates=rates, tier=tier)
+
+
 def stack_fwd(w: Weights, h0: torch.Tensor, tp: torch.Tensor, km: Dict[str, torch.Tensor], *,
-              rates=None):
+              rates=None, tier: str = PARITY_TIER):
     """Training forward of the layer stack: ``(d5 [B, N, H], stashes)``.
     ``km`` is :func:`kernel_masks`' dict.  One kernel launch for CUDA
-    tensors, ``layers_forward`` for CPU tensors."""
+    tensors (the parity build, or ``tier``'s), :func:`plain_fwd` for CPU
+    tensors."""
     if h0.device.type == "cpu":
-        return layers_forward(w, h0, tp, masks_from_kernel(km, h0.dtype), rates=rates,
-                              return_stashes=True)
-    out = _launch_fwd(w, h0, tp, km, _inv_keep(rates))
-    stack_fwd.launches += 1
+        return plain_fwd(w, h0, tp, km, rates=rates, tier=tier)
+    out = _launch_fwd(w, h0, tp, km, _inv_keep(rates), tier=tier)
+    count_launch(stack_fwd, tier)
     return out
 
 
 def stack_bwd(w: Weights, km: Dict[str, torch.Tensor], st: Dict[str, torch.Tensor],
-              dd5: torch.Tensor, *, rates=None):
+              dd5: torch.Tensor, *, rates=None, tier: str = PARITY_TIER):
     """Backward of the layer stack: ``(dA0, dtp, d-stashes)``.  One kernel
-    launch for CUDA tensors, :func:`stack_bwd_plain` for CPU tensors."""
+    launch for CUDA tensors, :func:`plain_bwd` for CPU tensors."""
     if dd5.device.type == "cpu":
-        return stack_bwd_plain(w, masks_from_kernel(km, dd5.dtype), st, dd5, rates=rates)
-    out = _launch_bwd(w, km, st, dd5, _inv_keep(rates))
-    stack_bwd.launches += 1
+        return plain_bwd(w, km, st, dd5, rates=rates, tier=tier)
+    out = _launch_bwd(w, km, st, dd5, _inv_keep(rates), tier=tier)
+    count_launch(stack_bwd, tier)
     return out
 
 
@@ -471,51 +577,62 @@ def _masks_of_seed(w: Weights, seed, batch: int, device, dtype, rates) -> Dropou
                         device=device, dtype=dtype)
 
 
+def plain_fwd_prng(w: Weights, h0, tp, seed, *, rates=None, dump: bool = False,
+                   tier: str = PARITY_TIER):
+    """:func:`stack_fwd_prng`'s function in tensor operations, on any device:
+    ``layers_forward`` over :func:`philox_masks` (the kernels' bits)."""
+    masks = _masks_of_seed(w, seed, h0.shape[0], h0.device, h0.dtype, rates)
+    out = layers_forward(w, h0, tp, masks, rates=rates, return_stashes=True, tier=tier)
+    return (*out, kernel_masks(masks)) if dump else out
+
+
+def plain_bwd_prng(w: Weights, seed, st, dd5, *, rates=None, tier: str = PARITY_TIER):
+    """:func:`stack_bwd_prng`'s function in tensor operations, on any device."""
+    masks = _masks_of_seed(w, seed, dd5.shape[0], dd5.device, dd5.dtype, rates)
+    return stack_bwd_plain(w, masks, st, dd5, rates=rates, tier=tier)
+
+
 def stack_fwd_prng(w: Weights, h0: torch.Tensor, tp: torch.Tensor, seed: torch.Tensor, *,
-                   rates=None, dump: bool = False):
+                   rates=None, dump: bool = False, tier: str = PARITY_TIER):
     """:func:`stack_fwd` with the dropout drawn from ``seed`` (``int32[1]`` on
     ``h0``'s device) as ``csrc/philox.cuh`` sets out: one launch of the seeded
-    forward kernel for CUDA tensors, ``layers_forward`` with
-    :func:`philox_masks` (the same bits) for CPU tensors.  With ``dump`` also
-    returns the masks that were drawn, in :func:`kernel_masks`' layout."""
+    forward kernel for CUDA tensors, :func:`plain_fwd_prng` (the same bits)
+    for CPU tensors.  With ``dump`` also returns the masks that were drawn,
+    in :func:`kernel_masks`' layout."""
     if h0.device.type == "cpu":
-        masks = _masks_of_seed(w, seed, h0.shape[0], h0.device, h0.dtype, rates)
-        out = layers_forward(w, h0, tp, masks, rates=rates, return_stashes=True)
-        return (*out, kernel_masks(masks)) if dump else out
-    out = _launch_fwd(w, h0, tp, _seeded(seed, rates), _inv_keep(rates), dump=dump)
-    stack_fwd_prng.launches += 1
+        return plain_fwd_prng(w, h0, tp, seed, rates=rates, dump=dump, tier=tier)
+    out = _launch_fwd(w, h0, tp, _seeded(seed, rates), _inv_keep(rates), dump=dump, tier=tier)
+    count_launch(stack_fwd_prng, tier)
     return out
 
 
 def stack_bwd_prng(w: Weights, seed: torch.Tensor, st: Dict[str, torch.Tensor],
-                   dd5: torch.Tensor, *, rates=None):
+                   dd5: torch.Tensor, *, rates=None, tier: str = PARITY_TIER):
     """:func:`stack_bwd` regenerating the masks :func:`stack_fwd_prng` drew
     from the same ``seed``: one launch of the seeded backward kernel for CUDA
-    tensors, :func:`stack_bwd_plain` with :func:`philox_masks` for CPU tensors."""
+    tensors, :func:`plain_bwd_prng` for CPU tensors."""
     if dd5.device.type == "cpu":
-        masks = _masks_of_seed(w, seed, dd5.shape[0], dd5.device, dd5.dtype, rates)
-        return stack_bwd_plain(w, masks, st, dd5, rates=rates)
-    out = _launch_bwd(w, _seeded(seed, rates), st, dd5, _inv_keep(rates))
-    stack_bwd_prng.launches += 1
+        return plain_bwd_prng(w, seed, st, dd5, rates=rates, tier=tier)
+    out = _launch_bwd(w, _seeded(seed, rates), st, dd5, _inv_keep(rates), tier=tier)
+    count_launch(stack_bwd_prng, tier)
     return out
 
 
-stack_fwd.launches = 0
-stack_bwd.launches = 0
-stack_fwd_prng.launches = 0
-stack_bwd_prng.launches = 0
+# launches / tier_launches[tier]: the parity build's and each tier build's
+reset_counts(stack_fwd, stack_bwd, stack_fwd_prng, stack_bwd_prng)
 
 
 class _TrainStack(torch.autograd.Function):
-    """``d5 = stack(h0, tp, weights)`` with the kernel pair as forward and
-    backward; gradients for ``h0``, ``tp`` and every stacked weight."""
+    """``d5 = stack(h0, tp, weights)`` with the kernel pair (or its plain
+    versions) as forward and backward; gradients for ``h0``, ``tp`` and every
+    stacked weight."""
 
     @staticmethod
     def forward(ctx, cfg, km, h0, tp, *stack):
-        """``km``: the masks' dict, or the step seed (a tensor) of the seeded pair."""
+        """``km``: the masks' dict, or the step seed (a tensor) of the seeded
+        pair; ``cfg["pair"]``: the forward and the backward to run."""
         w = dict(cfg, **dict(zip(STACK_KEYS, stack)))
-        fwd = stack_fwd_prng if isinstance(km, torch.Tensor) else stack_fwd
-        d5, st = fwd(w, h0.contiguous(), tp.contiguous(), km, rates=cfg["rates"])
+        d5, st = cfg["pair"][0](w, h0.contiguous(), tp.contiguous(), km)
         ctx.cfg, ctx.km = cfg, km
         # the stashes as saved tensors, so that torch.utils.checkpoint can
         # drop them and replay this forward in the backward
@@ -528,14 +645,14 @@ class _TrainStack(torch.autograd.Function):
         saved = ctx.saved_tensors
         w = dict(ctx.cfg, **dict(zip(STACK_KEYS, saved)))
         st = dict(zip(STASH_KEYS, saved[len(STACK_KEYS):]))
-        bwd = stack_bwd_prng if isinstance(ctx.km, torch.Tensor) else stack_bwd
-        da0, dtp, ds = bwd(w, ctx.km, st, dd5.contiguous(), rates=ctx.cfg["rates"])
+        da0, dtp, ds = ctx.cfg["pair"][1](w, ctx.km, st, dd5.contiguous())
         grads = weight_grads(w, st, ds)
         return (None, None, da0, dtp, *[grads[k] for k in STACK_KEYS])
 
 
 def build_train_stack(basis: np.ndarray, *, num_layers: int = 5, num_heads: int = 4,
-                      hid_dim: int = 96, rates=None, dropout: str = "masks"):
+                      hid_dim: int = 96, rates=None, dropout: str = "masks",
+                      tier: str = PARITY_TIER, plain: bool = False):
     """Build ``stack_apply(weights, h0, tp, masks_or_seed) → d5``,
     differentiable through the kernel pair.
 
@@ -549,11 +666,17 @@ def build_train_stack(basis: np.ndarray, *, num_layers: int = 5, num_heads: int 
     ``differentiable=True`` for gradients to reach the module); ``h0``
     ``[B, N, H]``; ``tp`` ``[L, B, H]``; ``masks``: a ``DropoutMasks`` or
     :func:`kernel_masks`' dict.  ``rates`` overrides the dropout rates
-    ``(p_attn_probs, p_sublayer, p_cheb)``.  The returned function carries
-    ``run_fwd`` / ``run_bwd``, the kernel wrappers with these rates.
+    ``(p_attn_probs, p_sublayer, p_cheb)``.  ``tier``: the kernels'
+    ``--kernel_precision`` (a one-pass tier launches its own build, on the
+    weights rounded once a snapshot, :func:`rounded_stacks`; the gradients
+    reach the float32 stacks).  ``plain``: the pair's plain versions on any
+    device (:func:`plain_fwd` and its siblings), the plain train step's
+    stack at a reduced tier.  The returned function carries ``run_fwd`` /
+    ``run_bwd``, the pair it runs with these rates and tier.
     """
     if dropout not in ("masks", "prng"):
         raise ValueError(f"dropout must be 'masks' or 'prng', got {dropout!r}")
+    check_tier(tier)
     prng = dropout == "prng"
     basis = np.asarray(basis, np.float32)
     rates = resolve_rates(rates)
@@ -570,13 +693,19 @@ def build_train_stack(basis: np.ndarray, *, num_layers: int = 5, num_heads: int 
             raise ValueError(f"a stack built with dropout={dropout!r} takes "
                              f"{'a seed tensor' if prng else 'masks'}, got {type(masks).__name__}")
         km = kernel_masks(masks) if isinstance(masks, DropoutMasks) else masks
+        if tier != PARITY_TIER and not plain:
+            rounded_stacks(w, tier)
         cfg = {k: v for k, v in w.items() if k not in STACK_KEYS}
-        cfg["rates"] = rates
+        cfg["pair"] = pair
         return _TrainStack.apply(cfg, km, h0, tp, *[w[k] for k in STACK_KEYS])
 
-    stack_apply.run_fwd = functools.partial(stack_fwd_prng if prng else stack_fwd, rates=rates)
-    stack_apply.run_bwd = functools.partial(stack_bwd_prng if prng else stack_bwd, rates=rates)
-    stack_apply.run_fwd_dump = (functools.partial(stack_fwd_prng, rates=rates, dump=True)
+    if plain:
+        fwd, bwd = (plain_fwd_prng, plain_bwd_prng) if prng else (plain_fwd, plain_bwd)
+    else:
+        fwd, bwd = (stack_fwd_prng, stack_bwd_prng) if prng else (stack_fwd, stack_bwd)
+    pair = tuple(functools.partial(f, rates=rates, tier=tier) for f in (fwd, bwd))
+    stack_apply.run_fwd, stack_apply.run_bwd = pair
+    stack_apply.run_fwd_dump = (functools.partial(fwd, rates=rates, tier=tier, dump=True)
                                 if prng else None)
     return stack_apply
 
@@ -596,10 +725,10 @@ def fused_train_forward(model, x: torch.Tensor, t: torch.Tensor, masks, stack_fn
 
 
 def make_train_step(model, optimizer, betas, *, impl: str = "fused", ema_mu=0.999, device="cuda",
-                    dropout: str = "masks"):
+                    dropout: str = "masks", tier: str = PARITY_TIER):
     """The fused drop-in for the module train step: ``train.steps.make_train_step``
     with the kernel pair as the denoiser's forward and backward."""
     from diffpose_tpu_torch.train import steps  # steps imports this module
 
     return steps.make_train_step(model, optimizer, betas, impl=impl, ema_mu=ema_mu, device=device,
-                                 dropout=dropout)
+                                 dropout=dropout, tier=tier)

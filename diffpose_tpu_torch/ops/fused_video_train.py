@@ -41,6 +41,7 @@ from diffpose_tpu_torch.ops.fused_video_full import (
     to_rows,
 )
 from diffpose_tpu_torch.ops.philox import philox_masks
+from diffpose_tpu_torch.ops.tf32 import PARITY_TIER
 from diffpose_tpu_torch.ops.train_ref import (
     RATE_ATTN_PROBS,
     RATE_CHEB,
@@ -138,7 +139,8 @@ def plain_stack(rates):
     return stack
 
 
-def make_video_train_fn(model, *, dropout: str = "masks", rates=None, stack_fn=None):
+def make_video_train_fn(model, *, dropout: str = "masks", rates=None, stack_fn=None,
+                        tier: str = PARITY_TIER, plain: bool = False):
     """Build ``fn(x [B, F, J, 5], t [B], masks_or_seed, tmasks) → ε̂``, the
     training forward of ``model`` (a ``SpatioTemporalDiff``) with its spatial
     blocks on the train kernel pair, differentiable with respect to the
@@ -148,7 +150,12 @@ def make_video_train_fn(model, *, dropout: str = "masks", rates=None, stack_fn=N
     (``dropout="masks"``) or the ``int32[1]`` step seed (``"prng"``);
     ``tmasks``: :class:`TemporalMasks`, or None at a temporal rate of 0.
     ``stack_fn(w, h0, tp, masks_or_seed)`` replaces the kernel pair
-    (:func:`plain_stack` for the plain twin).
+    (:func:`plain_stack` for the plain twin).  ``tier``: the kernel pair's
+    ``--kernel_precision``; ``plain``: its plain tier versions behind the
+    same autograd function (``build_train_stack(..., plain=True)``, the plain
+    step at a reduced tier).  The temporal blocks stay torch operations at
+    the ambient matmul grade at every tier, as in
+    ``pallas_video_train.py:92``.
     """
     if dropout not in ("masks", "prng"):
         raise ValueError(f"dropout must be 'masks' or 'prng', got {dropout!r}")
@@ -157,8 +164,9 @@ def make_video_train_fn(model, *, dropout: str = "masks", rates=None, stack_fn=N
     t_rate = float(model.dropout_rate)
     blocks = SpatialBlocks(model)
     if stack_fn is None:
-        stack_fn = build_train_stack(blocks.gconv_input.basis.numpy(), num_layers=1, num_heads=model.num_heads,
-                                     hid_dim=model.hid_dim, rates=rates, dropout=dropout)
+        stack_fn = build_train_stack(blocks.gconv_input.basis.numpy(), num_layers=1,
+                                     num_heads=model.num_heads, hid_dim=model.hid_dim,
+                                     rates=rates, dropout=dropout, tier=tier, plain=plain)
 
     def fn(x: torch.Tensor, t: torch.Tensor, masks, tmasks: Optional[TemporalMasks] = None):
         b, f, j, c = x.shape

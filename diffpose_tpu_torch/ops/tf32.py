@@ -173,19 +173,26 @@ def check_tier(tier: str) -> str:
     return tier
 
 
+def held(rnd, x: torch.Tensor) -> torch.Tensor:
+    """``rnd(x)``, a rounding, as a fixed function of ``x``: its value, and
+    under autograd the gradient passed straight through (``x - x.detach()``
+    is an exact zero that carries it), since no kernel rounds a gradient."""
+    return rnd(x.detach()) + (x - x.detach())
+
+
 def matmul_bf16(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The bf16 tier's product in plain PyTorch: both operands rounded to
-    bf16, the exact products summed in float32 (``jnp.dot`` of bf16 operands
-    with ``preferred_element_type=float32``; :func:`matmul_1xbf16` is the
-    card's order of the sum)."""
-    return torch.matmul(round_bf16(a), round_bf16(w))
+    bf16 (:func:`held`), the exact products summed in float32 (``jnp.dot`` of
+    bf16 operands with ``preferred_element_type=float32``;
+    :func:`matmul_1xbf16` is the card's order of the sum)."""
+    return torch.matmul(held(round_bf16, a), held(round_bf16, w))
 
 
 def matmul_tf32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The default tier's product in plain PyTorch: both operands rounded to
-    TF32, the exact products summed in float32 (:func:`matmul_1xtf32` is the
-    card's order and truncation of the sum)."""
-    return torch.matmul(round_tf32(a), round_tf32(w))
+    TF32 (:func:`held`), the exact products summed in float32
+    (:func:`matmul_1xtf32` is the card's order and truncation of the sum)."""
+    return torch.matmul(held(round_tf32, a), held(round_tf32, w))
 
 
 def tier_matmul(tier: str):

@@ -8,6 +8,18 @@ is the plain version of both kernels: the forward kernel is held against
 :func:`layers_forward`, the backward kernel against ``torch.autograd.grad``
 of it.  Counterpart of ``diffpose_tpu/ops/train_ref.py``.
 
+At a reduced ``--kernel_precision`` tier (``tier="bf16"`` or ``"default"``)
+:func:`layers_forward` rounds where the train kernels round at that tier,
+which is where ``diffpose_tpu/ops/pallas_train.py`` rounds at its
+``precision``: the operands of every channel product (``_dot``: bf16, or
+TF32 for the one-pass default tier), and at bf16 also the attention's
+segment products (``_dot_exact_w``): each product ``q_d·k_d`` before the
+per-head sum, and each probability before the dropout and the sum over V.
+Stashes, activations, LayerNorm parameters and biases stay float32.  Each
+rounding is a fixed function of its input (``ops/tf32.py:held``): under autograd its
+gradient passes through unrounded, since no kernel rounds a gradient; the
+tiers' backward is ``ops/fused_train.py:stack_bwd_plain``, not autograd.
+
 Weight layout: :func:`~diffpose_tpu_torch.ops.fused_denoiser.prepare_weights`
 (stacked per-layer tensors, 1/√d_k folded into the q projection).
 Activations are batch-major ``[B, N=17, C]``, as everywhere in this package.
@@ -35,6 +47,7 @@ from diffpose_tpu_torch.ops.fused_denoiser import (
     prepare_weights,
     timestep_projections,
 )
+from diffpose_tpu_torch.ops.tf32 import PARITY_TIER, held, round_bf16, tier_matmul
 
 RATE_ATTN_PROBS = 0.1
 RATE_SUBLAYER = 0.25
@@ -83,6 +96,15 @@ def make_dropout_masks(
     )
 
 
+def attention_scores(q: torch.Tensor, k: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """``q @ kᵀ`` per head (``[..., n, dk]`` each); ``bf16``: each product
+    ``q_d·k_d`` rounded to bf16 before the float32 sum over ``d``, as
+    ``pallas_train.py:_attention_fwd`` sums them through ``_dot_exact_w``."""
+    if not bf16:
+        return q @ k.transpose(-1, -2)
+    return held(round_bf16, q.unsqueeze(-2) * k.unsqueeze(-3)).sum(dim=-1)
+
+
 def layers_forward(
     weights: Weights,
     h: torch.Tensor,          # [B, N, H]: the input ChebConv's output
@@ -92,15 +114,19 @@ def layers_forward(
     rates=None,
     return_stashes: bool = False,
     matmul=None,
+    tier: str = PARITY_TIER,
 ):
     """The L-layer GraAttenLayer + ResChebGCDiff stack in training mode.
 
     Returns the stack's output ``[B, N, H]``, and with ``return_stashes``
     also the dict of per-layer intermediates ``STASH_KEYS``.  ``matmul``
-    computes the channel products (``torch.matmul`` by default;
-    ``ops/tf32.py:matmul_3xtf32`` gives the kernels' tensor-core products).
+    computes the channel products (by default the tier's,
+    ``ops/tf32.py:tier_matmul``; ``ops/tf32.py:matmul_3xtf32`` gives the parity
+    kernels' tensor-core products).  ``tier``: the kernels'
+    ``--kernel_precision`` (the module's text).
     """
-    mm = matmul or torch.matmul
+    mm = matmul or tier_matmul(tier)
+    bf16 = tier == "bf16"
     p_probs, p_sub, p_cheb = resolve_rates(rates)
     ikp, iks, ikc = 1.0 / (1.0 - p_probs), 1.0 / (1.0 - p_sub), 1.0 / (1.0 - p_cheb)
     w = weights
@@ -115,7 +141,9 @@ def layers_forward(
         y1 = _layer_norm(h, w["ln1s"][l], w["ln1b"][l])
         qkv = mm(y1, w["wqkv"][l]) + w["bqkv"][l]
         q, k, v = (z.reshape(bsz, n, heads, -1).transpose(1, 2) for z in qkv.split(hid, dim=-1))
-        p = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
+        p = torch.softmax(attention_scores(q, k, bf16), dim=-1)
+        if bf16:
+            p = held(round_bf16, p)
         pd = p * (masks.probs[l].to(f) * ikp)
         att = (pd @ v).transpose(1, 2).reshape(bsz, n, hid)
         o1 = mm(att, w["wao"][l]) + w["bao"][l]
@@ -124,7 +152,9 @@ def layers_forward(
         stash["att"].append(att)
         stash["hb"].append(h)
 
-        # GraphNet sublayer
+        # GraphNet sublayer (fc2 mixes lap . r1 first, as the TPU kernel and the
+        # one-pass kernels do; the parity kernel's lap . (r1 @ W_fc2) is this
+        # function to float32 rounding)
         lap = w["lap"][l]
         y2 = _layer_norm(h, w["ln2s"][l], w["ln2b"][l])
         r1 = F.relu(mm(lap @ y2, w["wfc1"][l]) + w["bfc1"][l])

@@ -186,7 +186,8 @@ def fold_in(generator: torch.Generator, index: int) -> torch.Generator:
 
 def make_sharded_train_step(model, optimizer, betas, mesh, *, axis: str = "data",
                             impl: str = "fused", ema_mu: Optional[float] = 0.999,
-                            device="cuda", dropout: str = "masks") -> Callable:
+                            device="cuda", dropout: str = "masks",
+                            tier: str = "bf16x3") -> Callable:
     """The data-parallel train step: ``step(state, batch, generator) →
     (state, metrics)`` with ``batch`` this rank's slice of the global batch.
 
@@ -198,7 +199,7 @@ def make_sharded_train_step(model, optimizer, betas, mesh, *, axis: str = "data"
     from diffpose_tpu_torch.train.steps import make_train_step
 
     return make_train_step(model, optimizer, betas, impl=impl, ema_mu=ema_mu, device=device,
-                           dropout=dropout, axis=mesh_axis(mesh, axis))
+                           dropout=dropout, axis=mesh_axis(mesh, axis), tier=tier)
 
 
 def _local_columns(idx: torch.Tensor, shard: Shard) -> torch.Tensor:
@@ -209,7 +210,8 @@ def make_sharded_train_sweep_step(model, optimizer, betas, mesh, *, sweep: int,
                                   axis: str = "data", impl: str = "fused",
                                   ema_mu: Optional[float] = 0.999, device="cuda",
                                   dropout: str = "masks",
-                                  base_step: Optional[Callable] = None) -> Callable:
+                                  base_step: Optional[Callable] = None,
+                                  tier: str = "bf16x3") -> Callable:
     """Device-resident-data training over the mesh: ``sweep_step(state, data,
     idx, generator) → (state, {"loss": [sweep]})``.
 
@@ -222,7 +224,7 @@ def make_sharded_train_sweep_step(model, optimizer, betas, mesh, *, sweep: int,
 
     base = base_step or make_sharded_train_step(model, optimizer, betas, mesh, axis=axis,
                                                 impl=impl, ema_mu=ema_mu, device=device,
-                                                dropout=dropout)
+                                                dropout=dropout, tier=tier)
     local = make_train_sweep_step(model, optimizer, betas, sweep=sweep, base_step=base)
     shard = data_sharding(mesh, axis)
 
@@ -273,7 +275,7 @@ def make_sharded_implicit_train_step(model, optimizer, betas, mesh, *, axis: str
                                      impl: str = "module", ema_mu: Optional[float] = 0.999,
                                      use_warm_start: bool = False, tol_schedule=None,
                                      device="cuda", dropout: str = "masks",
-                                     remat: bool = False) -> Callable:
+                                     remat: bool = False, tier: str = "bf16x3") -> Callable:
     """Data-parallel IGCN training: gradients, loss and the BatchNorm running
     buffers the step writes are averaged over ``axis``; ``fp_iterations`` is
     averaged and ``fp_residual`` the maximum (each rank solves its own slice,
@@ -288,7 +290,7 @@ def make_sharded_implicit_train_step(model, optimizer, betas, mesh, *, axis: str
     return make_implicit_train_step(model, optimizer, betas, impl=impl, ema_mu=ema_mu,
                                     use_warm_start=use_warm_start, tol_schedule=tol_schedule,
                                     device=device, dropout=dropout, remat=remat,
-                                    axis=mesh_axis(mesh, axis))
+                                    axis=mesh_axis(mesh, axis), tier=tier)
 
 
 def make_sharded_implicit_train_sweep_step(model, optimizer, betas, mesh, *, sweep: int,
@@ -400,7 +402,7 @@ def make_sharded_video_train_step(model, optimizer, betas, mesh, *,
                                   data_axis: Optional[str] = "data",
                                   cp_axis: Optional[str] = None, impl: str = "module",
                                   ema_mu: Optional[float] = 0.999, mask=None, device="cuda",
-                                  dropout: str = "masks") -> Callable:
+                                  dropout: str = "masks", tier: str = "bf16x3") -> Callable:
     """Video training over a 1-D or 2-D mesh: ``step(state, batch, generator)
     → (state, metrics)`` with ``batch`` this rank's block
     (:func:`shard_windows`).  Windows shard over ``data_axis`` (gradients
@@ -418,7 +420,7 @@ def make_sharded_video_train_step(model, optimizer, betas, mesh, *,
     return make_video_train_step(
         model, optimizer, betas, impl=impl, ema_mu=ema_mu, mask=mask, device=device,
         dropout=dropout, data_axis=mesh_axis(mesh, data_axis) if data_axis else None,
-        cp_axis=mesh_axis(mesh, cp_axis) if cp_axis else None)
+        cp_axis=mesh_axis(mesh, cp_axis) if cp_axis else None, tier=tier)
 
 
 def make_sharded_video_eval_step(model, betas, seq, mesh, *, frames_total: int,

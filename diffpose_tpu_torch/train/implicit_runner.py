@@ -82,6 +82,14 @@ class ImplicitRunner(DiffposeRunner):
     # Training
     # ------------------------------------------------------------------
 
+    def train_tier(self) -> Optional[str]:
+        """The frame runner's, except that the implicit family trains its
+        stack on the kernels with ``--train_impl fused`` only (``plain``
+        trains the module, as the JAX runner's non-Pallas step does)."""
+        if not self.use_implicit:
+            return super().train_tier()
+        return self.kernel_precision if self.train_impl == "fused" else None
+
     def _build_train_step(self, steps_per_epoch: int):
         if not self.use_implicit:
             return super()._build_train_step(steps_per_epoch)
@@ -90,7 +98,7 @@ class ImplicitRunner(DiffposeRunner):
         imp = self.implicit
         kwargs = dict(impl="fused" if self.train_impl == "fused" else "module", ema_mu=ema_mu,
                       use_warm_start=imp.use_warm_start, tol_schedule=self._tol_schedule(),
-                      device=self.device, dropout=self.dropout_impl)
+                      device=self.device, dropout=self.dropout_impl, tier=self.kernel_precision)
         if self.mesh is not None:
             self._raw_step = make_sharded_implicit_train_step(
                 self.model_diff, optimizer, self.betas, self.mesh, **kwargs)

@@ -73,7 +73,7 @@ def make_implicit_train_step(model, optimizer, betas, *, impl: str = "module",
                              use_warm_start: bool = False,
                              tol_schedule: Optional[Tuple[float, float, int]] = None,
                              device="cuda", dropout: str = "masks", remat: bool = False,
-                             axis: Optional[MeshAxis] = None):
+                             axis: Optional[MeshAxis] = None, tier: str = "bf16x3"):
     """Build ``train_step(state, batch, generator, z0=None, z0_weight=None)
     → (state, metrics)`` for an :class:`~diffpose_tpu_torch.models.IGCN`.
 
@@ -90,7 +90,8 @@ def make_implicit_train_step(model, optimizer, betas, *, impl: str = "module",
     step.  ``tol_schedule=(init_tol, final_tol, decay_steps)``: the
     progressive tolerance, from ``state.step``.  ``remat`` (fused only):
     recompute each iteration's stack in the backward.  ``axis``: one rank of
-    a mesh (the module's docstring).
+    a mesh (the module's docstring).  ``tier`` (fused only): the kernel
+    pair's ``--kernel_precision``.
 
     ``metrics``: ``loss``, ``grad_norm``, ``fp_iterations``, ``fp_residual``
     (tensors on the device), plus ``fp_tolerance`` and ``fixed_point`` where
@@ -108,7 +109,7 @@ def make_implicit_train_step(model, optimizer, betas, *, impl: str = "module",
     draw = make_draw(betas, device, num_layers=model.num_layers, num_heads=model.num_heads,
                      hid_dim=model.hid_dim, dropout=dropout,
                      masks_dtype=torch.uint8 if fused else torch.float32, axis=axis)
-    forward = make_igcn_train_fn(model, dropout=dropout, remat=remat) if fused else None
+    forward = make_igcn_train_fn(model, dropout=dropout, remat=remat, tier=tier) if fused else None
 
     def apply(state: TrainState, draws: StepDraws, z0=None, z0_weight=None):
         if state.model is not model or state.optimizer is not optimizer:

@@ -45,6 +45,7 @@ from diffpose_tpu_torch.ops.fused_denoiser import (
 )
 from diffpose_tpu_torch.ops.fused_train import build_train_stack, fused_train_forward
 from diffpose_tpu_torch.ops.philox import philox_masks
+from diffpose_tpu_torch.ops.tf32 import PARITY_TIER
 from diffpose_tpu_torch.ops.train_ref import DropoutMasks, make_dropout_masks, train_forward
 from diffpose_tpu_torch.parallel.mesh import MeshAxis
 from diffpose_tpu_torch.parallel.sharding import all_reduce_mean_grads, fold_in, sum_over
@@ -110,7 +111,7 @@ def make_draw(betas, device: torch.device, *, num_layers: int, num_heads: int, h
 
 def make_train_step(model, optimizer, betas, *, impl: str = "fused",
                     ema_mu: Optional[float] = 0.999, device="cuda", dropout: str = "masks",
-                    axis: Optional[MeshAxis] = None):
+                    axis: Optional[MeshAxis] = None, tier: str = PARITY_TIER):
     """Build ``train_step(state, batch, generator) → (state, metrics)``.
 
     ``impl``: ``"fused"`` runs the denoiser's layers through the CUDA
@@ -129,6 +130,11 @@ def make_train_step(model, optimizer, betas, *, impl: str = "fused",
     (the global norm before the clip), scalar tensors on ``device``.
     ``axis``: the step runs on one rank of a mesh; gradients and loss are
     averaged over the axis before the clip (the module's docstring).
+    ``tier``: the train kernels' ``--kernel_precision``: ``"fused"`` launches
+    that tier's kernel pair; ``"plain"`` at a reduced tier runs the pair's
+    plain tier versions behind the same autograd function
+    (``build_train_stack(..., plain=True)``), not autograd of a rounded
+    forward, which would be another function.
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
@@ -143,7 +149,11 @@ def make_train_step(model, optimizer, betas, *, impl: str = "fused",
         raise ValueError(f"the model lies on {next(model.parameters()).device}, not on {device}")
     cfg = dict(num_layers=model.num_layers, num_heads=model.num_heads, hid_dim=model.hid_dim)
     basis = model.gconv_input.basis.detach().cpu().numpy()
-    stack_fn = build_train_stack(basis, **cfg, dropout=dropout) if impl == "fused" else None
+    stack_fn = None
+    if impl == "fused":
+        stack_fn = build_train_stack(basis, **cfg, dropout=dropout, tier=tier)
+    elif impl == "plain" and tier != PARITY_TIER:
+        stack_fn = build_train_stack(basis, **cfg, tier=tier, plain=True)
     draw = make_draw(betas, device, **cfg, dropout=dropout,
                      masks_dtype={"fused": torch.uint8, "plain": torch.float32}.get(impl),
                      axis=axis)
@@ -157,6 +167,8 @@ def make_train_step(model, optimizer, betas, *, impl: str = "fused",
         if impl == "fused":
             eps = fused_train_forward(model, draws.x_t, t, draws.seed if prng else draws.masks,
                                       stack_fn)
+        elif stack_fn is not None:
+            eps = fused_train_forward(model, draws.x_t, t, draws.masks, stack_fn)
         elif impl == "plain":
             eps = train_forward(model, draws.x_t, t, draws.masks)
         else:
@@ -180,7 +192,7 @@ def make_train_step(model, optimizer, betas, *, impl: str = "fused",
 
 def make_train_sweep_step(model, optimizer, betas, *, sweep: int, impl: str = "fused",
                           ema_mu: Optional[float] = 0.999, device="cuda", dropout: str = "masks",
-                          base_step: Optional[Callable] = None):
+                          base_step: Optional[Callable] = None, tier: str = PARITY_TIER):
     """Device-resident-data training: ``sweep`` optimizer steps per call.
 
     The whole dataset lies on the device; the host sends one ``[sweep, B]``
@@ -193,7 +205,7 @@ def make_train_sweep_step(model, optimizer, betas, *, sweep: int, impl: str = "f
     [N, J, K, 5]}`` on the device.
     """
     base = base_step or make_train_step(model, optimizer, betas, impl=impl, ema_mu=ema_mu,
-                                        device=device, dropout=dropout)
+                                        device=device, dropout=dropout, tier=tier)
 
     def sweep_step(state: TrainState, data: dict, idx: torch.Tensor, generator: torch.Generator):
         if idx.shape[0] != sweep:

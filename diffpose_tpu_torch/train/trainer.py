@@ -11,7 +11,7 @@ On the card the denoiser's training forward and backward
 (``train_impl="fused"``) and the eval forwards (``denoiser_impl="fused"``)
 are hand-written CUDA kernels; losses stay on the device and are read once
 an epoch; checkpoints are ``torch.save`` files with full resume.  What has
-no counterpart in this package yet raises and names its ROADMAP item.
+no counterpart in this package raises.
 
 ``mesh`` (a ``DeviceMesh`` from ``parallel.make_mesh``, this process one of
 its ranks): the train loader is keyed by the rank's ``data`` coordinate and
@@ -70,27 +70,23 @@ F32_KERNEL_GRADE = PARITY_TIER
 MATMUL_PRECISIONS = ("float32", "BF16_BF16_F32_X3", "default")
 
 
-def check_precisions(kernel_precision: str, matmul_precisions, train_impl: str):
+def check_precisions(kernel_precision: str, matmul_precisions):
     """The runners' checks of ``--kernel_precision`` and ``--matmul_precision``:
-    every value the JAX runners take; a reduced kernel tier with the fused or
-    plain train stack (rows 5-8, no reduced tier yet) raises."""
+    every value the JAX runners take."""
     check_tier(kernel_precision)
     for value in matmul_precisions:
         if value not in MATMUL_PRECISIONS:
             raise ValueError(f"matmul precision must be one of {MATMUL_PRECISIONS}, got {value!r}")
-    if kernel_precision != PARITY_TIER and train_impl in ("fused", "plain"):
-        raise NotImplementedError(
-            f"--kernel_precision {kernel_precision} with --train_impl {train_impl}: the train "
-            "kernels (rows 5-8) and their plain stack have no reduced tier yet (ROADMAP item "
-            "14b); train with --train_impl module, or at --kernel_precision bf16x3")
 
 
-def warn_default_tier(kernel_precision: str):
-    """The JAX runner's warning for the default tier on a training run
-    (``diffpose_tpu/train/trainer.py:307-311``)."""
-    if kernel_precision == "default":
-        logger.warning("--kernel_precision default: single-pass (1xTF32) kernel products are "
-                       "not parity-grade (use bf16x3 for reference-accuracy training and eval)")
+def warn_default_tier(train_tier: str):
+    """The JAX runner's warning for the default tier on the train kernels
+    (``diffpose_tpu/train/trainer.py:307-311``), given the tier the train
+    stack runs at (None: no train stack)."""
+    if train_tier == "default":
+        logger.warning("--kernel_precision default on the TRAIN kernels: single-pass (1xTF32) "
+                       "products' gradients are not parity-grade (use bf16x3 for "
+                       "reference-accuracy training)")
 
 
 @contextlib.contextmanager
@@ -167,8 +163,7 @@ class DiffposeRunner:
             raise ValueError(f"train_impl must be one of {TRAIN_IMPLS}, got {train_impl!r}")
         if dropout_impl not in DROPOUT_IMPLS:
             raise ValueError(f"dropout_impl must be one of {DROPOUT_IMPLS}, got {dropout_impl!r}")
-        check_precisions(kernel_precision, (eval_matmul_precision, train_matmul_precision),
-                         train_impl)
+        check_precisions(kernel_precision, (eval_matmul_precision, train_matmul_precision))
         self.config = config
         self.seed = seed
         self.skip_type = skip_type
@@ -342,13 +337,19 @@ class DiffposeRunner:
         optimizer = self._optimizer(steps_per_epoch)
         ema_mu = self.config.model.ema_rate if self.config.model.ema else None
         dropout = self.dropout_impl if self.train_impl != "module" else "masks"
-        kwargs = dict(impl=self.train_impl, ema_mu=ema_mu, device=self.device, dropout=dropout)
+        kwargs = dict(impl=self.train_impl, ema_mu=ema_mu, device=self.device, dropout=dropout,
+                      tier=self.kernel_precision)
         if self.mesh is not None:
             step_fn = make_sharded_train_step(self.model_diff, optimizer, self.betas, self.mesh,
                                               **kwargs)
         else:
             step_fn = make_train_step(self.model_diff, optimizer, self.betas, **kwargs)
         return optimizer, step_fn
+
+    def train_tier(self) -> Optional[str]:
+        """The tier the train kernels (or their plain stack) run at, or None
+        where the train step runs no such stack (``--train_impl module``)."""
+        return self.kernel_precision if self.train_impl in ("fused", "plain") else None
 
     def _supports_train_sweep(self) -> bool:
         """Whether ``--train_sweep`` can replace this runner's train step."""
@@ -377,7 +378,7 @@ class DiffposeRunner:
     @under_matmul_grade("train")
     def train(self, resume: bool = False) -> Dict[str, list]:
         assert self.model_diff is not None and self.train_data is not None
-        warn_default_tier(self.kernel_precision)
+        warn_default_tier(self.train_tier())
         loader = self._make_loader(self.train_data, shuffle=True)
         steps_per_epoch = len(loader)
         optimizer, step_fn = self._build_train_step(steps_per_epoch)

@@ -127,8 +127,7 @@ class VideoRunner:
                                      ("dropout_impl", dropout_impl, DROPOUT_IMPLS)):
             if value not in allowed:
                 raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
-        check_precisions(kernel_precision, (eval_matmul_precision, train_matmul_precision),
-                         train_impl)
+        check_precisions(kernel_precision, (eval_matmul_precision, train_matmul_precision))
         self.config = config
         self.video_cfg = config.video or VideoConfig()
         self.seed = seed
@@ -234,6 +233,16 @@ class VideoRunner:
         return BatchLoader(data, batch_size=self.config.training.batch_size, shuffle=shuffle,
                            seed=self.seed, process_count=parts[0], process_index=parts[1])
 
+    def train_tier(self) -> Optional[str]:
+        """The tier the spatial blocks' train kernels (or their plain stack)
+        run at, or None without such a stack (``--train_impl module``): the
+        kernel tier, except that ``default`` trains them at the parity grade,
+        as ``diffpose_tpu/train/video_runner.py:229`` passes
+        ``kernel_precision or "bf16x3"``."""
+        if self.train_impl not in ("fused", "plain"):
+            return None
+        return F32_KERNEL_GRADE if self.kernel_precision == "default" else self.kernel_precision
+
     def _build_train_step(self, steps_per_epoch: int):
         """The optimizer (the state's own, where a state with one exists) and
         the train step over it."""
@@ -248,7 +257,7 @@ class VideoRunner:
         ema_mu = self.config.model.ema_rate if self.config.model.ema else None
         dropout = self.dropout_impl if self.train_impl != "module" else "masks"
         kwargs = dict(impl=self.train_impl, ema_mu=ema_mu, mask=self.mask, device=self.device,
-                      dropout=dropout)
+                      dropout=dropout, tier=self.train_tier() or F32_KERNEL_GRADE)
         if self.mesh is not None:
             step_fn = make_sharded_video_train_step(self.model, optimizer, self.betas, self.mesh,
                                                     data_axis=self.data_axis,
@@ -260,7 +269,7 @@ class VideoRunner:
     @under_matmul_grade("train")
     def train(self, resume: bool = False) -> Dict[str, list]:
         assert self.model is not None and self.train_data is not None
-        warn_default_tier(self.kernel_precision)
+        warn_default_tier(self.train_tier())
         loader = self._make_loader(self.train_data, shuffle=True)
         steps_per_epoch = len(loader)
         optimizer, step_fn = self._build_train_step(steps_per_epoch)

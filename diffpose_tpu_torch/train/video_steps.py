@@ -92,7 +92,7 @@ def make_video_train_step(model, optimizer, betas, *, impl: str = "fused",
                           ema_mu: Optional[float] = 0.999, mask=None,
                           data_axis: Optional[MeshAxis] = None,
                           cp_axis: Optional[MeshAxis] = None, device="cuda",
-                          dropout: str = "masks"):
+                          dropout: str = "masks", tier: str = "bf16x3"):
     """Build ``train_step(state, batch, generator) → (state, metrics)``.
 
     ``impl="module"``: ``SpatioTemporalDiff.train()`` under autograd, its
@@ -105,6 +105,9 @@ def make_video_train_step(model, optimizer, betas, *, impl: str = "fused",
     from ``seed + i·1000003``).  The temporal masks come from the generator.
     ``batch``: ``poses_3d [B, F, J, 3]``, ``poses_2d_gmm [B, F, J, K, 5]``.
     ``metrics``: ``loss`` and ``grad_norm``, scalar tensors on ``device``.
+    ``tier``: the kernel pair's ``--kernel_precision`` (``"plain"`` at a
+    reduced tier: the pair's plain tier versions behind the same autograd
+    function, ``make_video_train_fn(..., plain=True)``).
 
     ``data_axis`` / ``cp_axis``: the step runs on one rank of a mesh, on its
     windows and, over ``cp_axis``, its frames of each (the model bound to the
@@ -141,8 +144,10 @@ def make_video_train_step(model, optimizer, betas, *, impl: str = "fused",
     tables = q_sample_tables(betas, torch.float32, device)
     train_fn = None
     if impl != "module":
+        parity_plain = impl == "plain" and tier == "bf16x3"
         train_fn = make_video_train_fn(model, dropout=dropout, rates=rates,
-                                       stack_fn=plain_stack(rates) if impl == "plain" else None)
+                                       stack_fn=plain_stack(rates) if parity_plain else None,
+                                       tier=tier, plain=impl == "plain")
     masks_dtype = torch.uint8 if impl == "fused" else torch.float32
 
     def draw(batch: dict, generator: torch.Generator) -> VideoDraws:

@@ -134,15 +134,16 @@ def test_mesh_flags_raise(tmp_path, flag):
 
 def test_unported_tiers_fail_the_run_and_the_default_device_is_the_card(tmp_path, monkeypatch):
     """A reduced kernel tier evaluates (rows 1-2 at bf16, here their plain
-    versions), and fails the run beside the fused train stack, whose tier is
-    ROADMAP item 14b; no --device means the card."""
+    versions) and trains on the fused train stack (rows 5-8 at bf16, their
+    plain tier versions here); what fails the run is the card that is not
+    there: no --device means the card."""
     base = ["--config", GT, "--exp", str(tmp_path), "--doc", "t", "--ni",
             "--synthetic_frames", "32", "--batch_size", "32"]
     tier = base + ["--device", "cpu", "--kernel_precision", "bf16", "--denoiser_impl", "fused"]
     assert main_frame.main(tier + ["--matmul_precision", "default"]) == 0
     assert "MPJPE" in (tmp_path / "t" / "stdout.txt").read_text()
-    assert main_frame.main(tier + ["--train", "--train_impl", "fused", "--n_epochs", "1"]) == 1
-    assert "ROADMAP item 14b" in (tmp_path / "t" / "stdout.txt").read_text()
+    assert main_frame.main(tier + ["--train", "--train_impl", "fused", "--n_epochs", "1"]) == 0
+    assert (tmp_path / "t" / "ckpt_00000001.pth").exists()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert main_frame.main(base) == 1            # no --device: cuda, and there is none
     assert "device='cpu'" in (tmp_path / "t" / "stdout.txt").read_text()

@@ -237,6 +237,10 @@ def test_make_eval_fn_in_each_tier(tier):
 
 
 def test_the_runners_take_every_tier_and_refuse_the_fused_train_stack_at_a_reduced_one():
+    """Every tier and matmul grade with every eval forward and, since the
+    train kernels have their tiers, with --train_impl fused and plain: the
+    name is the one this test had while the train stack refused a reduced
+    tier; nothing refuses one now."""
     frame = load_config("configs/human36m_ipose.yml")
     video = load_config("configs/human36m_video.yml")
     video.video.frames, video.video.num_layers, video.training.batch_size = 5, 1, 2
@@ -248,8 +252,9 @@ def test_the_runners_take_every_tier_and_refuse_the_fused_train_stack_at_a_reduc
             VideoRunner(video, device="cpu", kernel_precision=tier, denoiser_impl="fused_full",
                         eval_matmul_precision=matmul)
         for runner, cfg in ((ImplicitRunner, frame), (VideoRunner, video)):
-            with pytest.raises(NotImplementedError, match="ROADMAP item 14b"):
-                runner(cfg, device="cpu", kernel_precision=tier, train_impl="fused")
+            for impl in ("fused", "plain"):
+                r = runner(cfg, device="cpu", kernel_precision=tier, train_impl=impl)
+                assert r.kernel_precision == tier and r.train_impl == impl
 
 
 def test_video_runner_evaluates_at_the_bf16_tier():

@@ -121,9 +121,9 @@ def test_second_evaluate_builds_nothing_and_is_deterministic():
 
 @pytest.mark.parametrize("variants,exc,match", [
     ([dict(mesh=object())], TypeError, "DeviceMesh"),
-    ([dict(kernel_precision="bf16", train_impl="fused"),
-      dict(kernel_precision="default", train_impl="plain")],
-     NotImplementedError, "ROADMAP item 14b"),
+    ([dict(kernel_precision="fp8", train_impl="fused"),
+      dict(kernel_precision="highest", train_impl="plain")],
+     ValueError, "kernel tier must be one of"),
     ([dict(train_matmul_precision="bf16"), dict(eval_matmul_precision="highest"),
       dict(kernel_precision="fp8")], ValueError, "must be one of"),
     ([dict(denoiser_impl="pallas_full"), dict(denoiser_impl="pallas_st")], ValueError,

@@ -78,9 +78,14 @@ def test_runner_refuses_what_has_no_counterpart_and_evaluates_twice_alike():
     config.video.frames, config.video.num_layers, config.training.batch_size = 5, 1, 2
     for kwargs, exc in ((dict(mesh=object()), TypeError),
                         (dict(denoiser_impl="pallas_full"), ValueError),
-                        (dict(kernel_precision="bf16", train_impl="fused"), NotImplementedError)):
+                        (dict(kernel_precision="fp8", train_impl="fused"), ValueError)):
         with pytest.raises(exc):
             VideoRunner(config, device="cpu", **kwargs)
+    # the reduced tiers train (the kernels at bf16; at default at the parity
+    # grade, as the JAX video runner does)
+    for tier, train_tier in (("bf16", "bf16"), ("default", "bf16x3")):
+        assert VideoRunner(config, device="cpu", kernel_precision=tier,
+                           train_impl="fused").train_tier() == train_tier
     # whole-window paths under a context axis (a world of one): refused, not replaced
     distributed_init(device="cpu")
     try:
