@@ -271,8 +271,8 @@ the utilities and the fast eval:
     at each tier (only tier kernels ran);
 34. the utilities on the card: ``device_memory_budget`` and
     ``suggest_batch_size(estimate_per_sample_bytes())`` beside the card's
-    name, ``MetricsTracker`` around 5 fused eval batches, ``trace_profile``
-    around one, whose Chrome trace must name the row-1 kernel;
+    name, ``trace_profile`` around one fused eval batch inside a program
+    span, whose Chrome trace must name the span and the row-1 kernel;
 35. the BigW fast eval (``ops/fast_eval.py``) at B=1024 against the
     module forward, f32 within 3e-5 (``tests/test_fast_eval.py``) and in
     bf16, timed beside row 1.
@@ -3042,9 +3042,9 @@ def tier_video_phases(dev, basis, gen, g, card):
 
 def utils_phases(dev, basis, wp, wd, g, card):
     """Phase 34: the utilities on the card: the memory budget and the batch
-    it suggests, MetricsTracker around fused eval batches, trace_profile
-    around one, whose trace must name the row-1 kernel."""
-    from diffpose_tpu_torch.utils import MetricsTracker, trace_profile
+    it suggests, trace_profile around a fused eval batch inside a span,
+    whose trace must name the span and the row-1 kernel."""
+    from diffpose_tpu_torch.utils import span, trace_profile
     from diffpose_tpu_torch.utils.memory import (device_memory_budget, estimate_per_sample_bytes,
                                                  suggest_batch_size)
 
@@ -3055,34 +3055,23 @@ def utils_phases(dev, basis, wp, wd, g, card):
     check(budget > 0 and batch % 8 == 0 and 8 <= batch <= 65536, "memory utilities")
     fn = make_eval_fn(basis, seq=SEQ, betas=BETAS, test_times=1)
     x2d = torch.randn((BATCH, 17, 2), generator=g, device=dev)
-    tracker = MetricsTracker()
     with torch.no_grad():
         fn(wp, wd, x2d)
-        for _ in range(5):
-            tracker.start()
-            out = fn(wp, wd, x2d)
-            tracker.stop(out)              # synchronises on the output
-            tracker.record_memory(dev)
-        tracker.diffusion_step_count = len(SEQ)
-        s = tracker.summary(frames_per_call=BATCH)
         path = Path(tempfile.mkdtemp(prefix="chip_smoke_utils_"))
-        tracker.write(str(path / "performance_metrics.txt"), frames_per_call=BATCH)
-        print(f"MetricsTracker over 5 fused eval batches (B={BATCH}, tt=1): {s}  [{card}]")
-        check(s["frames_per_second"] > 0 and s["memory_mb_peak"] > 0
-              and "Performance Metrics" in (path / "performance_metrics.txt").read_text(),
-              f"MetricsTracker summary {s}")
         sees = profiler_sees_device()
         found = False
         for attempt in range(3 if sees else 1):   # the profiler now and then loses a kernel's record
             with trace_profile(str(path / "trace")):
-                fn(wp, wd, x2d)
+                with span("chip_smoke.eval"):
+                    fn(wp, wd, x2d)
             names = {e.get("name", "") for e in
                      json.loads((path / "trace" / "trace.json").read_text())["traceEvents"]}
             found = any("net_forward_kernel" in n for n in names)
             if found:
                 break
         print(f"trace_profile: {len(names)} event names, the row-1 kernel named: {found} "
-              f"(attempt {attempt + 1})")
+              f"(attempt {attempt + 1}), the span named: {'chip_smoke.eval' in names}")
+        check("chip_smoke.eval" in names, "trace_profile's trace names no program span")
         if sees:
             check(found, "trace_profile's trace names no net_forward_kernel")
         else:   # the profiler lost kernel records in this process: only the host side is held
@@ -3090,7 +3079,7 @@ def utils_phases(dev, basis, wp, wd, g, card):
                   "kernel names not checked, its host events are")
             check(any("aten::" in n for n in names), "trace_profile's trace holds no host event")
     shutil.rmtree(path)
-    return dict(budget_bytes=budget, suggested_batch=batch, tracker=s)
+    return dict(budget_bytes=budget, suggested_batch=batch)
 
 
 def fast_eval_phases(dev, pose, diff, wd, g, card):

@@ -25,6 +25,7 @@ import torch
 
 from diffpose_tpu_torch import native
 from diffpose_tpu_torch.data.pipeline import FlatDataset
+from diffpose_tpu_torch.utils.profiling import span
 
 
 def prefetch_to_device(iterator, size: int = 2, device="cuda"):
@@ -109,38 +110,39 @@ class BatchLoader:
 
         num_batches = len(self)
         for b in range(num_batches):
-            start = b * self.batch_size
-            idx_global = np.arange(start, start + self.batch_size)
-            valid = idx_global < n
-            idx_global = idx_global % n  # wrap-pad the tail
-            idx = perm[idx_global]
-            # Contiguous per-host slice of the global batch.
-            lo = self.process_index * self.per_host_batch
-            hi = lo + self.per_host_batch
-            sel = idx[lo:hi]
-            # Per-sample RNG ids: deterministic in (loader seed, epoch,
-            # dataset index) — they make on-device randomness (GMM kernel
-            # draw) independent of batch/shard layout.
-            seeds = (
-                np.asarray(sel, np.int64) * 2654435761
-                + np.int64(epoch) * 97531
-                + np.int64(self.seed) * 1000003
-            ).astype(np.uint32).astype(np.int32)
-            # Batch assembly via the native multithreaded multi-array
-            # row-gather when the library is available (one parallel region
-            # for both big arrays; numpy fancy-indexing fallback).
-            p3, p2 = native.gather_rows_multi(
-                [self.dataset.poses_3d, self.dataset.poses_2d_gmm], sel
-            )
-            batch = {
-                "poses_3d": p3,
-                "poses_2d_gmm": p2,
-                "action_ids": self.dataset.action_ids[sel],
-                "valid": valid[lo:hi],
-                "seeds": seeds,
-            }
-            # Video window datasets carry no per-sample camera params.
-            cam = getattr(self.dataset, "camera_para", None)
-            if cam is not None:
-                batch["camera_para"] = cam[sel]
+            with span("loader.batch"):      # closed before the yield
+                start = b * self.batch_size
+                idx_global = np.arange(start, start + self.batch_size)
+                valid = idx_global < n
+                idx_global = idx_global % n  # wrap-pad the tail
+                idx = perm[idx_global]
+                # Contiguous per-host slice of the global batch.
+                lo = self.process_index * self.per_host_batch
+                hi = lo + self.per_host_batch
+                sel = idx[lo:hi]
+                # Per-sample RNG ids: deterministic in (loader seed, epoch,
+                # dataset index) — they make on-device randomness (GMM kernel
+                # draw) independent of batch/shard layout.
+                seeds = (
+                    np.asarray(sel, np.int64) * 2654435761
+                    + np.int64(epoch) * 97531
+                    + np.int64(self.seed) * 1000003
+                ).astype(np.uint32).astype(np.int32)
+                # Batch assembly via the native multithreaded multi-array
+                # row-gather when the library is available (one parallel region
+                # for both big arrays; numpy fancy-indexing fallback).
+                p3, p2 = native.gather_rows_multi(
+                    [self.dataset.poses_3d, self.dataset.poses_2d_gmm], sel
+                )
+                batch = {
+                    "poses_3d": p3,
+                    "poses_2d_gmm": p2,
+                    "action_ids": self.dataset.action_ids[sel],
+                    "valid": valid[lo:hi],
+                    "seeds": seeds,
+                }
+                # Video window datasets carry no per-sample camera params.
+                cam = getattr(self.dataset, "camera_para", None)
+                if cam is not None:
+                    batch["camera_para"] = cam[sel]
             yield batch

@@ -19,6 +19,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from diffpose_tpu_torch.utils.profiling import span
+
 
 def make_skip_sequence(
     skip_type: str, test_timesteps: int, test_num_diffusion_timesteps: int
@@ -117,15 +119,16 @@ def ddim_sample(
 
     x0_preds = []
     for i, row in enumerate(consts):
-        t, s_at, s_1m_at, s_at_next, c1_t, c2_t = (float(c) for c in row)
-        t_vec = torch.full((x.shape[0],), t, dtype=x.dtype, device=x.device)
-        et = denoise_fn(x, t_vec)
-        x0_t = (x - et * s_1m_at) / s_at
-        x_next = s_at_next * x0_t + c2_t * et
-        if stochastic:
-            z = noise[i] if noise is not None else torch.randn(
-                x.shape, generator=generator, dtype=x.dtype, device=x.device)
-            x_next = x_next + c1_t * z
+        with span("diffusion.step"):
+            t, s_at, s_1m_at, s_at_next, c1_t, c2_t = (float(c) for c in row)
+            t_vec = torch.full((x.shape[0],), t, dtype=x.dtype, device=x.device)
+            et = denoise_fn(x, t_vec)
+            x0_t = (x - et * s_1m_at) / s_at
+            x_next = s_at_next * x0_t + c2_t * et
+            if stochastic:
+                z = noise[i] if noise is not None else torch.randn(
+                    x.shape, generator=generator, dtype=x.dtype, device=x.device)
+                x_next = x_next + c1_t * z
         if return_x0_preds:
             x0_preds.append(x0_t)
         x = x_next

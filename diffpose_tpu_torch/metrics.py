@@ -18,6 +18,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from diffpose_tpu_torch.utils.profiling import span
+
 Tensor = torch.Tensor
 
 H36M_ACTIONS: Tuple[str, ...] = (
@@ -371,22 +373,23 @@ class ActionErrorAccumulator:
         """Fold one batch's per-sample (or per-sample-per-frame, when
         ``frames_per_item > 1``) errors; padded rows are dropped via the
         batch's ``valid`` mask, every frame inherits its window's action."""
-        valid = _host(batch["valid"]).astype(bool)
-        ids = _host(batch["action_ids"])[valid]
-        p1_v = _host(p1_b)[valid].reshape(-1)
-        p2_v = _host(p2_b)[valid].reshape(-1)
-        if frames_per_item > 1:
-            ids = np.repeat(ids, frames_per_item)
-        names = [self.actions[i] for i in ids]
-        self.frames += len(p1_v)
-        if names:
-            accumulate_action_errors(
-                self.error_sum, p1_v, p2_v, names,
-                num_joints=self.num_joints,
-                reference_compat=self.reference_compat,
-            )
-            self.p1_meter.update(float(p1_v.mean()) * 1000.0, len(names))
-            self.p2_meter.update(float(p2_v.mean()) * 1000.0, len(names))
+        with span("metrics.accumulate"):
+            valid = _host(batch["valid"]).astype(bool)
+            ids = _host(batch["action_ids"])[valid]
+            p1_v = _host(p1_b)[valid].reshape(-1)
+            p2_v = _host(p2_b)[valid].reshape(-1)
+            if frames_per_item > 1:
+                ids = np.repeat(ids, frames_per_item)
+            names = [self.actions[i] for i in ids]
+            self.frames += len(p1_v)
+            if names:
+                accumulate_action_errors(
+                    self.error_sum, p1_v, p2_v, names,
+                    num_joints=self.num_joints,
+                    reference_compat=self.reference_compat,
+                )
+                self.p1_meter.update(float(p1_v.mean()) * 1000.0, len(names))
+                self.p2_meter.update(float(p2_v.mean()) * 1000.0, len(names))
 
     def summarize(self, print_table: bool = False) -> Tuple[float, float]:
         return summarize_action_errors(self.error_sum, print_table=print_table)

@@ -50,6 +50,7 @@ from diffpose_tpu_torch.ops.train_ref import DropoutMasks, make_dropout_masks, t
 from diffpose_tpu_torch.parallel.mesh import MeshAxis
 from diffpose_tpu_torch.parallel.sharding import all_reduce_mean_grads, fold_in, sum_over
 from diffpose_tpu_torch.train.state import TrainState
+from diffpose_tpu_torch.utils.profiling import span
 
 IMPLS = ("fused", "plain", "module")
 DROPOUTS = ("masks", "prng")
@@ -300,13 +301,20 @@ def make_eval_step(diff_model, pose_model, betas, seq: Sequence[int], *, test_ti
     @torch.no_grad()
     def eval_step(state, pose, batch: dict, generator: Optional[torch.Generator] = None,
                   prepared=None):
+        with span("step.eval"):
+            return step_body(state, pose, batch, generator, prepared)
+
+    def step_body(state, pose, batch, generator, prepared):
         if state.model is not diff_model:
             raise ValueError("the state holds another model than the step")
         pose = pose_model if pose is None else pose
-        gmm = torch.as_tensor(batch["poses_2d_gmm"], device=device)
-        poses_3d = torch.as_tensor(batch["poses_3d"], device=device)
-        seeds = torch.as_tensor(batch["seeds"], device=device)
-        _, noise_scale, input_2d = sample_gmm_batch_per_sample(gmm_base_seed, seeds, gmm, poses_3d)
+        with span("step.inputs"):
+            gmm = torch.as_tensor(batch["poses_2d_gmm"], device=device)
+            poses_3d = torch.as_tensor(batch["poses_3d"], device=device)
+            seeds = torch.as_tensor(batch["seeds"], device=device)
+        with span("step.gmm"):
+            _, noise_scale, input_2d = sample_gmm_batch_per_sample(gmm_base_seed, seeds, gmm,
+                                                                   poses_3d)
         input_2d = input_2d.contiguous()      # a slice of the chosen kernels; the wrappers take no strides
 
         if impl == "fused":
@@ -342,7 +350,9 @@ def make_eval_step(diff_model, pose_model, betas, seq: Sequence[int], *, test_ti
         pred_xyz = out[..., 2:]
         pred_xyz = pred_xyz - pred_xyz[:, :1, :]
         target = poses_3d - poses_3d[:, :1, :]
-        return mpjpe_per_sample(pred_xyz, target), p_mpjpe_per_sample(pred_xyz, target), pred_xyz
+        with span("metrics.errors"):
+            return (mpjpe_per_sample(pred_xyz, target), p_mpjpe_per_sample(pred_xyz, target),
+                    pred_xyz)
 
     eval_step.prepare = prepare
     return eval_step

@@ -57,6 +57,7 @@ from diffpose_tpu_torch.train.checkpoint import Checkpointer
 from diffpose_tpu_torch.train.optim import make_optimizer
 from diffpose_tpu_torch.train.state import TrainState
 from diffpose_tpu_torch.train.steps import make_eval_step, make_train_step, make_train_sweep_step
+from diffpose_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -539,7 +540,8 @@ class DiffposeRunner:
         )
         self.inference_times = []
         eval_fn = self._get_eval_fn(seq)
-        prepared = eval_fn.prepare(state, self.pose_params)
+        with span("runner.prepare"):
+            prepared = eval_fn.prepare(state, self.pose_params)
         sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
 
         # `eval_sweep` batches go to the device before their errors are read
@@ -551,15 +553,18 @@ class DiffposeRunner:
         def flush():
             if not group:
                 return
-            t0 = time.time()
-            outs = [eval_fn(state, self.pose_params, self._local_batch(b), self.generator,
-                            prepared=prepared) for b in group]
-            sync()
-            results = [self._gathered(p1, p2) for p1, p2, _ in outs]
-            self.inference_times.append(time.time() - t0)
-            for b, (p1_b, p2_b) in zip(group, results):
-                acc.add(b, p1_b, p2_b)
-            group.clear()
+            with span("runner.batch"):
+                t0 = time.time()
+                outs = [eval_fn(state, self.pose_params, self._local_batch(b), self.generator,
+                                prepared=prepared) for b in group]
+                with span("runner.sync"):
+                    sync()
+                with span("runner.readback"):
+                    results = [self._gathered(p1, p2) for p1, p2, _ in outs]
+                self.inference_times.append(time.time() - t0)
+                for b, (p1_b, p2_b) in zip(group, results):
+                    acc.add(b, p1_b, p2_b)
+                group.clear()
 
         for batch in all_batches:
             group.append(batch)

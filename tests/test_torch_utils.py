@@ -1,10 +1,10 @@
 """The port's utilities (``diffpose_tpu_torch/utils``) against the JAX
-package's (``diffpose_tpu/utils``): the memory-aware batch size, the metrics
-tracker and the profiler trace, the pose animations (gif, MJPEG-AVI without
-ffmpeg; mp4 and ``read_video`` of an mp4 where ffmpeg is installed), as
-``tests/test_memory_util.py`` and ``tests/test_utils.py`` hold the JAX ones.
-On the CPU the tracker's synchronisation and memory reads are no-ops; the
-card's reads run in chip_smoke.py phase 34."""
+package's (``diffpose_tpu/utils``): the memory-aware batch size, the
+profiler trace with a program span in it, the pose animations (gif,
+MJPEG-AVI without ffmpeg; mp4 and ``read_video`` of an mp4 where ffmpeg is
+installed), as ``tests/test_memory_util.py`` and ``tests/test_utils.py``
+hold the JAX ones.  The card's memory reads and trace run in chip_smoke.py
+phase 34; the spans themselves in ``tests/test_torch_tracing.py``."""
 
 import json
 import os
@@ -17,7 +17,7 @@ import torch
 
 from diffpose_tpu.utils import memory as jax_memory
 from diffpose_tpu_torch.skeleton import Skeleton
-from diffpose_tpu_torch.utils import MetricsTracker, trace_profile
+from diffpose_tpu_torch.utils import span, trace_profile
 from diffpose_tpu_torch.utils.memory import (
     DEFAULT_LIMIT,
     device_memory_budget,
@@ -59,31 +59,17 @@ def test_suggest_batch_size_bounds_and_the_jax_functions():
         jax_memory.suggest_batch_size(per_sample, fixed_bytes=2 ** 30)
 
 
-def test_metrics_tracker_summary(tmp_path):
-    tracker = MetricsTracker()
-    for _ in range(3):
-        with tracker.time_block(torch.ones(4)):
-            _ = (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
-    tracker.start()
-    tracker.stop((torch.ones(2), {"x": torch.zeros(1)}))
-    tracker.record_memory("cpu")
-    tracker.diffusion_step_count = 2
-    tracker.fp_iteration_counts += [3, 5]
-    s = tracker.summary(frames_per_call=64)
-    assert len(tracker.inference_times) == 4
-    assert s["time_total"] > 0 and s["frames_per_second"] > 0
-    assert s["diffusion_steps"] == 2 and s["fp_iterations_mean"] == 4
-    out = tmp_path / "perf.txt"
-    tracker.write(str(out), frames_per_call=64)
-    text = out.read_text()
-    assert "Performance Metrics" in text and "Times:" in text and "Memory:" in text
-
-
 def test_trace_profile_writes_a_chrome_trace(tmp_path):
+    """An operator's trace: a span opened inside ``trace_profile`` is in the
+    exported Chrome trace, around the operators it holds."""
     with trace_profile(str(tmp_path / "trace")):
-        torch.ones(32, 32) @ torch.ones(32, 32)
-    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
-    assert any("mm" in e.get("name", "") for e in trace["traceEvents"])
+        with span("operator.block"):
+            torch.ones(32, 32) @ torch.ones(32, 32)
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    assert any("mm" in e.get("name", "") for e in trace)
+    (block,) = [e for e in trace if e.get("name") == "operator.block"]
+    (mm,) = [e for e in trace if e.get("name") == "aten::mm"]
+    assert block["ts"] <= mm["ts"] and mm["ts"] + mm["dur"] <= block["ts"] + block["dur"]
 
 
 def test_render_animation_gif(tmp_path):
