@@ -277,6 +277,22 @@ the utilities and the fast eval:
     module forward, f32 within 3e-5 (``tests/test_fast_eval.py``) and in
     bf16, timed beside row 1.
 
+The per-sample P-MPJPE kernel (``ops/fused_metrics.py``, built in phase 1;
+phase 10 also counts its launches, one an eval batch):
+
+38. its registers, shared memory and spills (none); the kernel against its
+    plain version (``metrics.py:p_mpjpe_plain``) and the float64 SVD at
+    N x J = 1024 x 17, 1296 x 17, 512 x 17, 1 x 17, 33 x 17 and 1024 x 21
+    (similarities of the synthetic skeleton's poses with joint noise, and a
+    sample equal to its target, a mirrored one and a planar near-collinear
+    one) and on the seeded eval's predictions at tt=5: the 99th percentile
+    of |kernel - plain| within 1e-4 mm and its largest within 0.05 mm (one
+    algorithm, the sums in another order), the 99th percentile against the
+    SVD within 0.005 mm (the benchmark's limit), the near-collinear sample
+    printed, not held; one launch a call; at B=1024 its time by CUDA
+    events and by the device beside its bound, the plain version's, and the
+    host's time a call of P1 + P2.
+
 Each family's wall seconds are printed.
 
 The line before the last holds the kernels' JSON record, the last line
@@ -307,7 +323,7 @@ from diffpose_tpu_torch.data.synthetic import make_synthetic_dataset
 from diffpose_tpu_torch.data.video import synthetic_video_dataset
 from diffpose_tpu_torch.diffusion import get_beta_schedule
 from diffpose_tpu_torch.graph import GAN_EDGES, H36M_EDGES, cheb_basis_from_edges
-from diffpose_tpu_torch.metrics import p_mpjpe_per_sample
+from diffpose_tpu_torch.metrics import mpjpe_per_sample, p_mpjpe_per_sample, p_mpjpe_plain
 from diffpose_tpu_torch.models import IGCN, GCNDiff, GCNPose, GraFormer
 from diffpose_tpu_torch.models.igcn import bn_eval, bn_state
 from diffpose_tpu_torch.models.layers import ChebGraphConv
@@ -331,6 +347,7 @@ from diffpose_tpu_torch.ops.fused_denoiser import (
 from diffpose_tpu_torch.ops import fused_cheb as fc
 from diffpose_tpu_torch.ops import fused_train as ft
 from diffpose_tpu_torch.ops.fused_graformer import make_graformer_fn
+from diffpose_tpu_torch.ops.fused_metrics import fused_p_mpjpe
 from diffpose_tpu_torch.probes import (ProfilerBlind, ablate, batched_dot, device_clock, device_ms,
                                        profiled, profiler_sees_device, tf32_gemm, time_ms,
                                        video_phases)
@@ -1022,7 +1039,8 @@ def prng_phases(dev, diff, g, ctx, card):
 
 def reset_launch_counts():
     for fn in (fused_lifter, fused_denoiser, fused_backbone, ft.stack_fwd, ft.stack_bwd,
-               ft.stack_fwd_prng, ft.stack_bwd_prng, fused_temporal_layer, fused_st_layer):
+               ft.stack_fwd_prng, ft.stack_bwd_prng, fused_temporal_layer, fused_st_layer,
+               fused_p_mpjpe):
         fn.launches = 0
     for fn in (*TIER_WRAPPERS.values(), *TRAIN_TIER_WRAPPERS.values()):
         fn.tier_launches = {t: 0 for t in TIERS}
@@ -1067,7 +1085,8 @@ def logged_errors(stdout_txt: Path):
 def cli_phases(card):
     """Phases 10-11: the port's command line, in process, at full width:
     train 2 epochs, resume for a third, evaluate the checkpoint; then the
-    runner's own times.  Returns the launch counts of the training run."""
+    runner's own times.  Returns the launch counts of the training run,
+    with the eval-only run's P-MPJPE launches under ``p_mpjpe``."""
     from diffpose_tpu_torch.cli import main_frame
     from diffpose_tpu_torch.cli.common import setup_experiment
     from diffpose_tpu_torch.train.trainer import DiffposeRunner
@@ -1089,8 +1108,10 @@ def cli_phases(card):
             "fwd": 0, "bwd": 0, "fwd_prng": 2 * steps_per_epoch, "bwd_prng": 2 * steps_per_epoch,
             "temporal": 0, "st": 0}
     print(f"main path (CLI: 2 epochs of {steps_per_epoch} steps, {eval_batches} eval batches each) "
-          f"launches: {counts}")
+          f"launches: {counts}, P-MPJPE {fused_p_mpjpe.launches}")
     check(counts == want, f"CLI training run launches {counts}, expected {want}")
+    check(fused_p_mpjpe.launches == 2 * eval_batches,
+          f"CLI training run: {fused_p_mpjpe.launches} P-MPJPE launches, expected {2 * eval_batches}")
     check(main_frame.main(train + ["--n_epochs", "3", "--resume"]) == 0, "the CLI resume failed")
     log = (run / "stdout.txt").read_text()
     check(f"resumed from step {2 * steps_per_epoch} (epoch 2)" in log, "the resume was not logged")
@@ -1115,6 +1136,9 @@ def cli_phases(card):
     e_counts = launch_counts()
     check(e_counts == dict(want, lifter=eval_batches, denoiser=len(SEQ) * eval_batches,
                            fwd_prng=0, bwd_prng=0), f"CLI eval-only launches {e_counts}")
+    check(fused_p_mpjpe.launches == eval_batches,
+          f"CLI eval-only: {fused_p_mpjpe.launches} P-MPJPE launches, expected {eval_batches}")
+    counts = dict(counts, p_mpjpe=fused_p_mpjpe.launches)
     trained, alone = logged_errors(run / "stdout.txt")[-1], logged_errors(exp / "evalonly" / "stdout.txt")[-1]
     print(f"eval-only from the checkpoint: P1/P2 {alone} mm, the training run's last epoch {trained} mm")
     check(max(abs(a - b) for a, b in zip(trained, alone)) <= 1e-3,
@@ -3373,6 +3397,140 @@ def tier_train_step_phases(dev, basis, diff, gen, g, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The per-sample P-MPJPE kernel (phase 38)
+# ---------------------------------------------------------------------------
+
+# Phase 38's (N, J): the frame eval batch, the video eval's 16 windows of 81
+# frames, the implicit eval batch, one sample, a ragged 33, 21 joints.
+METRIC_SHAPES = ((BATCH, 17), (16 * 81, 17), (512, 17), (1, 17), (33, 17), (BATCH, 21))
+# The kernel against its plain version: one algorithm, its sums in another order.
+TOL_P2_Q99_MM, TOL_P2_MAX_MM = 1e-4, 0.05
+# The kernel against the float64 SVD: portbench's limit on p2_gap_q99_mm.
+TOL_P2_SVD_Q99_MM = 0.005
+
+
+def procrustes_poses(n: int, j: int, g, dev, seed: int):
+    """``pred``, ``target`` [n, j, 3] float32 in metres on ``dev``: targets the
+    synthetic skeleton's poses (17 joints) or N(0, 0.25 m) points, each
+    prediction a random similarity of its target (scale 0.8-1.25, a proper
+    rotation, a shift) with N(0, σ) joint noise, σ 5-100 mm.  Where n >= 33 the
+    last three rows are degenerate: pred == target, a mirrored target (det H
+    < 0), and a planar near-collinear pair (points 1 mm off a 1 m line: a
+    near-tie of λ_max)."""
+    if j == 17:
+        target = torch.as_tensor(make_synthetic_dataset(n, seed=seed).poses_3d, device=dev)
+    else:
+        target = 0.25 * torch.randn((n, j, 3), generator=g, device=dev)
+    rot, tri = torch.linalg.qr(torch.randn((n, 3, 3), generator=g, device=dev))
+    rot = rot * torch.sign(torch.diagonal(tri, dim1=-2, dim2=-1))[:, None, :]
+    rot[torch.linalg.det(rot) < 0, :, 0] *= -1
+    scale = 0.8 + 0.45 * torch.rand((n, 1, 1), generator=g, device=dev)
+    sigma = 0.005 + 0.095 * torch.rand((n, 1, 1), generator=g, device=dev)
+    pred = (scale * target @ rot + 0.5 * torch.randn((n, 1, 3), generator=g, device=dev)
+            + sigma * torch.randn((n, j, 3), generator=g, device=dev))
+    if n >= 33:
+        pred[-3] = target[-3]
+        pred[-2] = target[-2] * torch.tensor([-1.0, 1.0, 1.0], device=dev)
+        d, e = torch.linalg.qr(torch.randn((3, 2), generator=g, device=dev))[0].T
+        along = torch.linspace(-0.5, 0.5, j, device=dev)[:, None]
+        target[-1] = along * d + 1e-3 * torch.randn((j, 1), generator=g, device=dev) * e
+        pred[-1] = target[-1] @ rot[-1] + 1e-3 * torch.randn((j, 3), generator=g, device=dev)
+    return pred.contiguous(), target.contiguous()
+
+
+def metric_held(what: str, pred, target, collinear: bool) -> dict:
+    """The kernel on ``pred``, ``target`` against the plain version and the
+    float64 SVD, in mm: held (TOL_P2_*) on every row but a near-collinear last
+    one, which is printed (the near-tie leaves the rotation to rounding, and
+    the plain version's Newton step gives NaN on some such clouds, PERF.md
+    §7); one launch a call.  Returns the numbers."""
+    before = fused_p_mpjpe.launches
+    got = p_mpjpe_per_sample(pred, target)
+    torch.cuda.synchronize()
+    check(fused_p_mpjpe.launches == before + 1, f"{what}: {fused_p_mpjpe.launches - before} "
+          f"kernel launches in one p_mpjpe_per_sample call")
+    plain = p_mpjpe_plain(pred, target)
+    svd = p_mpjpe_plain(pred.double(), target.double(), method="svd")
+    held = slice(0, pred.shape[0] - 1 if collinear else pred.shape[0])
+    d = 1e3 * (got - plain).abs()[held].double()
+    ds = 1e3 * (got.double() - svd).abs()[held]
+    dps = 1e3 * (plain.double() - svd).abs()[held]
+    q99 = lambda v: float(torch.quantile(v, 0.99))
+    rec = dict(rows=pred.shape[0], joints=pred.shape[1], q99_mm=q99(d), max_mm=float(d.max()),
+               svd_q99_mm=q99(ds), svd_max_mm=float(ds.max()), plain_svd_q99_mm=q99(dps),
+               plain_svd_max_mm=float(dps.max()), p2_mean_mm=1e3 * float(svd[held].mean()))
+    print(f"  {what}: |kernel-plain| q99 {rec['q99_mm']:.2e} max {rec['max_mm']:.2e} mm; "
+          f"|kernel-svd64| q99 {rec['svd_q99_mm']:.2e} max {rec['svd_max_mm']:.2e} "
+          f"(plain: {rec['plain_svd_q99_mm']:.2e}, {rec['plain_svd_max_mm']:.2e}); "
+          f"P-MPJPE mean {rec['p2_mean_mm']:.1f} mm")
+    if collinear:
+        rec["collinear_mm"] = [1e3 * float(v[-1]) for v in (got, plain, svd)]
+        print(f"    near-collinear row (not held): kernel {rec['collinear_mm'][0]:.4f}, plain "
+              f"{rec['collinear_mm'][1]:.4f}, svd64 {rec['collinear_mm'][2]:.4f} mm")
+    check(bool(torch.isfinite(got[held]).all()), f"{what}: non-finite P-MPJPE")
+    check(rec["q99_mm"] <= TOL_P2_Q99_MM and rec["max_mm"] <= TOL_P2_MAX_MM,
+          f"{what}: the kernel is not within its plain version's rounding: {rec}")
+    check(rec["svd_q99_mm"] <= TOL_P2_SVD_Q99_MM, f"{what}: the kernel is off the SVD: {rec}")
+    return rec
+
+
+def metric_phases(dev, basis, wp, wd, g, card):
+    """Phase 38: the per-sample P-MPJPE kernel (``ops/fused_metrics.py``): its
+    registers, shared memory and spills (none); held against its plain version
+    and the float64 SVD at METRIC_SHAPES and on the seeded eval's predictions
+    (``metric_held``); timed at B=1024 by CUDA events and device time beside
+    its bound (its bytes at 3.35 TB/s) and the plain version; the host's
+    enqueue a call (the benchmark's ``metric_ms.eval``).  Returns its record."""
+    check_no_spills("procrustes_kernel", 1)
+    ptxas = ptxas_usage("procrustes_kernel")
+    print(f"phase 38: procrustes_kernel ptxas {ptxas}")
+    recs = {}
+    with torch.no_grad():
+        for i, (n, j) in enumerate(METRIC_SHAPES):
+            pred, target = procrustes_poses(n, j, g, dev, seed=SEED + 38 + i)
+            recs[f"{n}x{j}"] = metric_held(f"N={n} J={j}", pred, target, collinear=n >= 33)
+        # the cell's regime: the seeded networks' eval (tt=5) of projected targets
+        target = torch.as_tensor(make_synthetic_dataset(BATCH, seed=SEED + 380).poses_3d,
+                                 device=dev)
+        cam = target + torch.tensor([0.0, 0.0, 4.5], device=dev)
+        pred = make_eval_fn(basis, seq=SEQ, betas=BETAS, test_times=5)(
+            wp, wd, cam[..., :2] / cam[..., 2:])
+        pred = (pred - pred[:, :1]).contiguous()
+        recs["eval"] = metric_held(f"seeded eval tt=5, N={BATCH}", pred, target, collinear=False)
+
+        ms = time_ms(lambda: fused_p_mpjpe(pred, target))
+        dms = device_ms(lambda: fused_p_mpjpe(pred, target), "p_mpjpe_kernel")
+        plain_ms = time_ms(lambda: p_mpjpe_plain(pred, target), reps=5)
+
+        def enqueue_ms(fn, calls: int = 100) -> float:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / calls
+
+        host_ms = enqueue_ms(lambda: (mpjpe_per_sample(pred, target),
+                                      p_mpjpe_per_sample(pred, target)))
+        host_plain_ms = enqueue_ms(lambda: (mpjpe_per_sample(pred, target),
+                                            p_mpjpe_plain(pred, target)), calls=20)
+    nbytes = 2 * pred.numel() * 4 + 4 * BATCH
+    bms = nbytes / PEAK_BYTES * 1e3
+    print(f"  B={BATCH}: kernel {ms:.4f} ms (CUDA events), device {dms:.4f} ms ({device_clock()}), "
+          f"plain {plain_ms:.4f} ms; bound {bms:.6f} ms (bytes, {nbytes} B; {100 * bms / dms:.1f}% "
+          f"of the device time); P1 + P2 a call, synchronised every 100: {host_ms:.4f} ms "
+          f"(plain P2: {host_plain_ms:.4f} ms)  [{card}]")
+    return dict(name="procrustes_kernel", route="cuda",
+                source="diffpose_tpu_torch/csrc/procrustes_kernel.cu", replaces=None,
+                max_abs_err=max(r["max_mm"] for r in recs.values()) / 1e3, ms=ms,
+                device_ms=dms, plain_ms=plain_ms, bound_ms=bms, bound_by="bytes",
+                library_ms=None, metric_ms=host_ms, plain_metric_ms=host_plain_ms,
+                ptxas=next(iter(ptxas.values()), None), batch=BATCH, held=recs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
@@ -3549,6 +3707,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     train_tiers = tier_train_phases(dev, basis, diff, gen, g, card)
     train_tier_launches = tier_train_step_phases(dev, basis, diff, gen, g, card)
+    t_metric = time.perf_counter()
+    metric = metric_phases(dev, basis, wp, wd, g, card)
     t_end = time.perf_counter()
     video = video_runs["train"]
     for rec, key in zip(prng_records, ("fwd_prng", "bwd_prng")):
@@ -3595,7 +3755,8 @@ def main() -> int:
                                           launches=vt["launches"])
     kernels[1]["eval_tiers"] = {f"{t}_tt{tt}": v for (t, tt), v in dp1.items()}
     kernels[1]["fast_eval"] = fast
-    kernels += [row4, row11, row12]
+    kernels += [row4, row11, row12, dict(metric, launches=cli_counts["p_mpjpe"],
+                                         main_path="main_frame eval-only: 1 per eval batch")]
     # each kernel's launches on one rank of phase 26's 2-rank world, by step, and of
     # phases 29-30's video worlds, by path
     counter = {"net_kernel[lifter]": "lifter", "net_kernel[denoiser]": "denoiser",
@@ -3614,7 +3775,8 @@ def main() -> int:
           f"{t_video_parallel - t_parallel:.1f}, video parallelism and the dry run (28-31) "
           f"{t_tiers - t_video_parallel:.1f} (by phase {video_secs}), the tiers, the utilities "
           f"and the fast eval (32-35) {t_train_tiers - t_tiers:.1f}, the train kernels' tiers "
-          f"(36-37) {t_end - t_train_tiers:.1f}")
+          f"(36-37) {t_metric - t_train_tiers:.1f}, the P-MPJPE kernel (38) "
+          f"{t_end - t_metric:.1f}")
 
     print(card)
     print(json.dumps({"kernels": kernels}))

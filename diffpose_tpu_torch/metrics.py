@@ -18,6 +18,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from diffpose_tpu_torch.ops.fused_metrics import fused_p_mpjpe
 from diffpose_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
@@ -205,10 +206,22 @@ def procrustes_align(predicted: Tensor, target: Tensor, method: str = "quat") ->
     return a * (predicted @ r) + t
 
 
-def p_mpjpe_per_sample(predicted: Tensor, target: Tensor, method: str = "quat") -> Tensor:
-    """Protocol #2 per-sample error, shape [B]."""
+def p_mpjpe_plain(predicted: Tensor, target: Tensor, method: str = "quat") -> Tensor:
+    """Protocol #2 per-sample error, shape [B], by PyTorch operators: with
+    ``method="quat"`` on 3-D poses, the plain version of the CUDA kernel
+    (``ops/fused_metrics.py``)."""
     aligned = procrustes_align(predicted, target, method=method)
     return _norm(aligned - target).mean(dim=-1)
+
+
+def p_mpjpe_per_sample(predicted: Tensor, target: Tensor, method: str = "quat") -> Tensor:
+    """Protocol #2 per-sample error, shape [B].  3-D poses by the quaternion
+    method go through :func:`~diffpose_tpu_torch.ops.fused_metrics.fused_p_mpjpe`
+    (one kernel launch for CUDA tensors, :func:`p_mpjpe_plain` for CPU
+    tensors); ``method="svd"`` and 2-D poses run :func:`p_mpjpe_plain`."""
+    if method == "quat" and predicted.shape[-1] == 3:
+        return fused_p_mpjpe(predicted, target)
+    return p_mpjpe_plain(predicted, target, method=method)
 
 
 def p_mpjpe(predicted: Tensor, target: Tensor, method: str = "quat") -> Tensor:
