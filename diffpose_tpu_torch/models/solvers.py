@@ -21,6 +21,11 @@ Two modes, as the JAX solvers have:
 
 The convergence measure is the global relative update norm over the whole
 batch, so every sample of a batch shares one iteration count.
+
+Spans (``utils/profiling.py``): ``solver.f`` around each evaluation of
+``f``, ``solver.mix`` around each body's update (Anderson: the history, the
+Gram solve and the mixing), ``solver.test`` around each host read of the
+convergence test.
 """
 
 from __future__ import annotations
@@ -29,8 +34,15 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from diffpose_tpu_torch.utils.profiling import span
+
 Stats = Any
 Callback = Callable[[torch.Tensor], Tuple[torch.Tensor, Stats]]
+
+# Anderson: a mixed iterate within STALL_TOL·‖z‖ of z is the stall that the
+# published rule makes in exact arithmetic (see :func:`solve_anderson`), and z
+# is kept as it is.
+STALL_TOL = 1e-5
 
 
 def relative_residual(z: torch.Tensor, z_prev: torch.Tensor) -> torch.Tensor:
@@ -49,6 +61,12 @@ def _masked(done: Optional[torch.Tensor], old, new):
 
 def _converged(it, err, tol, min_iterations):
     return (it + 1 >= min_iterations) & (err < tol)
+
+
+def _read_test(err: torch.Tensor, tol) -> bool:
+    """The host's read of the convergence test (it waits on the device)."""
+    with span("solver.test"):
+        return bool(err < tol)
 
 
 def solve_damped(
@@ -82,13 +100,15 @@ def solve_damped(
         it, done = 0, None
 
     for _ in range(max_iterations):
-        fz, new_stats = f(z)
-        z_new = (1 - alpha) * z + alpha * fz
-        new_err = relative_residual(z_new, z)
-        if use_adaptive_alpha:
-            grown = torch.clamp(alpha * 1.25, max=max_alpha)
-            shrunk = torch.clamp(alpha * 0.5, min=min_alpha)
-            alpha = _masked(done, alpha, torch.where(new_err < err, grown, shrunk))
+        with span("solver.f"):
+            fz, new_stats = f(z)
+        with span("solver.mix"):
+            z_new = (1 - alpha) * z + alpha * fz
+            new_err = relative_residual(z_new, z)
+            if use_adaptive_alpha:
+                grown = torch.clamp(alpha * 1.25, max=max_alpha)
+                shrunk = torch.clamp(alpha * 0.5, min=min_alpha)
+                alpha = _masked(done, alpha, torch.where(new_err < err, grown, shrunk))
         stats = _masked(done, stats, new_stats)
         if differentiable:
             new_done = done | _converged(it, new_err, tol, min_iterations)
@@ -98,9 +118,27 @@ def solve_damped(
             done = new_done
         else:
             z, err, it = z_new, new_err, it + 1
-            if it >= min_iterations and bool(new_err < tol):
+            if it >= min_iterations and _read_test(new_err, tol):
                 break
     return z, {"iterations": it, "residual": err, "alpha": alpha}, stats
+
+
+class _Gram64(torch.autograd.Function):
+    """``(ΔF·ΔFᵀ, −ΔF·f)`` in float64, so that the Gram matrix keeps the λ
+    added to it beside ``‖ΔF‖²``; the backward runs in the inputs' dtype, as
+    every other gradient of the solve does."""
+
+    @staticmethod
+    def forward(ctx, dF: torch.Tensor, f: torch.Tensor):
+        ctx.save_for_backward(dF, f)
+        d64 = dF.double()
+        return d64 @ d64.t(), -(d64 @ f.double())
+
+    @staticmethod
+    def backward(ctx, g_gram: torch.Tensor, g_rhs: torch.Tensor):
+        dF, f = ctx.saved_tensors
+        g_gram, g_rhs = g_gram.to(dF.dtype), g_rhs.to(dF.dtype)
+        return (g_gram + g_gram.t()) @ dF - torch.outer(g_rhs, f), -(g_rhs @ dF)
 
 
 def _push(hist: torch.Tensor, row: torch.Tensor, it, m: int) -> torch.Tensor:
@@ -138,6 +176,22 @@ def solve_anderson(
     times.  As in the JAX solver, in the differentiable mode the history and
     the residual keep being written after convergence (only ``z``, ``f(z)``,
     the count and the stats are masked).
+
+    The newest history row's difference is zero, so its weight is zero, and
+    in exact arithmetic the published rule stalls: a body whose other rows
+    are copies of one iterate returns that iterate's own step, the current
+    ``z``, again (at m=5, bodies 1–4 and 6–9 return ``z`` unchanged and
+    bodies 0, 5, 10, 15 take the plain step).  A rounding-level difference
+    between two such copies gets a weight of about ``ε·‖ΔF‖²/λ``, which at the
+    published batch (millions of values, λ = 0.1) is of order one in
+    float32, and the λ of the Gram matrix is lost beside ``‖ΔF‖²``: the
+    solve then follows the rounding, not the rule.  So both modes solve the
+    Gram system in float64 and keep ``z`` where the mixed iterate lies within
+    ``STALL_TOL·‖z‖`` of it, as the rule does in exact arithmetic.  A stalled
+    body's mixed iterate is, in exact arithmetic, the same function of the
+    inputs as ``z``, so keeping ``z`` leaves the gradient as it is.  (The JAX
+    solver mixes in float32; at small batches, where the rounding stays
+    small, the two agree.)
     Returns ``(z*, {"iterations", "residual"}, stats)``.
     """
     m = min(m, max_iterations)
@@ -145,8 +199,9 @@ def solve_anderson(
     d = z.numel()
     X = torch.zeros((m, d), dtype=dtype, device=dev)
     F = torch.zeros((m, d), dtype=dtype, device=dev)
-    fz, stats = f(z)
-    eye = lam * torch.eye(m, dtype=dtype, device=dev)
+    with span("solver.f"):
+        fz, stats = f(z)
+    eye = lam * torch.eye(m, dtype=torch.float64, device=dev)
     slots = torch.arange(m, device=dev)
     err = torch.full((), float("inf"), dtype=dtype, device=dev)
     if differentiable:
@@ -156,30 +211,10 @@ def solve_anderson(
         it, done = 0, None
 
     for _ in range(max_iterations):
-        residual = fz - z
-        X = _push(X, z.reshape(-1), it, m)
-        F = _push(F, residual.reshape(-1), it, m)
-        count = (torch.clamp(it + 1, max=m) if differentiable else min(it + 1, m))
-        valid = (slots < count).to(dtype)
-        newest = count - 1
-        f_new = (F.index_select(0, newest.reshape(1).long()) if differentiable
-                 else F[newest:newest + 1])
-        dF = (F - f_new) * valid[:, None]
-
-        gram = dF @ dF.t() + eye
-        rhs = -(dF @ f_new[0])
-        weights = torch.linalg.solve_ex(gram, rhs)[0]
-        w_sum = weights.sum()
-        sum_ok = w_sum.abs() > 1e-10
-        # The unselected branch of a where() must not be NaN (0/0), or its
-        # gradient poisons the whole backward through the loop.
-        safe_sum = torch.where(sum_ok, w_sum, torch.ones_like(w_sum))
-        weights = torch.where(sum_ok, weights / safe_sum, valid / count)
-        z_and = (weights @ X).reshape(z.shape) + beta * (weights @ F).reshape(z.shape)
-        use_plain = (it < 1) | (torch.linalg.vector_norm(dF) < 1e-10)
-        z_new = torch.where(use_plain, z + beta * residual, z_and)
-
-        fz_new, new_stats = f(z_new)
+        with span("solver.mix"):
+            z_new, residual, X, F = _anderson_body(z, fz, X, F, it, m, beta, eye, slots)
+        with span("solver.f"):
+            fz_new, new_stats = f(z_new)
         err = relative_residual(z_new, z)
         stats = _masked(done, stats, new_stats)
         if differentiable:
@@ -190,6 +225,38 @@ def solve_anderson(
             done = new_done
         else:
             z, fz, it = z_new, fz_new, it + 1
-            if it >= min_iterations and bool(err < tol):
+            if it >= min_iterations and _read_test(err, tol):
                 break
     return z, {"iterations": it, "residual": err}, stats
+
+
+def _anderson_body(z, fz, X, F, it, m: int, beta: float, eye, slots):
+    """One body's update: push ``z`` and its residual into the histories,
+    solve the λ-regularised Gram system in float64, mix, and keep
+    ``z`` on a stall.  ``it`` is a Python int (stopped mode) or a device
+    tensor (differentiable mode).  Returns ``(z_new, residual, X, F)``."""
+    differentiable = isinstance(it, torch.Tensor)
+    dtype = z.dtype
+    residual = fz - z
+    X = _push(X, z.reshape(-1), it, m)
+    F = _push(F, residual.reshape(-1), it, m)
+    count = (torch.clamp(it + 1, max=m) if differentiable else min(it + 1, m))
+    valid = (slots < count).to(dtype)
+    newest = count - 1
+    f_new = (F.index_select(0, newest.reshape(1).long()) if differentiable
+             else F[newest:newest + 1])
+    dF = (F - f_new) * valid[:, None]
+
+    gram, rhs = _Gram64.apply(dF, f_new[0])
+    weights = torch.linalg.solve_ex(gram + eye, rhs)[0]
+    w_sum = weights.sum()
+    sum_ok = w_sum.abs() > 1e-10
+    # The unselected branch of a where() must not be NaN (0/0), or its
+    # gradient poisons the whole backward through the loop.
+    safe_sum = torch.where(sum_ok, w_sum, torch.ones_like(w_sum))
+    weights = torch.where(sum_ok, weights / safe_sum, valid.to(eye.dtype) / count).to(dtype)
+    z_and = (weights @ X).reshape(z.shape) + beta * (weights @ F).reshape(z.shape)
+    use_plain = (it < 1) | (torch.linalg.vector_norm(dF) < 1e-10)
+    z_new = torch.where(use_plain, z + beta * residual, z_and)
+    stall = torch.linalg.vector_norm(z_new - z) <= STALL_TOL * torch.linalg.vector_norm(z)
+    return torch.where(stall, z, z_new), residual, X, F

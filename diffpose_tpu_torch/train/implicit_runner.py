@@ -45,6 +45,7 @@ from diffpose_tpu_torch.train.implicit_steps import (
 )
 from diffpose_tpu_torch.train.state import TrainState
 from diffpose_tpu_torch.train.trainer import DiffposeRunner, under_matmul_grade
+from diffpose_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -213,7 +214,8 @@ class ImplicitRunner(DiffposeRunner):
         t_cfg, imp = self.config.testing, self.implicit
         warm = imp.use_warm_start
         eval_fn = self._get_implicit_eval_fn(warm)
-        prepared = eval_fn.prepare(state, self.pose_params)
+        with span("runner.prepare"):
+            prepared = eval_fn.prepare(state, self.pose_params)
         was_training = self.model_diff.training
         loader = self._make_loader(self.test_data, shuffle=False, keyed=False)
         acc = ActionErrorAccumulator(self.test_data.actions, num_joints=self.config.model.n_pts,
@@ -235,7 +237,8 @@ class ImplicitRunner(DiffposeRunner):
             else:
                 p1, p2, _, iters = eval_fn(state, self.pose_params, local, self.generator,
                                            prepared=prepared)
-            p1, p2 = self._gathered(p1, p2)       # waits for the batch
+            with span("runner.readback"):
+                p1, p2 = self._gathered(p1, p2)   # waits for the batch
             self.inference_times.append(time.time() - t0)
             if self.mesh is not None:   # the data ranks' mean count
                 iters = mean_over(torch.as_tensor(iters, dtype=torch.float32,

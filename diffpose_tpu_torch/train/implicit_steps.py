@@ -48,6 +48,7 @@ from diffpose_tpu_torch.train.steps import (
     diffusion_loss,
     make_draw,
 )
+from diffpose_tpu_torch.utils.profiling import span
 
 IMPLS = ("module", "fused")
 BN_BUFFERS = ("running_mean", "running_var")
@@ -245,13 +246,19 @@ def make_implicit_eval_step(implicit_model, pose_model, *, t_infer: int, test_ti
     @torch.no_grad()
     def eval_step(state: TrainState, pose, batch: dict, generator=None, z0=None, z0_weight=None,
                   prepared=None):
+        with span("step.eval"):
+            return step_body(state, pose, batch, z0, z0_weight, prepared)
+
+    def step_body(state, pose, batch, z0, z0_weight, prepared):
         if state.model is not implicit_model:
             raise ValueError("the state holds another model than the step")
         pose = pose_model if pose is None else pose
-        gmm = torch.as_tensor(batch["poses_2d_gmm"], device=device)
-        poses_3d = torch.as_tensor(batch["poses_3d"], device=device)
-        seeds = torch.as_tensor(batch["seeds"], device=device)
-        _, _, input_2d = sample_gmm_batch_per_sample(gmm_base_seed, seeds, gmm, poses_3d)
+        with span("step.inputs"):
+            gmm = torch.as_tensor(batch["poses_2d_gmm"], device=device)
+            poses_3d = torch.as_tensor(batch["poses_3d"], device=device)
+            seeds = torch.as_tensor(batch["seeds"], device=device)
+        with span("step.gmm"):
+            _, _, input_2d = sample_gmm_batch_per_sample(gmm_base_seed, seeds, gmm, poses_3d)
         input_2d = input_2d.contiguous()   # a slice of the chosen kernels; the wrappers take no strides
 
         if impl == "fused":
@@ -278,7 +285,8 @@ def make_implicit_eval_step(implicit_model, pose_model, *, t_infer: int, test_ti
         pred_xyz = out[..., 2:]
         pred_xyz = pred_xyz - pred_xyz[:, :1, :]
         target = poses_3d - poses_3d[:, :1, :]
-        p1, p2 = mpjpe_per_sample(pred_xyz, target), p_mpjpe_per_sample(pred_xyz, target)
+        with span("metrics.errors"):
+            p1, p2 = mpjpe_per_sample(pred_xyz, target), p_mpjpe_per_sample(pred_xyz, target)
         if use_warm_start:
             return p1, p2, pred_xyz, aux["iterations"], aux["fixed_point"]
         return p1, p2, pred_xyz, aux["iterations"]
