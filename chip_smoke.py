@@ -293,6 +293,21 @@ phase 10 also counts its launches, one an eval batch):
     events and by the device beside its bound, the plain version's, and the
     host's time a call of P1 + P2.
 
+The Anderson body's kernels (``ops/fused_anderson.py``, built in phase 1;
+phase 13 counts 10 bodies through them in the config's solve, phase 15 one
+an iteration of the eval-only run):
+
+39. their registers and spills (none); bodies 0-14 of the config's solve
+    (2,560 rows x 17 x 96, m=5, the seeded IGCN's map through row 3) and four
+    random histories (float32 and float64, β 1 and 0.7) against the plain
+    body (``models/solvers.py:anderson_body_plain``): z_new and err within
+    1e-6 relative, the plain-step and stall flags equal, the history rows
+    bit-equal, two runs bit-equal, a stall's z_new bit-equal to z; a
+    stalled body's and a plain-step body's device time by kernel beside
+    their bytes at 3.35 TB/s and the plain body's time; the config's whole
+    stopped solve with the kernels and with the plain body: 10 and 10
+    bodies, the output and fixed point within 1e-6 relative.
+
 Each family's wall seconds are printed.
 
 The line before the last holds the kernels' JSON record, the last line
@@ -348,6 +363,8 @@ from diffpose_tpu_torch.ops import fused_cheb as fc
 from diffpose_tpu_torch.ops import fused_train as ft
 from diffpose_tpu_torch.ops.fused_graformer import make_graformer_fn
 from diffpose_tpu_torch.ops.fused_metrics import fused_p_mpjpe
+from diffpose_tpu_torch.ops.fused_anderson import fused_anderson_body
+from diffpose_tpu_torch.models import solvers
 from diffpose_tpu_torch.probes import (ProfilerBlind, ablate, batched_dot, device_clock, device_ms,
                                        profiled, profiler_sees_device, tf32_gemm, time_ms,
                                        video_phases)
@@ -1040,7 +1057,7 @@ def prng_phases(dev, diff, g, ctx, card):
 def reset_launch_counts():
     for fn in (fused_lifter, fused_denoiser, fused_backbone, ft.stack_fwd, ft.stack_bwd,
                ft.stack_fwd_prng, ft.stack_bwd_prng, fused_temporal_layer, fused_st_layer,
-               fused_p_mpjpe):
+               fused_p_mpjpe, fused_anderson_body):
         fn.launches = 0
     for fn in (*TIER_WRAPPERS.values(), *TRAIN_TIER_WRAPPERS.values()):
         fn.tier_launches = {t: 0 for t in TIERS}
@@ -1306,19 +1323,24 @@ def implicit_kernel_phases(dev, basis, gen, g, card):
             check(e_out <= TOL_PIPELINE and e_fp <= lim_fp and bool(torch.isfinite(out).all()),
                   f"eval solve {solver} {k}/{k}, seed {seed}, against its plain twin")
     fn, plain = make_igcn_fn(model), make_igcn_fn(model, backbone=backbone_plain)
-    fused_backbone.launches = 0
+    fused_backbone.launches = fused_anderson_body.launches = 0
     out, aux = fn(w, bn, x, t)
     torch.cuda.synchronize()
     check(fused_backbone.launches == 1 + aux["iterations"], "row-3 launches of the config's solve")
+    check(fused_anderson_body.launches == aux["iterations"] == 10,
+          f"the config's solve: {fused_anderson_body.launches} bodies through the Anderson kernels "
+          f"in {aux['iterations']} iterations, expected 10 and 10")
     out_p, aux_p = plain(w, bn, x, t)
-    # the same solve in float64 (the timestep MLP stays float32, as t is exact)
+    # the same solve in float64 (the timestep MLP stays float32, as t is exact;
+    # no gradient: the stopped solve's kernels have no backward)
     w64 = {k: (v.double() if isinstance(v, torch.Tensor) and v.is_floating_point() else v)
            for k, v in w.items()}
-    bn64, tp64 = {k: v.double() for k, v in bn.items()}, timestep_projections(w, t).double()
-    z64, _, _ = model.solve(lambda zz: (bn_eval(backbone_plain(w64, zz, tp64), bn64), None),
-                            _cheb(x.double(), w64["win"], w64["bin"], w64["basis"]),
-                            model.tolerance, differentiable=False)
-    out64 = _cheb(z64, w64["wout"], w64["bout"], w64["basis"])
+    with torch.no_grad():
+        bn64, tp64 = {k: v.double() for k, v in bn.items()}, timestep_projections(w, t).double()
+        z64, _, _ = model.solve(lambda zz: (bn_eval(backbone_plain(w64, zz, tp64), bn64), None),
+                                _cheb(x.double(), w64["win"], w64["bin"], w64["basis"]),
+                                model.tolerance, differentiable=False)
+        out64 = _cheb(z64, w64["wout"], w64["bout"], w64["basis"])
     print(f"eval solve at the config (Anderson 20/10, tol 0.1): iterations fused {aux['iterations']} "
           f"plain {aux_p['iterations']}, residuals {float(aux['residual']):.5f} / "
           f"{float(aux_p['residual']):.5f}; max|fused-plain| {max_err(out, out_p):.3e}; the float32 "
@@ -1550,6 +1572,10 @@ def implicit_cli_phases(card):
         "the implicit CLI eval run failed")
     e_counts = launch_counts()
     e_means = eval_iterations(exp / "evalonly" / "stdout.txt")
+    counts["anderson"] = fused_anderson_body.launches
+    check(counts["anderson"] == round(eval_batches * e_means[0]),
+          f"implicit CLI eval-only: {counts['anderson']} bodies through the Anderson kernels in "
+          f"{eval_batches} batches of {e_means[0]} iterations")
     check(e_counts == dict(want, lifter=eval_batches,
                            backbone=round(eval_batches * (1 + e_means[0])), fwd_prng=0, bwd_prng=0),
           f"implicit CLI eval-only launches {e_counts}")
@@ -3531,6 +3557,166 @@ def metric_phases(dev, basis, wp, wd, g, card):
                 ptxas=next(iter(ptxas.values()), None), batch=BATCH, held=recs)
 
 
+# ---------------------------------------------------------------------------
+# The Anderson body's kernels (phase 39)
+# ---------------------------------------------------------------------------
+
+# Bodies 0-14 of the config's solve at m=5: the ring of history rows wraps twice.
+ANDERSON_BODIES = 15
+# The kernels against their plain version (models/solvers.py:anderson_body_plain):
+# one function, the sums in another order.
+TOL_ANDERSON = 1e-6
+# Random histories (it, β, dtype): every row valid and distinct, so the weights
+# are generic; the rule's own bodies at the config stall or take the plain step.
+ANDERSON_RANDOM = ((5, 1.0, torch.float32), (7, 0.7, torch.float32), (12, 1.0, torch.float32),
+                   (7, 0.7, torch.float64))
+# csrc/anderson_kernel.cu's entries: push_gram and mix at two dtypes and m = 1..8,
+# solve, finish at two dtypes.
+ANDERSON_ENTRIES = 2 * 2 * 8 + 1 + 2
+
+
+def anderson_bytes(d: int, count: int, plain: bool, stall: bool, itemsize: int = 4) -> int:
+    """The least bytes of one body over ``d`` values with ``count`` valid rows:
+    pass 1 reads z, f(z) and the other count - 1 rows of F and writes two
+    rows; pass 2 reads z and the count rows of X and F (the plain step: z and
+    one row of F) and writes z_new; a stall reads z and writes z_new again."""
+    rows = (2 + count - 1 + 2) + ((2 if plain else 1 + 2 * count) + 1) + (2 if stall else 0)
+    return rows * d * itemsize
+
+
+def anderson_held(what: str, z, fz, X, F, it: int, beta: float, lam: float):
+    """The kernels (twice) and the plain body on one state, held: z_new and err
+    within TOL_ANDERSON relative, the flags equal, the history rows bit-equal,
+    the two runs bit-equal, a stall's z_new bit-equal to z.  Returns the plain
+    body's outputs and the errors."""
+    zp, ep, Xp, Fp, (up, sp) = solvers.anderson_body_plain(z, fz, X, F, it, beta, lam)
+    runs = [fused_anderson_body(z, fz, X.clone(), F.clone(), it, beta, lam) for _ in range(2)]
+    torch.cuda.synchronize()
+    (zk, ek, Xk, Fk, (uk, sk)), (zk2, ek2, Xk2, Fk2, _) = runs
+    e_z = float((zk.double() - zp.double()).norm() / zp.double().norm())
+    e_err = abs(float(ek) - float(ep)) / (abs(float(ep)) or 1.0)
+    flags, plain_flags = (bool(uk), bool(sk)), (bool(up), bool(sp))
+    history = torch.equal(Xk, Xp) and torch.equal(Fk, Fp)
+    twice = all(torch.equal(a, b) for a, b in ((zk, zk2), (ek, ek2), (Xk, Xk2), (Fk, Fk2)))
+    kept = not flags[1] or torch.equal(zk, z)
+    print(f"  {what}: plain step {flags[0]}, stall {flags[1]}; |z_new| rel {e_z:.2e}, err "
+          f"{float(ek):.6e} vs {float(ep):.6e} (rel {e_err:.2e}); history bit-equal {history}, "
+          f"two runs bit-equal {twice}")
+    check(e_z <= TOL_ANDERSON and e_err <= TOL_ANDERSON and flags == plain_flags and history
+          and twice and kept, f"{what}: the Anderson kernels against their plain version")
+    return (zp, ep, Xp, Fp), max(e_z, e_err)
+
+
+def anderson_body_ms(fn, reps: int = 20):
+    """Device ms of one body by kernel (torch.profiler over ``reps`` calls of
+    ``fn``, four launches each), or CUDA events over the whole call where the
+    profiler is not trusted."""
+    def run():
+        for _ in range(reps):
+            fn()
+
+    try:
+        events = profiled(run, lambda e: e.device_type.name == "CUDA" and "anderson::" in e.name,
+                          4 * reps)
+    except ProfilerBlind:
+        return {"body": time_ms(fn, reps=reps)}
+    by = {}
+    for e in events:
+        name = re.search(r"anderson::(\w+)", e.name).group(1)
+        by[name] = by.get(name, 0.0) + e.device_time_total / 1e3 / reps
+    return dict(by, body=sum(by.values()))
+
+
+def anderson_phases(dev, basis, gen, g, card):
+    """Phase 39: the Anderson body's kernels (``ops/fused_anderson.py``): ptxas'
+    registers and spills (none); bodies 0-14 of the config's solve (2,560 rows
+    x 17 x 96, m=5, the seeded IGCN's map through row 3) and random histories
+    held against the plain body (``anderson_held``); a body's device time
+    beside its bytes at 3.35 TB/s and the plain body's time; a whole stopped
+    solve at the config with the kernels and with the plain body, 10 and 10
+    bodies.  Returns row 14's record."""
+    check_no_spills("anderson_kernel", ANDERSON_ENTRIES)
+    ptxas = ptxas_usage("anderson_kernel")
+    for entry, use in ptxas.items():
+        if "Li5EE" in entry or "solve" in entry or "finish" in entry:
+            print(f"phase 39: anderson_kernel ptxas {entry}: {use}")
+    model = seeded_igcn(basis, dev, gen).eval()
+    w, bn = prepare_weights(model), bn_state(model)
+    m, beta, lam = model.anderson_m, model.anderson_beta, model.anderson_lambda
+    rows = IMPLICIT_BATCH * 5
+    worst, states = 0.0, {}
+    with torch.no_grad():
+        x = torch.randn((rows, 17, 5), generator=g, device=dev)
+        tp = timestep_projections(w, torch.full((rows,), float(IMPLICIT_T), device=dev))
+        f = lambda zz: bn_eval(fused_backbone(w, zz, tp), bn)
+        z = _cheb(x, w["win"], w["bin"], w["basis"]).contiguous()
+        d = z.numel()
+        X, F = torch.zeros((m, d), device=dev), torch.zeros((m, d), device=dev)
+        fz = f(z)
+        print(f"phase 39: bodies 0-{ANDERSON_BODIES - 1} of the config's solve, d = {d}, m = {m}")
+        for it in range(ANDERSON_BODIES):
+            if it in (7, 10):
+                states[it] = (z.clone(), fz.clone(), X.clone(), F.clone())
+            (z, _, X, F), e = anderson_held(f"body {it}", z, fz, X, F, it, beta, lam)
+            worst = max(worst, e)
+            fz = f(z)
+        print("phase 39: random histories at the same d")
+        for it, b, dtype in ANDERSON_RANDOM:
+            r = lambda *shape: torch.randn(shape, generator=g, device=dev).to(dtype)
+            base = r(d)
+            zr = base + 0.1 * r(d)
+            _, e = anderson_held(f"random history it={it} beta={b} {dtype}", zr, zr + 0.5 * r(d),
+                                 base + 0.1 * r(m, d), 0.5 * r(m, d), it, b, lam)
+            worst = max(worst, e)
+
+        times = {}
+        for it, (zs, fs, Xs, Fs) in states.items():
+            body = lambda: fused_anderson_body(zs, fs, Xs, Fs, it, beta, lam)
+            _, _, _, _, (up, sp) = body()
+            plain, stall = bool(up), bool(sp)
+            dms = anderson_body_ms(body)
+            ms = time_ms(body)
+            plain_ms = time_ms(lambda: solvers.anderson_body_plain(zs, fs, Xs, Fs, it, beta, lam))
+            nbytes = anderson_bytes(d, min(it + 1, m), plain, stall)
+            bms = nbytes / PEAK_BYTES * 1e3
+            times[it] = dict(plain_step=plain, stall=stall, device_ms=dms, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bms, bytes=nbytes)
+            print(f"  body {it} (plain step {plain}, stall {stall}): device "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in dms.items())
+                  + f" ms ({device_clock()}); {ms:.4f} ms a call by CUDA events; plain body "
+                  f"{plain_ms:.4f} ms; bound {bms:.4f} ms (bytes, {nbytes / 1e6:.1f} MB; "
+                  f"{100 * bms / dms['body']:.1f}% of the device time)  [{card}]")
+
+        # a whole stopped solve at the config: the kernels, then the plain body
+        xb = torch.randn((rows, 17, 5), generator=g, device=dev)
+        t = torch.full((rows,), float(IMPLICIT_T), device=dev)
+        fused_anderson_body.launches = 0
+        out, aux = make_igcn_fn(model)(w, bn, xb, t)
+        torch.cuda.synchronize()
+        launches = fused_anderson_body.launches
+        real = solvers.fused_anderson_body
+        solvers.fused_anderson_body = solvers.anderson_body_plain
+        try:
+            out_p, aux_p = make_igcn_fn(model)(w, bn, xb, t)
+        finally:
+            solvers.fused_anderson_body = real
+        e_out = float((out.double() - out_p.double()).norm() / out_p.double().norm())
+        e_fp = float((aux["fixed_point"].double() - aux_p["fixed_point"].double()).norm()
+                     / aux_p["fixed_point"].double().norm())
+        print(f"phase 39: the config's solve at {rows} rows, kernels against the plain body: "
+              f"bodies {aux['iterations']} / {aux_p['iterations']}, {launches} through the kernels; "
+              f"output rel {e_out:.2e}, fixed point rel {e_fp:.2e}")
+        check(aux["iterations"] == aux_p["iterations"] == launches == 10
+              and max(e_out, e_fp) <= TOL_ANDERSON, "the config's solve, kernels against plain body")
+    stalled = times[7]
+    return dict(name="anderson_kernel", route="cuda",
+                source="diffpose_tpu_torch/csrc/anderson_kernel.cu", replaces=None,
+                max_rel_err=worst, ms=stalled["ms"], device_ms=stalled["device_ms"]["body"],
+                plain_ms=stalled["plain_ms"], bound_ms=stalled["bound_ms"], bound_by="bytes",
+                library_ms=None, bodies=times, solve_rel_err=max(e_out, e_fp),
+                ptxas={k: v for k, v in ptxas.items() if "Li5EE" in k or "solve" in k})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
@@ -3709,6 +3895,8 @@ def main() -> int:
     train_tier_launches = tier_train_step_phases(dev, basis, diff, gen, g, card)
     t_metric = time.perf_counter()
     metric = metric_phases(dev, basis, wp, wd, g, card)
+    t_anderson = time.perf_counter()
+    anderson = anderson_phases(dev, basis, gen, g, card)
     t_end = time.perf_counter()
     video = video_runs["train"]
     for rec, key in zip(prng_records, ("fwd_prng", "bwd_prng")):
@@ -3756,7 +3944,9 @@ def main() -> int:
     kernels[1]["eval_tiers"] = {f"{t}_tt{tt}": v for (t, tt), v in dp1.items()}
     kernels[1]["fast_eval"] = fast
     kernels += [row4, row11, row12, dict(metric, launches=cli_counts["p_mpjpe"],
-                                         main_path="main_frame eval-only: 1 per eval batch")]
+                                         main_path="main_frame eval-only: 1 per eval batch"),
+                dict(anderson, launches=implicit_counts["anderson"],
+                     main_path="main_implicit eval-only: 1 body (4 launches) per iteration")]
     # each kernel's launches on one rank of phase 26's 2-rank world, by step, and of
     # phases 29-30's video worlds, by path
     counter = {"net_kernel[lifter]": "lifter", "net_kernel[denoiser]": "denoiser",
@@ -3776,7 +3966,7 @@ def main() -> int:
           f"{t_tiers - t_video_parallel:.1f} (by phase {video_secs}), the tiers, the utilities "
           f"and the fast eval (32-35) {t_train_tiers - t_tiers:.1f}, the train kernels' tiers "
           f"(36-37) {t_metric - t_train_tiers:.1f}, the P-MPJPE kernel (38) "
-          f"{t_end - t_metric:.1f}")
+          f"{t_anderson - t_metric:.1f}, the Anderson body's kernels (39) {t_end - t_anderson:.1f}")
 
     print(card)
     print(json.dumps({"kernels": kernels}))

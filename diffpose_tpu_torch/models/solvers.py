@@ -24,8 +24,8 @@ batch, so every sample of a batch shares one iteration count.
 
 Spans (``utils/profiling.py``): ``solver.f`` around each evaluation of
 ``f``, ``solver.mix`` around each body's update (Anderson: the history, the
-Gram solve and the mixing), ``solver.test`` around each host read of the
-convergence test.
+Gram solve, the mixing, the stall and the relative update), ``solver.test``
+around each host read of the convergence test.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from diffpose_tpu_torch.ops.fused_anderson import fused_anderson_body
 from diffpose_tpu_torch.utils.profiling import span
 
 Stats = Any
@@ -141,19 +142,6 @@ class _Gram64(torch.autograd.Function):
         return (g_gram + g_gram.t()) @ dF - torch.outer(g_rhs, f), -(g_rhs @ dF)
 
 
-def _push(hist: torch.Tensor, row: torch.Tensor, it, m: int) -> torch.Tensor:
-    """Write ``row`` into the history's slot ``min(it, m−1)``, after rolling
-    the oldest row out once the history is full (``it >= m``)."""
-    slots = torch.arange(m, device=hist.device)
-    if isinstance(it, int):
-        hist = hist.roll(-1, 0) if it >= m else hist
-        slot = min(it, m - 1)
-    else:
-        hist = torch.where(it >= m, hist.roll(-1, 0), hist)
-        slot = torch.clamp(it, max=m - 1)
-    return torch.where((slots == slot)[:, None], row[None], hist)
-
-
 def solve_anderson(
     f: Callback,
     z: torch.Tensor,
@@ -167,10 +155,12 @@ def solve_anderson(
     differentiable: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, Any], Stats]:
     """Anderson acceleration (reference ``igcn.py:293-438``) over a fixed
-    ``[m, D]`` history: slots fill 0..m−1, then the oldest rolls out.  Rows
-    not yet written are masked out of the differences, so the λ-regularised
-    m×m Gram solve gives them zero weight.  The first body, and any body
-    whose differences vanish, takes the plain update ``z + β·(f(z) − z)``.
+    ``[m, D]`` ring of history rows: body ``it`` writes slot ``it mod m``, so
+    once the ring is full the newest row overwrites the oldest and nothing
+    moves.  Rows not yet written are masked out of the differences, so the
+    λ-regularised m×m Gram solve gives them zero weight; the weights do not
+    depend on the rows' order.  The first body, and any body whose
+    differences vanish, takes the plain update ``z + β·(f(z) − z)``.
 
     ``f`` runs once before the loop, so the stack runs ``1 + iterations``
     times.  As in the JAX solver, in the differentiable mode the history and
@@ -192,6 +182,11 @@ def solve_anderson(
     inputs as ``z``, so keeping ``z`` leaves the gradient as it is.  (The JAX
     solver mixes in float32; at small batches, where the rounding stays
     small, the two agree.)
+
+    One rule, two implementations of a body: the differentiable mode runs
+    :func:`anderson_body_plain` under autograd; the stopped mode runs
+    ``ops/fused_anderson.py:fused_anderson_body``, the CUDA kernels for
+    CUDA tensors and :func:`anderson_body_plain` for CPU tensors.
     Returns ``(z*, {"iterations", "residual"}, stats)``.
     """
     m = min(m, max_iterations)
@@ -201,21 +196,20 @@ def solve_anderson(
     F = torch.zeros((m, d), dtype=dtype, device=dev)
     with span("solver.f"):
         fz, stats = f(z)
-    eye = lam * torch.eye(m, dtype=torch.float64, device=dev)
-    slots = torch.arange(m, device=dev)
     err = torch.full((), float("inf"), dtype=dtype, device=dev)
     if differentiable:
         it = torch.zeros((), dtype=torch.int32, device=dev)
         done = torch.zeros((), dtype=torch.bool, device=dev)
+        body = anderson_body_plain
     else:
         it, done = 0, None
+        body = fused_anderson_body
 
     for _ in range(max_iterations):
         with span("solver.mix"):
-            z_new, residual, X, F = _anderson_body(z, fz, X, F, it, m, beta, eye, slots)
+            z_new, err, X, F, _ = body(z, fz, X, F, it, beta, lam)
         with span("solver.f"):
             fz_new, new_stats = f(z_new)
-        err = relative_residual(z_new, z)
         stats = _masked(done, stats, new_stats)
         if differentiable:
             new_done = done | _converged(it, err, tol, min_iterations)
@@ -230,24 +224,31 @@ def solve_anderson(
     return z, {"iterations": it, "residual": err}, stats
 
 
-def _anderson_body(z, fz, X, F, it, m: int, beta: float, eye, slots):
-    """One body's update: push ``z`` and its residual into the histories,
-    solve the λ-regularised Gram system in float64, mix, and keep
-    ``z`` on a stall.  ``it`` is a Python int (stopped mode) or a device
-    tensor (differentiable mode).  Returns ``(z_new, residual, X, F)``."""
+def anderson_body_plain(z, fz, X, F, it, beta: float, lam: float):
+    """One body of :func:`solve_anderson`: push ``z`` and its residual
+    ``f(z) − z`` into ring slot ``it mod m`` of the histories ``X``, ``F``
+    ``[m, D]``, solve the λ-regularised Gram system in float64, mix, keep
+    ``z`` on a stall, and measure the relative update.  ``it`` is a Python
+    int (stopped mode) or a device tensor (differentiable mode, under
+    autograd).  The plain version of ``ops/fused_anderson.py``'s kernels.
+    Returns ``(z_new, err, X, F, (use_plain, stall))``; ``err`` is
+    ``relative_residual(z_new, z)``."""
     differentiable = isinstance(it, torch.Tensor)
-    dtype = z.dtype
+    dtype, m = z.dtype, X.shape[0]
+    slots = torch.arange(m, device=z.device)
     residual = fz - z
-    X = _push(X, z.reshape(-1), it, m)
-    F = _push(F, residual.reshape(-1), it, m)
+    slot = it % m
+    at = (slots == slot)[:, None]      # the push: nothing rolls
+    X = torch.where(at, z.reshape(-1)[None], X)
+    F = torch.where(at, residual.reshape(-1)[None], F)
     count = (torch.clamp(it + 1, max=m) if differentiable else min(it + 1, m))
     valid = (slots < count).to(dtype)
-    newest = count - 1
-    f_new = (F.index_select(0, newest.reshape(1).long()) if differentiable
-             else F[newest:newest + 1])
+    f_new = (F.index_select(0, slot.reshape(1).long()) if differentiable
+             else F[slot:slot + 1])
     dF = (F - f_new) * valid[:, None]
 
     gram, rhs = _Gram64.apply(dF, f_new[0])
+    eye = lam * torch.eye(m, dtype=torch.float64, device=z.device)
     weights = torch.linalg.solve_ex(gram + eye, rhs)[0]
     w_sum = weights.sum()
     sum_ok = w_sum.abs() > 1e-10
@@ -258,5 +259,8 @@ def _anderson_body(z, fz, X, F, it, m: int, beta: float, eye, slots):
     z_and = (weights @ X).reshape(z.shape) + beta * (weights @ F).reshape(z.shape)
     use_plain = (it < 1) | (torch.linalg.vector_norm(dF) < 1e-10)
     z_new = torch.where(use_plain, z + beta * residual, z_and)
-    stall = torch.linalg.vector_norm(z_new - z) <= STALL_TOL * torch.linalg.vector_norm(z)
-    return torch.where(stall, z, z_new), residual, X, F
+    step, norm = torch.linalg.vector_norm(z_new - z), torch.linalg.vector_norm(z)
+    stall = step <= STALL_TOL * norm
+    # relative_residual of the kept iterate: 0 on a stall
+    err = torch.where(stall, torch.zeros_like(step), step / (norm + 1e-8))
+    return torch.where(stall, z, z_new), err, X, F, (use_plain, stall)

@@ -7,10 +7,12 @@ The eval forward is the fixed-point solve ``z* = f(z*)`` with
 the bare-stack build of the whole-network kernel (kernel row 3,
 ``ops/fused_denoiser.py:fused_backbone``): ``1 + iterations`` launches per
 call with Anderson (one evaluation before the loop), ``iterations`` with the
-damped solver.  Around it, in plain PyTorch: the timestep MLP and its
-per-layer projections, the input and output ChebConvs, the eval BatchNorm,
-the solver's mixing and its convergence test, which the host reads once per
-iteration from ``min_iterations`` on (``models/solvers.py``).
+damped solver.  The Anderson solver's body runs as four kernel launches
+(kernel row 14, ``ops/fused_anderson.py``).  Around them, in plain
+PyTorch: the timestep MLP and its per-layer projections, the input and
+output ChebConvs, the eval BatchNorm, the damped solver's relaxation, and
+the convergence test, which the host reads once per iteration from
+``min_iterations`` on (``models/solvers.py``).
 
 Semantics are ``IGCN.forward`` in eval mode with ``differentiable=False``.
 """
