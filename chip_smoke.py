@@ -336,7 +336,7 @@ import torch
 from diffpose_tpu_torch.data.loader import prefetch_to_device
 from diffpose_tpu_torch.data.synthetic import make_synthetic_dataset
 from diffpose_tpu_torch.data.video import synthetic_video_dataset
-from diffpose_tpu_torch.diffusion import get_beta_schedule
+from diffpose_tpu_torch.diffusion import ddim_sample, get_beta_schedule
 from diffpose_tpu_torch.graph import GAN_EDGES, H36M_EDGES, cheb_basis_from_edges
 from diffpose_tpu_torch.metrics import mpjpe_per_sample, p_mpjpe_per_sample, p_mpjpe_plain
 from diffpose_tpu_torch.models import IGCN, GCNDiff, GCNPose, GraFormer
@@ -371,7 +371,7 @@ from diffpose_tpu_torch.probes import (ProfilerBlind, ablate, batched_dot, devic
 from diffpose_tpu_torch.ops.fused_denoiser import _cheb, _layer_norm
 from diffpose_tpu_torch.ops.tf32 import TIER_CODES, matmul_3xtf32
 from diffpose_tpu_torch.ops.fused_video_full import fused_st_layer, fused_temporal_layer
-from diffpose_tpu_torch.ops.fused_pipeline import lift_and_denoise, make_eval_fn
+from diffpose_tpu_torch.ops.fused_pipeline import lift_sample_mean, make_eval_fn
 from diffpose_tpu_torch.ops.philox import philox_masks
 from diffpose_tpu_torch.ops.train_ref import layers_forward, make_dropout_masks
 from diffpose_tpu_torch.parallel import worker
@@ -506,6 +506,14 @@ TOL_VIDEO_LOSS = 1e-6                     # relative, a sharded video step's los
 def check(ok: bool, msg: str):
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def pipeline(lift, denoise, *, x2d: torch.Tensor, test_times: int) -> torch.Tensor:
+    """The eval protocol (``lift_sample_mean``) over the given lifter and DDIM
+    denoiser at SEQ: the hypothesis mean's xyz, as ``make_eval_fn`` returns it."""
+    out, _ = lift_sample_mean(lift, lambda uvxyz: (ddim_sample(denoise, uvxyz, SEQ, BETAS), ()),
+                              x2d, test_times=test_times)
+    return out[..., 2:]
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1194,7 +1202,7 @@ def cli_phases(card):
         pass
     torch.cuda.synchronize()
     copy_ms = 1e3 * (time.perf_counter() - t0) / n_batches
-    eval_fn = runner._get_eval_fn(SEQ)
+    eval_fn = runner._get_eval_fn()
     prepared = eval_fn.prepare(runner.state, runner.pose_params)
     step_ms = time_ms(lambda: eval_fn(runner.state, runner.pose_params, batch, None,
                                       prepared=prepared), reps=5)
@@ -1612,7 +1620,7 @@ def implicit_cli_phases(card):
     # one eval batch by parts: the step on a batch on the card, its lift and
     # GMM draw, its solve, its Procrustes metric
     dev = runner.device
-    eval_fn = runner._get_implicit_eval_fn(False)
+    eval_fn = runner._get_eval_fn()
     prepared = eval_fn.prepare(runner.state, runner.pose_params)
     batch = next(iter(prefetch_to_device(runner._make_loader(runner.test_data, shuffle=False)
                                          .epoch(0), size=1, device=dev)))
@@ -2962,7 +2970,7 @@ def tier_net_phases(dev, basis, wp, wd, g, card):
         target = 0.3 * torch.randn((BATCH, 17, 3), generator=g, device=dev)
         dp1 = {}
         for tt in TEST_TIMES:
-            pipe = functools.partial(lift_and_denoise, x2d=x2d, seq=SEQ, betas=BETAS, test_times=tt)
+            pipe = functools.partial(pipeline, x2d=x2d, test_times=tt)
             ref = p1_mm(pipe(functools.partial(lifter_plain, wp),
                              functools.partial(denoiser_plain, wd)), target)
             for tier in ("bf16x3", *TIERS):
@@ -3813,7 +3821,7 @@ def main() -> int:
         for tt, out in outs.items():
             check(tuple(out.shape) == (BATCH, 17, 3) and bool(torch.isfinite(out).all()),
                   f"eval tt={tt} output shape {tuple(out.shape)} or non-finite values")
-            pipe = functools.partial(lift_and_denoise, x2d=x2d, seq=SEQ, betas=BETAS, test_times=tt)
+            pipe = functools.partial(pipeline, x2d=x2d, test_times=tt)
             plain = pipe(functools.partial(lifter_plain, wp), functools.partial(denoiser_plain, wd))
             module = pipe(pose, diff)
             e_plain, e_mod = max_err(out, plain), max_err(out, module)
@@ -3857,7 +3865,7 @@ def main() -> int:
                 kernels[-1].update(ms_b5120=ms, bound_ms_b5120=bms, bound_ms_fp32_b5120=bms32)
         for tt in TEST_TIMES:
             ms = time_ms(lambda: evals[tt](wp, wd, x2d), reps=5)
-            pipe = functools.partial(lift_and_denoise, x2d=x2d, seq=SEQ, betas=BETAS, test_times=tt)
+            pipe = functools.partial(pipeline, x2d=x2d, test_times=tt)
             plain_ms = time_ms(lambda: pipe(functools.partial(lifter_plain, wp),
                                             functools.partial(denoiser_plain, wd)), reps=3)
             print(f"eval b={BATCH} tt={tt}: {ms:.4f} ms, {BATCH / ms * 1e3:.1f} frames/s "

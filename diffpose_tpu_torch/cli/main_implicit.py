@@ -96,8 +96,6 @@ def _run(args, mesh) -> int:
     for name in _IGNORED:
         if getattr(args, name):
             logging.warning("--%s has no effect here (no chunking of the solve); ignored", name)
-    if args.use_implicit and args.eval_sweep > 1:
-        logging.warning("--eval_sweep has no effect with --use_implicit")
 
     try:
         runner = ImplicitRunner(

@@ -236,35 +236,20 @@ def make_sharded_train_sweep_step(model, optimizer, betas, mesh, *, sweep: int,
 
 def make_sharded_eval_step(diff_model, pose_model, betas, seq, mesh, *,
                            test_times: int = 1, eta: float = 0.0, use_ema: bool = False,
-                           sweep: int = 1, hyp_axis: Optional[str] = None,
-                           impl: str = "module", device="cuda", tier: str = "bf16x3") -> Callable:
+                           hyp_axis: Optional[str] = None, impl: str = "module", device="cuda",
+                           tier: str = "bf16x3") -> Callable:
     """The multi-rank eval step: frames shard over ``data``; with ``hyp_axis``
     (a second mesh axis) each rank also solves ``test_times / hyp_size`` of
     the hypotheses and their mean is a sum over that axis's group.
 
     Returns ``step(state, pose, batch, generator=None, prepared=None) → (p1,
     p2, pred_xyz)`` over this rank's slice of the frames (``batch`` is that
-    slice); ``step.prepare`` as on the single-process step.  ``sweep > 1``:
-    the step takes ``sweep``-stacked batches (``[S, B_local, ...]``) and
-    returns ``[S, B_local]`` errors, the same arithmetic as ``S`` calls."""
+    slice); ``step.prepare`` as on the single-process step."""
     from diffpose_tpu_torch.train.steps import make_eval_step
 
-    local = make_eval_step(diff_model, pose_model, betas, seq, test_times=test_times, eta=eta,
-                           use_ema=use_ema, impl=impl, device=device, tier=tier,
-                           hyp_axis=mesh_axis(mesh, hyp_axis) if hyp_axis else None)
-    if sweep <= 1:
-        return local
-
-    def sweep_step(state, pose, batches: dict, generator=None, prepared=None):
-        n = next(iter(batches.values())).shape[0]
-        if n != sweep:
-            raise ValueError(f"the batches hold {n} steps, the sweep was built for {sweep}")
-        outs = [local(state, pose, {k: v[s] for k, v in batches.items()}, generator,
-                      prepared=prepared) for s in range(sweep)]
-        return tuple(torch.stack(parts) for parts in zip(*outs))
-
-    sweep_step.prepare = local.prepare
-    return sweep_step
+    return make_eval_step(diff_model, pose_model, betas, seq, test_times=test_times, eta=eta,
+                          use_ema=use_ema, impl=impl, device=device, tier=tier,
+                          hyp_axis=mesh_axis(mesh, hyp_axis) if hyp_axis else None)
 
 
 # ----------------------------------------------------------------------

@@ -22,15 +22,12 @@ buffers it writes (``diffpose_tpu/train/implicit_runner.py:117-127,
 
 from __future__ import annotations
 
-import logging
-import time
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
 
 from diffpose_tpu_torch.config import Config, ImplicitConfig
-from diffpose_tpu_torch.metrics import ActionErrorAccumulator
 from diffpose_tpu_torch.models.igcn import IGCN
 from diffpose_tpu_torch.parallel.sharding import (
     make_sharded_implicit_eval_step,
@@ -44,10 +41,7 @@ from diffpose_tpu_torch.train.implicit_steps import (
     make_implicit_train_sweep_step,
 )
 from diffpose_tpu_torch.train.state import TrainState
-from diffpose_tpu_torch.train.trainer import DiffposeRunner, under_matmul_grade
-from diffpose_tpu_torch.utils.profiling import span
-
-logger = logging.getLogger(__name__)
+from diffpose_tpu_torch.train.trainer import DiffposeRunner
 
 
 class ImplicitRunner(DiffposeRunner):
@@ -177,15 +171,11 @@ class ImplicitRunner(DiffposeRunner):
     # Evaluation
     # ------------------------------------------------------------------
 
-    @under_matmul_grade("eval")
-    def evaluate(self, is_train: bool = False,
-                 state: Optional[TrainState] = None) -> Tuple[float, float]:
-        if not self.use_implicit:
-            return super().evaluate(is_train=is_train, state=state)
-        return self._evaluate_implicit(is_train=is_train, state=state)
-
-    def _get_implicit_eval_fn(self, warm: bool):
+    def _get_eval_fn(self):
         """The direct-inference eval step: built once, reused every epoch."""
+        if not self.use_implicit:
+            return super()._get_eval_fn()
+        warm = self.implicit.use_warm_start
         key = ("implicit_eval_fn", warm)
         fn = self._eval_cache.get(key)
         if fn is None:
@@ -203,53 +193,39 @@ class ImplicitRunner(DiffposeRunner):
             self._eval_cache[key] = fn
         return fn
 
-    def _evaluate_implicit(self, is_train: bool = False,
-                           state: Optional[TrainState] = None) -> Tuple[float, float]:
-        assert self.model_diff is not None and self.model_pose is not None
-        assert self.test_data is not None and self.pose_params is not None
-        if state is None:
-            if self.state is None:
-                self.state = TrainState.create(self.model_diff, optimizer=None, ema_params=None)
-            state = self.state
-        t_cfg, imp = self.config.testing, self.implicit
-        warm = imp.use_warm_start
-        eval_fn = self._get_implicit_eval_fn(warm)
-        with span("runner.prepare"):
-            prepared = eval_fn.prepare(state, self.pose_params)
-        was_training = self.model_diff.training
-        loader = self._make_loader(self.test_data, shuffle=False, keyed=False)
-        acc = ActionErrorAccumulator(self.test_data.actions, num_joints=self.config.model.n_pts,
-                                     reference_compat=self.reference_compat)
-        self.inference_times, self.fp_iterations = [], []
+    def _eval_hook(self, eval_fn, state: TrainState, prepared):
+        """The frame runner's, plus the warm-start carry from batch to batch,
+        reset at each evaluation (reference ``last_fixed_point``,
+        ``implicit_pose.py:466-467``), and each batch's iteration count, the
+        data ranks' mean over a mesh."""
+        if not self.use_implicit:
+            return super()._eval_hook(eval_fn, state, prepared)
+        imp, test_times = self.implicit, self.config.testing.test_times
+        self.fp_iterations = []
+        z0, z0_weight = None, 0.0
 
-        # the warm-start carry across eval batches, reset at each evaluation
-        # (reference last_fixed_point, implicit_pose.py:466-467)
-        z0, z0_w = None, 0.0
-        for batch in loader.epoch(0):
-            t0 = time.time()
-            local = self._local_batch(batch)
-            if warm:
-                if z0 is None:
-                    z0 = self._zeros_like_carry(local["poses_3d"].shape[0] * t_cfg.test_times)
-                p1, p2, _, iters, z0 = eval_fn(state, self.pose_params, local, self.generator,
-                                               z0, z0_w, prepared=prepared)
-                z0_w = imp.warm_start_momentum
-            else:
-                p1, p2, _, iters = eval_fn(state, self.pose_params, local, self.generator,
-                                           prepared=prepared)
-            with span("runner.readback"):
-                p1, p2 = self._gathered(p1, p2)   # waits for the batch
-            self.inference_times.append(time.time() - t0)
-            if self.mesh is not None:   # the data ranks' mean count
+        def run(local: dict):
+            nonlocal z0, z0_weight
+            if not imp.use_warm_start:
+                return eval_fn(state, self.pose_params, local, self.generator, prepared=prepared)
+            if z0 is None:
+                z0 = self._zeros_like_carry(local["poses_3d"].shape[0] * test_times)
+            out = eval_fn(state, self.pose_params, local, self.generator, z0, z0_weight,
+                          prepared=prepared)
+            z0, z0_weight = out[4], imp.warm_start_momentum
+            return out
+
+        def done(out):
+            iters = out[3]
+            if self.mesh is not None:
                 iters = mean_over(torch.as_tensor(iters, dtype=torch.float32,
                                                   device=self.device).reshape(()), self._data)
             self.fp_iterations.append(float(iters))
-            acc.add(batch, p1, p2)
-        self.model_diff.train(was_training)
 
-        self.eval_frames = acc.frames
-        logger.info("MPJPE: %.4f | P-MPJPE: %.4f | mean fp iterations: %.1f",
-                    acc.p1_meter.avg, acc.p2_meter.avg,
-                    float(np.mean(self.fp_iterations)) if self.fp_iterations else 0.0)
-        self.last_error_sum = acc.error_sum
-        return acc.summarize(print_table=not is_train)
+        return run, done
+
+    def _eval_note(self) -> str:
+        if not self.use_implicit:
+            return super()._eval_note()
+        mean = float(np.mean(self.fp_iterations)) if self.fp_iterations else 0.0
+        return f" | mean fp iterations: {mean:.1f}"

@@ -19,23 +19,15 @@ averaged and ``fp_residual`` the maximum
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from diffpose_tpu_torch.data.gmm import sample_gmm_batch_per_sample
-from diffpose_tpu_torch.metrics import mpjpe_per_sample, p_mpjpe_per_sample
 from diffpose_tpu_torch.models.ema import ema_update
 from diffpose_tpu_torch.models.igcn import bn_state
-from diffpose_tpu_torch.ops.fused_denoiser import (
-    fused_lifter,
-    prepare_weights,
-    resolve_device,
-    tier_weights,
-)
+from diffpose_tpu_torch.ops.fused_denoiser import prepare_weights, resolve_device, tier_weights
 from diffpose_tpu_torch.ops.fused_igcn import make_igcn_fn
 from diffpose_tpu_torch.ops.fused_igcn_train import make_igcn_train_fn
 from diffpose_tpu_torch.parallel.mesh import MeshAxis
@@ -44,11 +36,10 @@ from diffpose_tpu_torch.train.state import TrainState
 from diffpose_tpu_torch.train.steps import (
     DROPOUTS,
     StepDraws,
-    _swapped_in,
     diffusion_loss,
     make_draw,
+    make_eval_shell,
 )
-from diffpose_tpu_torch.utils.profiling import span
 
 IMPLS = ("module", "fused")
 BN_BUFFERS = ("running_mean", "running_var")
@@ -201,25 +192,14 @@ def make_implicit_train_sweep_step(model, optimizer, betas, *, sweep: int,
     return sweep_step
 
 
-@torch.no_grad()
-def _weights_of(state, pose, use_ema: bool, device, tier: str = "bf16x3"):
-    """The lifter's and the IGCN's stacked weights at the kernels' tier (the
-    IGCN's ChebConvs, outside the kernel, f32) and the IGCN's BatchNorm
-    state, the EMA shadow in place of the live parameters with ``use_ema``
-    (the running buffers stay live: EMA covers parameters only)."""
-    ema = state.ema_params if use_ema and state.ema_params is not None else None
-    with _swapped_in(state.model, ema):
-        diff_w = tier_weights(prepare_weights(state.model, device=device), tier, ends=False)
-        bn = {k: v.clone() for k, v in bn_state(state.model).items()}
-    return tier_weights(prepare_weights(pose, device=device), tier), diff_w, bn
-
-
 def make_implicit_eval_step(implicit_model, pose_model, *, t_infer: int, test_times: int = 1,
                             mask=None, use_ema: bool = False, gmm_base_seed: int = 0,
                             use_warm_start: bool = False, impl: str = "module", device="cuda",
                             tier: str = "bf16x3"):
     """Direct-inference eval: lift → ONE fixed-point solve at ``t_infer`` →
     hypothesis mean → P1/P2 (``diffpose_tpu/train/implicit_steps.py:211-283``).
+    The shell is ``train/steps.py:make_eval_shell``; the sampler, the solve,
+    is this family's.
 
     ``impl="fused"``: the lift is ``fused_lifter`` (kernel row 2) and the
     solve ``ops/fused_igcn.py:make_igcn_fn`` (row 3 once per iteration); on
@@ -231,8 +211,11 @@ def make_implicit_eval_step(implicit_model, pose_model, *, t_infer: int, test_ti
     iterations[, fixed_point])``; the fixed point is returned with
     ``use_warm_start``, for the next batch's ``z0``.  ``eval_step.prepare
     (state, pose)`` stacks the weights under evaluation once
-    (``impl="fused"``); pass it as ``prepared`` to every batch of one
-    evaluation.
+    (``impl="fused"``): the lifter's and the IGCN's at the kernels' tier (the
+    IGCN's ChebConvs, outside the kernel, f32) and the IGCN's BatchNorm state,
+    the EMA shadow in place of the live parameters with ``use_ema`` (the
+    running buffers stay live: EMA covers parameters only); pass it as
+    ``prepared`` to every batch of one evaluation.
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
@@ -240,56 +223,20 @@ def make_implicit_eval_step(implicit_model, pose_model, *, t_infer: int, test_ti
     device = resolve_device(device)
     solve = make_igcn_fn(implicit_model, device=device, tier=tier) if impl == "fused" else None
 
-    def prepare(state, pose):
-        return _weights_of(state, pose, use_ema, device, tier) if impl == "fused" else None
+    def diff_weights(model):
+        return (tier_weights(prepare_weights(model, device=device), tier, ends=False),
+                {k: v.clone() for k, v in bn_state(model).items()})
 
-    @torch.no_grad()
-    def eval_step(state: TrainState, pose, batch: dict, generator=None, z0=None, z0_weight=None,
-                  prepared=None):
-        with span("step.eval"):
-            return step_body(state, pose, batch, z0, z0_weight, prepared)
-
-    def step_body(state, pose, batch, z0, z0_weight, prepared):
-        if state.model is not implicit_model:
-            raise ValueError("the state holds another model than the step")
-        pose = pose_model if pose is None else pose
-        with span("step.inputs"):
-            gmm = torch.as_tensor(batch["poses_2d_gmm"], device=device)
-            poses_3d = torch.as_tensor(batch["poses_3d"], device=device)
-            seeds = torch.as_tensor(batch["seeds"], device=device)
-        with span("step.gmm"):
-            _, _, input_2d = sample_gmm_batch_per_sample(gmm_base_seed, seeds, gmm, poses_3d)
-        input_2d = input_2d.contiguous()   # a slice of the chosen kernels; the wrappers take no strides
-
-        if impl == "fused":
-            pose_w, diff_w, bn = prepared if prepared is not None else prepare(state, pose)
-            lift = functools.partial(fused_lifter, pose_w)
-            denoise = functools.partial(solve, diff_w, bn)
-            swap = contextlib.nullcontext()
-        else:
-            implicit_model.eval()
-            pose.eval()
-            lift = pose
-            denoise = functools.partial(implicit_model, differentiable=False)
-            ema = state.ema_params if use_ema and state.ema_params is not None else None
-            swap = _swapped_in(implicit_model, ema)
-
-        xyz = lift(input_2d)
-        xyz = xyz - xyz[:, :1, :]
-        uvxyz = torch.cat([input_2d, xyz], dim=-1).repeat(test_times, 1, 1)
+    def sample(denoise, uvxyz, noise_scale, generator, z0=None, z0_weight=None):
         t_vec = torch.full((uvxyz.shape[0],), float(t_infer), dtype=uvxyz.dtype, device=device)
-        with swap:
-            out, aux = denoise(uvxyz, t_vec, z0=z0, z0_weight=z0_weight)
-        out = out.reshape(test_times, -1, out.shape[1], out.shape[2]).mean(dim=0)
-
-        pred_xyz = out[..., 2:]
-        pred_xyz = pred_xyz - pred_xyz[:, :1, :]
-        target = poses_3d - poses_3d[:, :1, :]
-        with span("metrics.errors"):
-            p1, p2 = mpjpe_per_sample(pred_xyz, target), p_mpjpe_per_sample(pred_xyz, target)
+        out, aux = denoise(uvxyz, t_vec, z0=z0, z0_weight=z0_weight)
         if use_warm_start:
-            return p1, p2, pred_xyz, aux["iterations"], aux["fixed_point"]
-        return p1, p2, pred_xyz, aux["iterations"]
+            return out, (aux["iterations"], aux["fixed_point"])
+        return out, (aux["iterations"],)
 
-    eval_step.prepare = prepare
-    return eval_step
+    return make_eval_shell(
+        implicit_model, pose_model, impl=impl, device=device, use_ema=use_ema,
+        gmm_base_seed=gmm_base_seed, test_times=test_times, hyp_axis=None, tier=tier,
+        diff_weights=diff_weights,
+        fused_denoiser_of=lambda w, bn: functools.partial(solve, w, bn),
+        module_denoiser=functools.partial(implicit_model, differentiable=False), sample=sample)

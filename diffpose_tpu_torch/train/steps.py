@@ -43,12 +43,13 @@ from diffpose_tpu_torch.ops.fused_denoiser import (
     resolve_device,
     tier_weights,
 )
+from diffpose_tpu_torch.ops.fused_pipeline import lift_sample_mean
 from diffpose_tpu_torch.ops.fused_train import build_train_stack, fused_train_forward
 from diffpose_tpu_torch.ops.philox import philox_masks
 from diffpose_tpu_torch.ops.tf32 import PARITY_TIER
 from diffpose_tpu_torch.ops.train_ref import DropoutMasks, make_dropout_masks, train_forward
 from diffpose_tpu_torch.parallel.mesh import MeshAxis
-from diffpose_tpu_torch.parallel.sharding import all_reduce_mean_grads, fold_in, sum_over
+from diffpose_tpu_torch.parallel.sharding import all_reduce_mean_grads, fold_in
 from diffpose_tpu_torch.train.state import TrainState
 from diffpose_tpu_torch.utils.profiling import span
 
@@ -241,6 +242,85 @@ def _swapped_in(model, params):
             p.data = live[name]
 
 
+def make_eval_shell(diff_model, pose_model, *, impl: str, device, use_ema: bool,
+                    gmm_base_seed: int, test_times: int, hyp_axis: Optional[MeshAxis], tier: str,
+                    diff_weights: Callable, fused_denoiser_of: Callable, module_denoiser: Callable,
+                    sample: Callable):
+    """The eval step of the frame and implicit families, around the family's
+    sampler: inputs to the device → per-sample GMM draw → the protocol
+    (``ops/fused_pipeline.py:lift_sample_mean``) → root-centred pose → P1/P2.
+
+    The family supplies ``diff_weights(model)``, the denoiser's prepared
+    weights as a tuple (``impl="fused"``; made with the EMA shadow swapped
+    in); ``fused_denoiser_of(*weights)`` and ``module_denoiser``, its forward
+    over those weights or over the module; and ``sample(denoise, uvxyz,
+    noise_scale, generator, *carry) → (x, extra)``, its sampler, whose
+    ``extra`` outputs follow ``(p1, p2, pred_xyz)``.
+
+    Returns ``eval_step(state, pose, batch, generator=None, *carry,
+    prepared=None)`` and its ``prepare(state, pose)`` (both families'
+    docstrings)."""
+    if impl not in EVAL_IMPLS:
+        raise ValueError(f"impl must be one of {EVAL_IMPLS}, got {impl!r}")
+
+    def ema_of(state):
+        return state.ema_params if use_ema and state.ema_params is not None else None
+
+    @torch.no_grad()
+    def prepare(state, pose):
+        if impl != "fused":
+            return None
+        with _swapped_in(state.model, ema_of(state)):
+            diff_w = diff_weights(state.model)
+        return (tier_weights(prepare_weights(pose, device=device), tier), *diff_w)
+
+    @torch.no_grad()
+    def eval_step(state, pose, batch: dict, generator: Optional[torch.Generator] = None, *carry,
+                  prepared=None):
+        with span("step.eval"):
+            return step_body(state, pose, batch, generator, carry, prepared)
+
+    def step_body(state, pose, batch, generator, carry, prepared):
+        if state.model is not diff_model:
+            raise ValueError("the state holds another model than the step")
+        pose = pose_model if pose is None else pose
+        with span("step.inputs"):
+            gmm = torch.as_tensor(batch["poses_2d_gmm"], device=device)
+            poses_3d = torch.as_tensor(batch["poses_3d"], device=device)
+            seeds = torch.as_tensor(batch["seeds"], device=device)
+        with span("step.gmm"):
+            _, noise_scale, input_2d = sample_gmm_batch_per_sample(gmm_base_seed, seeds, gmm,
+                                                                   poses_3d)
+        input_2d = input_2d.contiguous()      # a slice of the chosen kernels; the wrappers take no strides
+
+        if impl == "fused":
+            pose_w, *diff_w = prepared if prepared is not None else prepare(state, pose)
+            lift = functools.partial(fused_lifter, pose_w)
+            denoise = fused_denoiser_of(*diff_w)
+            swap = contextlib.nullcontext()
+        else:
+            diff_model.eval()
+            pose.eval()
+            lift, denoise = pose, module_denoiser
+            swap = _swapped_in(diff_model, ema_of(state))
+
+        def sample_swapped(uvxyz):
+            with swap:
+                return sample(denoise, uvxyz, noise_scale, generator, *carry)
+
+        out, extra = lift_sample_mean(lift, sample_swapped, input_2d, test_times=test_times,
+                                      hyp_axis=hyp_axis)
+        pred_xyz = out[..., 2:]
+        pred_xyz = pred_xyz - pred_xyz[:, :1, :]
+        target = poses_3d - poses_3d[:, :1, :]
+        with span("metrics.errors"):
+            return (mpjpe_per_sample(pred_xyz, target), p_mpjpe_per_sample(pred_xyz, target),
+                    pred_xyz, *extra)
+
+    eval_step.prepare = prepare
+    return eval_step
+
+
 def make_eval_step(diff_model, pose_model, betas, seq: Sequence[int], *, test_times: int = 1,
                    eta: float = 0.0, add_start_noise: bool = False, use_ema: bool = False,
                    gmm_base_seed: int = 0, impl: str = "module", device="cuda",
@@ -253,7 +333,8 @@ def make_eval_step(diff_model, pose_model, betas, seq: Sequence[int], *, test_ti
     uvxyz, replicate ``test_times`` hypotheses, run the (eta=0) DDIM
     subsequence *starting from the lifted uvxyz* (the noising line is
     disabled in the reference, ``:363``), average hypotheses, root-centre,
-    and return per-sample P1/P2 errors.
+    and return per-sample P1/P2 errors.  The shell is :func:`make_eval_shell`;
+    the sampler, the DDIM loop over ``seq``, is this family's.
 
     ``impl="fused"`` runs the lifter and the denoiser through the
     whole-network CUDA kernels of ``ops/fused_denoiser.py`` (on a CPU device:
@@ -278,8 +359,6 @@ def make_eval_step(diff_model, pose_model, betas, seq: Sequence[int], *, test_ti
     its result as ``prepared`` to every batch of one evaluation, or leave it
     out and the step prepares them itself.
     """
-    if impl not in EVAL_IMPLS:
-        raise ValueError(f"impl must be one of {EVAL_IMPLS}, got {impl!r}")
     device = resolve_device(device)
     seq = tuple(int(s) for s in seq)
     if hyp_axis is not None and test_times % hyp_axis.size:
@@ -287,50 +366,7 @@ def make_eval_step(diff_model, pose_model, betas, seq: Sequence[int], *, test_ti
                          "hypothesis ranks")
     tt_local = test_times // hyp_axis.size if hyp_axis is not None else test_times
 
-    def ema_of(state):
-        return state.ema_params if use_ema and state.ema_params is not None else None
-
-    @torch.no_grad()
-    def prepare(state, pose):
-        if impl != "fused":
-            return None
-        with _swapped_in(state.model, ema_of(state)):
-            diff_w = tier_weights(prepare_weights(state.model, device=device), tier)
-        return tier_weights(prepare_weights(pose, device=device), tier), diff_w
-
-    @torch.no_grad()
-    def eval_step(state, pose, batch: dict, generator: Optional[torch.Generator] = None,
-                  prepared=None):
-        with span("step.eval"):
-            return step_body(state, pose, batch, generator, prepared)
-
-    def step_body(state, pose, batch, generator, prepared):
-        if state.model is not diff_model:
-            raise ValueError("the state holds another model than the step")
-        pose = pose_model if pose is None else pose
-        with span("step.inputs"):
-            gmm = torch.as_tensor(batch["poses_2d_gmm"], device=device)
-            poses_3d = torch.as_tensor(batch["poses_3d"], device=device)
-            seeds = torch.as_tensor(batch["seeds"], device=device)
-        with span("step.gmm"):
-            _, noise_scale, input_2d = sample_gmm_batch_per_sample(gmm_base_seed, seeds, gmm,
-                                                                   poses_3d)
-        input_2d = input_2d.contiguous()      # a slice of the chosen kernels; the wrappers take no strides
-
-        if impl == "fused":
-            pose_w, diff_w = prepared if prepared is not None else prepare(state, pose)
-            lift = functools.partial(fused_lifter, pose_w)
-            denoise = functools.partial(fused_denoiser, diff_w)
-            swap = contextlib.nullcontext()
-        else:
-            diff_model.eval()
-            pose.eval()
-            lift, denoise = pose, diff_model
-            swap = _swapped_in(diff_model, ema_of(state))
-
-        xyz = lift(input_2d)
-        xyz = xyz - xyz[:, :1, :]
-        uvxyz = torch.cat([input_2d, xyz], dim=-1).repeat(tt_local, 1, 1)
+    def sample(denoise, uvxyz, noise_scale, generator):
         if hyp_axis is not None and generator is not None and (add_start_noise or eta):
             generator = fold_in(generator, hyp_axis.index)
         if add_start_noise:
@@ -338,21 +374,11 @@ def make_eval_step(diff_model, pose_model, betas, seq: Sequence[int], *, test_ti
                             dtype=uvxyz.dtype) * noise_scale.repeat(tt_local, 1, 1)
             t0 = torch.full((uvxyz.shape[0],), seq[-1], dtype=torch.int64, device=device)
             uvxyz = q_sample(uvxyz, t0, e, betas)
-        with swap:
-            out = ddim_sample(denoise, uvxyz, seq, betas, eta=eta, generator=generator)
-        out = out.reshape(tt_local, -1, out.shape[1], out.shape[2])
-        if hyp_axis is not None:
-            # the hypothesis mean across the axis: local sum, then a sum over its group
-            out = sum_over(out.sum(dim=0), hyp_axis) / test_times
-        else:
-            out = out.mean(dim=0)
+        return ddim_sample(denoise, uvxyz, seq, betas, eta=eta, generator=generator), ()
 
-        pred_xyz = out[..., 2:]
-        pred_xyz = pred_xyz - pred_xyz[:, :1, :]
-        target = poses_3d - poses_3d[:, :1, :]
-        with span("metrics.errors"):
-            return (mpjpe_per_sample(pred_xyz, target), p_mpjpe_per_sample(pred_xyz, target),
-                    pred_xyz)
-
-    eval_step.prepare = prepare
-    return eval_step
+    return make_eval_shell(
+        diff_model, pose_model, impl=impl, device=device, use_ema=use_ema,
+        gmm_base_seed=gmm_base_seed, test_times=test_times, hyp_axis=hyp_axis, tier=tier,
+        diff_weights=lambda model: (tier_weights(prepare_weights(model, device=device), tier),),
+        fused_denoiser_of=lambda w: functools.partial(fused_denoiser, w),
+        module_denoiser=diff_model, sample=sample)

@@ -486,14 +486,18 @@ class DiffposeRunner:
     # Evaluation (reference test_hyber)
     # ------------------------------------------------------------------
 
-    def _get_eval_fn(self, seq):
+    def _get_eval_fn(self):
         """The per-batch eval step: built once, reused every epoch."""
+        t_cfg = self.config.testing
+        seq = make_skip_sequence(
+            self.skip_type, t_cfg.test_timesteps, t_cfg.test_num_diffusion_timesteps
+        )
+        logger.info("using %d diffusion steps: %s", len(seq), list(seq))
         key = ("eval_fn", tuple(seq))
         fn = self._eval_cache.get(key)
         if fn is not None:
             return fn
         self._eval_builds += 1
-        t_cfg = self.config.testing
         kwargs = dict(test_times=t_cfg.test_times, eta=self.eta, use_ema=self.use_ema_eval,
                       impl=self.denoiser_impl, device=self.device, tier=self.kernel_precision)
         if self.mesh is not None:
@@ -504,6 +508,20 @@ class DiffposeRunner:
             fn = make_eval_step(self.model_diff, self.model_pose, self.betas, seq, **kwargs)
         self._eval_cache[key] = fn
         return fn
+
+    def _eval_hook(self, eval_fn, state: TrainState, prepared):
+        """The family's part of one ``evaluate``, made at its start: ``run(local)``
+        enqueues one batch (this rank's slice) through the step and returns the
+        step's outputs, ``done(out)`` takes them once the batch's errors are read
+        back, outside the timed span."""
+        def run(local: dict):
+            return eval_fn(state, self.pose_params, local, self.generator, prepared=prepared)
+
+        return run, lambda out: None
+
+    def _eval_note(self) -> str:
+        """What the family adds to the evaluation's log line."""
+        return ""
 
     def _local_batch(self, batch: dict) -> dict:
         """This rank's slice of a global eval batch (the batch itself without
@@ -517,14 +535,11 @@ class DiffposeRunner:
 
     @under_matmul_grade("eval")
     def evaluate(self, is_train: bool = False, state: Optional[TrainState] = None) -> Tuple[float, float]:
+        """The eval loop of the frame and implicit families: their steps
+        differ only in the sampler (``train/steps.py:make_eval_shell``), their
+        loops only in :meth:`_eval_hook`."""
         assert self.model_diff is not None and self.model_pose is not None
         assert self.test_data is not None and self.pose_params is not None
-        t_cfg = self.config.testing
-        seq = make_skip_sequence(
-            self.skip_type, t_cfg.test_timesteps, t_cfg.test_num_diffusion_timesteps
-        )
-        logger.info("using %d diffusion steps: %s", len(seq), list(seq))
-
         if state is None:
             if self.state is None:
                 # eval-only path: wrap the bare model in a state
@@ -539,9 +554,10 @@ class DiffposeRunner:
             reference_compat=self.reference_compat,
         )
         self.inference_times = []
-        eval_fn = self._get_eval_fn(seq)
+        eval_fn = self._get_eval_fn()
         with span("runner.prepare"):
             prepared = eval_fn.prepare(state, self.pose_params)
+        run, done = self._eval_hook(eval_fn, state, prepared)
         sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
 
         # `eval_sweep` batches go to the device before their errors are read
@@ -555,14 +571,14 @@ class DiffposeRunner:
                 return
             with span("runner.batch"):
                 t0 = time.time()
-                outs = [eval_fn(state, self.pose_params, self._local_batch(b), self.generator,
-                                prepared=prepared) for b in group]
+                outs = [run(self._local_batch(b)) for b in group]
                 with span("runner.sync"):
                     sync()
                 with span("runner.readback"):
-                    results = [self._gathered(p1, p2) for p1, p2, _ in outs]
+                    results = [self._gathered(out[0], out[1]) for out in outs]
                 self.inference_times.append(time.time() - t0)
-                for b, (p1_b, p2_b) in zip(group, results):
+                for b, out, (p1_b, p2_b) in zip(group, outs, results):
+                    done(out)
                     acc.add(b, p1_b, p2_b)
                 group.clear()
 
@@ -574,7 +590,8 @@ class DiffposeRunner:
         self.model_diff.train(was_training)
 
         self.eval_frames = acc.frames
-        logger.info("MPJPE: %.4f | P-MPJPE: %.4f", acc.p1_meter.avg, acc.p2_meter.avg)
+        logger.info("MPJPE: %.4f | P-MPJPE: %.4f%s", acc.p1_meter.avg, acc.p2_meter.avg,
+                    self._eval_note())
         self.last_error_sum = acc.error_sum  # per-action accumulators (parity checks)
         return acc.summarize(print_table=not is_train)
 

@@ -27,25 +27,25 @@ SPANS = (
     ("loader.batch", "loader",
      "BatchLoader.epoch: one batch built on the host (indices, seeds, the row gather)"),
     ("runner.prepare", "runner",
-     "DiffposeRunner.evaluate, ImplicitRunner's eval: the eval step's weights prepared once a call"),
+     "DiffposeRunner.evaluate (the frame and implicit families' one eval loop): the eval step's "
+     "weights prepared once a call"),
     ("runner.batch", "runner",
      "DiffposeRunner.evaluate: one group of eval_sweep batches, enqueue to accumulate"),
     ("runner.sync", "runner",
      "DiffposeRunner.evaluate: the host waiting on the device once a group"),
     ("runner.readback", "runner",
-     "DiffposeRunner.evaluate: the group's per-sample errors copied to the host; ImplicitRunner's "
-     "eval: the host waiting on the batch and copying its errors"),
+     "DiffposeRunner.evaluate: the group's per-sample errors copied to the host"),
     ("step.eval", "step",
-     "make_eval_step, make_implicit_eval_step: one eval batch enqueued, from its inputs to its "
-     "errors (the implicit solve's convergence reads wait on the device inside it)"),
+     "make_eval_shell (make_eval_step, make_implicit_eval_step): one eval batch enqueued, from its "
+     "inputs to its errors (the implicit solve's convergence reads wait on the device inside it)"),
     ("step.inputs", "step",
-     "make_eval_step, make_implicit_eval_step: the batch's arrays copied to the device"),
+     "make_eval_shell: the batch's arrays copied to the device"),
     ("step.gmm", "step",
-     "make_eval_step, make_implicit_eval_step: the per-sample GMM kernel draw"),
+     "make_eval_shell: the per-sample GMM kernel draw"),
     ("diffusion.step", "step",
      "ddim_sample: one DDIM step, the denoiser call and the update"),
     ("metrics.errors", "metrics",
-     "make_eval_step, make_implicit_eval_step: the batch's per-sample MPJPE and P-MPJPE"),
+     "make_eval_shell: the batch's per-sample MPJPE and P-MPJPE"),
     ("solver.f", "solver",
      "solve_anderson, solve_damped: one evaluation of the fixed-point map f, enqueued"),
     ("solver.mix", "solver",

@@ -15,6 +15,7 @@ from diffpose_tpu.train import DiffposeRunner as JDiffposeRunner
 from diffpose_tpu_torch import config as tconfig
 from diffpose_tpu_torch.data.synthetic import make_synthetic_dataset
 from diffpose_tpu_torch.ops import fused_train as ft
+from diffpose_tpu_torch.train.implicit_runner import ImplicitRunner
 from diffpose_tpu_torch.train.trainer import DiffposeRunner
 from test_torch_models import BASIS, perturbed
 
@@ -117,6 +118,33 @@ def test_second_evaluate_builds_nothing_and_is_deterministic():
     module = make_runner(tiny_config(), denoiser_impl="module")
     module.set_data(None, runner.test_data)
     assert module.evaluate(is_train=True) == pytest.approx(a, abs=1e-2)   # same seed, same weights
+
+
+@pytest.mark.parametrize("family", ["frame", "implicit"])
+def test_eval_sweep_gives_the_same_results(family):
+    """``eval_sweep`` 2 (two batches a host synchronisation) gives the P1/P2
+    and the per-action sums of 1 in the frame and implicit families' one eval
+    loop; the implicit runner carries its warm start from batch to batch."""
+    cfg = tiny_config()
+    cfg.testing.test_times = 2
+    cfg.implicit = tconfig.ImplicitConfig(max_iterations=6, min_iterations=3, use_warm_start=True)
+    data = make_synthetic_dataset(num_frames=80, seed=1)      # 3 batches of 32, the last wrapped
+    got = []
+    for sweep in (1, 2):
+        if family == "frame":
+            runner = make_runner(cfg, seed=5, denoiser_impl="fused", eval_sweep=sweep)
+        else:
+            runner = ImplicitRunner(cfg, seed=5, device="cpu", denoiser_impl="fused",
+                                    eval_sweep=sweep)
+            runner.create_diffusion_model()
+            runner.create_pose_model()
+        runner.set_data(None, data)
+        p1_p2 = runner.evaluate(is_train=True)
+        sums = {(a, k): (v.sum, v.count) for a, d in runner.last_error_sum.items()
+                for k, v in d.items()}
+        got.append((p1_p2, sums, getattr(runner, "fp_iterations", None)))
+        assert len(runner.inference_times) == (3 if sweep == 1 else 2)   # one time a group
+    assert got[0] == got[1]
 
 
 @pytest.mark.parametrize("variants,exc,match", [
