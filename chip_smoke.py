@@ -103,7 +103,8 @@ The implicit (IGCN) family, at the width of ``configs/human36m_ipose.yml``
     ``configs/human36m_ipose.yml``, 4096 synthetic frames, B=512,
     ``--train_impl fused --dropout_impl prng --denoiser_impl fused``: train 2
     epochs, resume for a third, evaluate the checkpoint: launch counts (1
-    lifter and 1 + iterations row-3 launches an eval batch, 21 seeded
+    lifter and 1 + the moving bodies' row-3 launches an eval batch (3 at
+    10 iterations: a stalled body evaluates no map), 21 seeded
     forward and 20 seeded backward launches a step, none of the explicit
     pair or the denoiser), files,
     finite losses, moved BatchNorm buffers, eval-only P1/P2 equal to the
@@ -294,8 +295,8 @@ phase 10 also counts its launches, one an eval batch):
     host's time a call of P1 + P2.
 
 The Anderson body's kernels (``ops/fused_anderson.py``, built in phase 1;
-phase 13 counts 10 bodies through them in the config's solve, phase 15 one
-an iteration of the eval-only run):
+phase 13 counts 10 bodies through them in the config's solve and 3 row-3
+launches, phase 15 one an iteration of the eval-only run):
 
 39. their registers and spills (none); bodies 0-14 of the config's solve
     (2,560 rows x 17 x 96, m=5, the seeded IGCN's map through row 3) and four
@@ -306,7 +307,11 @@ an iteration of the eval-only run):
     stalled body's and a plain-step body's device time by kernel beside
     their bytes at 3.35 TB/s and the plain body's time; the config's whole
     stopped solve with the kernels and with the plain body: 10 and 10
-    bodies, the output and fixed point within 1e-6 relative.
+    bodies, the output and fixed point within 1e-6 relative; the config's
+    stopped solve, which evaluates the map only after a body that moved
+    ``z``, against a loop that evaluates it after every body: ``z*``,
+    iterations and residual bit-equal, row 3 twice on one ``z`` bit-equal,
+    and row-3 launches a solve, 3 against 11.
 
 Each family's wall seconds are printed.
 
@@ -1231,6 +1236,14 @@ def seeded_igcn(basis, dev, gen, **solver):
     return model.to(dev)
 
 
+def anderson_maps(iterations, m: int = 5) -> int:
+    """Row-3 launches of a stopped Anderson solve of ``iterations`` bodies at
+    history ``m``: one before the loop and one after each body that moves
+    ``z`` (bodies 0, m, 2m, …; the rule stalls the others, which evaluate no
+    map)."""
+    return 1 + -(-round(iterations) // m)
+
+
 def with_solver(model, solver: str, max_iterations: int, min_iterations: int, m: int = 5):
     out = copy.deepcopy(model)
     out.solver, out.max_iterations, out.min_iterations = solver, max_iterations, min_iterations
@@ -1312,7 +1325,7 @@ def implicit_kernel_phases(dev, basis, gen, g, card):
             fused_backbone.launches = 0
             out, aux = make_igcn_fn(m)(ms_w, ms_bn, ms_x, t)
             torch.cuda.synchronize()
-            want_launches = k + (solver == "anderson")
+            want_launches = anderson_maps(k, m.anderson_m) if solver == "anderson" else k
             check(fused_backbone.launches == want_launches,
                   f"{solver} {k}/{k}: {fused_backbone.launches} row-3 launches, expected {want_launches}")
             out_p, aux_p = make_igcn_fn(m, backbone=backbone_plain)(ms_w, ms_bn, ms_x, t)
@@ -1334,7 +1347,8 @@ def implicit_kernel_phases(dev, basis, gen, g, card):
     fused_backbone.launches = fused_anderson_body.launches = 0
     out, aux = fn(w, bn, x, t)
     torch.cuda.synchronize()
-    check(fused_backbone.launches == 1 + aux["iterations"], "row-3 launches of the config's solve")
+    check(fused_backbone.launches == anderson_maps(aux["iterations"], model.anderson_m) == 3,
+          f"row-3 launches of the config's solve: {fused_backbone.launches}, expected 3")
     check(fused_anderson_body.launches == aux["iterations"] == 10,
           f"the config's solve: {fused_anderson_body.launches} bodies through the Anderson kernels "
           f"in {aux['iterations']} iterations, expected 10 and 10")
@@ -1468,7 +1482,8 @@ def implicit_kernel_phases(dev, basis, gen, g, card):
             iters.append(fn(w, bn, x, t)[1]["iterations"])
         solve_ms = time_ms(solve_once, reps=3, runs=5)
         print(f"eval solve (make_igcn_fn) B={IMPLICIT_BATCH}: {solve_ms:.4f} ms a batch, mean "
-              f"iterations {statistics.mean(iters):.2f} ({1 + statistics.mean(iters):.2f} launches), "
+              f"iterations {statistics.mean(iters):.2f} "
+              f"({statistics.mean(anderson_maps(k) for k in iters):.2f} row-3 launches), "
               f"{IMPLICIT_BATCH / solve_ms * 1e3:.1f} frames/s  [{card}]")
 
     # the train step by parts (Anderson 20/10, prng, B=512)
@@ -1545,7 +1560,7 @@ def implicit_cli_phases(card):
     counts = launch_counts()
     means = eval_iterations(run / "stdout.txt")
     want = {"lifter": 2 * eval_batches, "denoiser": 0,
-            "backbone": round(sum(eval_batches * (1 + v) for v in means)),
+            "backbone": sum(eval_batches * anderson_maps(v) for v in means),
             "fwd": 0, "bwd": 0, "fwd_prng": 2 * steps_per_epoch * per_step[0],
             "bwd_prng": 2 * steps_per_epoch * per_step[1], "temporal": 0, "st": 0}
     print(f"main path (implicit CLI: 2 epochs of {steps_per_epoch} steps, {eval_batches} eval "
@@ -1585,7 +1600,8 @@ def implicit_cli_phases(card):
           f"implicit CLI eval-only: {counts['anderson']} bodies through the Anderson kernels in "
           f"{eval_batches} batches of {e_means[0]} iterations")
     check(e_counts == dict(want, lifter=eval_batches,
-                           backbone=round(eval_batches * (1 + e_means[0])), fwd_prng=0, bwd_prng=0),
+                           backbone=eval_batches * anderson_maps(e_means[0]), fwd_prng=0,
+                           bwd_prng=0),
           f"implicit CLI eval-only launches {e_counts}")
     trained = logged_errors(run / "stdout.txt")[-1]
     alone = logged_errors(exp / "evalonly" / "stdout.txt")[-1]
@@ -3615,6 +3631,55 @@ def anderson_held(what: str, z, fz, X, F, it: int, beta: float, lam: float):
     return (zp, ep, Xp, Fp), max(e_z, e_err)
 
 
+def every_body_solve(f, z, tol, model):
+    """``model``'s stopped Anderson solve with ``f`` evaluated after every
+    body, the stalled ones too: ``(z*, iterations, residual)``."""
+    m = min(model.anderson_m, model.max_iterations)
+    X, F = z.new_zeros((m, z.numel())), z.new_zeros((m, z.numel()))
+    fz, err = f(z)[0], None
+    for it in range(model.max_iterations):
+        z, err, X, F, _ = fused_anderson_body(z, fz, X, F, it, model.anderson_beta,
+                                              model.anderson_lambda)
+        fz = f(z)[0]
+        if it + 1 >= model.min_iterations and bool(err < tol):
+            break
+    return z, it + 1, err
+
+
+def skip_held(model, w, bn, x, t) -> dict:
+    """The stopped solve (``models/solvers.py``: ``f`` only after a body that
+    moved ``z``) against :func:`every_body_solve` on one map and start:
+    ``z*``, iterations and residual bit-equal, row 3 twice on one ``z``
+    bit-equal, and each side's row-3 launches (3 and 11 at the config)."""
+    tp = timestep_projections(w, t)
+    f = lambda zz: (bn_eval(fused_backbone(w, zz.contiguous(), tp), bn), None)
+    z0 = _cheb(x, w["win"], w["bin"], w["basis"]).contiguous()
+    sync = torch.cuda.synchronize if z0.is_cuda else (lambda: None)
+    launches = []
+    for solve in (lambda: model.solve(f, z0, model.tolerance, differentiable=False),
+                  lambda: every_body_solve(f, z0, model.tolerance, model)):
+        fused_backbone.launches = 0
+        got = solve()
+        sync()
+        launches.append(fused_backbone.launches)
+        if len(launches) == 1:
+            z_s, aux_s, _ = got
+        else:
+            z_e, its_e, err_e = got
+    once, twice = f(z0)[0], f(z0)[0]
+    sync()
+    rec = dict(bit_equal=torch.equal(z_s, z_e) and aux_s["iterations"] == its_e
+               and torch.equal(aux_s["residual"], err_e),
+               map_twice_bit_equal=torch.equal(once, twice), iterations=aux_s["iterations"],
+               every_body_iterations=its_e, row3_launches=launches[0],
+               every_body_row3_launches=launches[1])
+    print(f"phase 39: the skipping solve against the every-body loop: z*, iterations and residual "
+          f"bit-equal {rec['bit_equal']} ({rec['iterations']} / {its_e} bodies); row 3 twice on "
+          f"one z bit-equal {rec['map_twice_bit_equal']}; row-3 launches a solve {launches[0]} "
+          f"against {launches[1]}")
+    return rec
+
+
 def anderson_body_ms(fn, reps: int = 20):
     """Device ms of one body by kernel (torch.profiler over ``reps`` calls of
     ``fn``, four launches each), or CUDA events over the whole call where the
@@ -3642,7 +3707,8 @@ def anderson_phases(dev, basis, gen, g, card):
     held against the plain body (``anderson_held``); a body's device time
     beside its bytes at 3.35 TB/s and the plain body's time; a whole stopped
     solve at the config with the kernels and with the plain body, 10 and 10
-    bodies.  Returns row 14's record."""
+    bodies; the skipping solve against the every-body loop (``skip_held``).
+    Returns row 14's record."""
     check_no_spills("anderson_kernel", ANDERSON_ENTRIES)
     ptxas = ptxas_usage("anderson_kernel")
     for entry, use in ptxas.items():
@@ -3716,12 +3782,16 @@ def anderson_phases(dev, basis, gen, g, card):
               f"output rel {e_out:.2e}, fixed point rel {e_fp:.2e}")
         check(aux["iterations"] == aux_p["iterations"] == launches == 10
               and max(e_out, e_fp) <= TOL_ANDERSON, "the config's solve, kernels against plain body")
+        skip = skip_held(model, w, bn, xb, t)
+        check(skip["bit_equal"] and skip["map_twice_bit_equal"] and skip["iterations"] == 10
+              and (skip["row3_launches"], skip["every_body_row3_launches"]) == (3, 11),
+              f"the config's skipping solve against the every-body loop: {skip}")
     stalled = times[7]
     return dict(name="anderson_kernel", route="cuda",
                 source="diffpose_tpu_torch/csrc/anderson_kernel.cu", replaces=None,
                 max_rel_err=worst, ms=stalled["ms"], device_ms=stalled["device_ms"]["body"],
                 plain_ms=stalled["plain_ms"], bound_ms=stalled["bound_ms"], bound_by="bytes",
-                library_ms=None, bodies=times, solve_rel_err=max(e_out, e_fp),
+                library_ms=None, bodies=times, solve_rel_err=max(e_out, e_fp), skip=skip,
                 ptxas={k: v for k, v in ptxas.items() if "Li5EE" in k or "solve" in k})
 
 

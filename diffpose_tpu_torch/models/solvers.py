@@ -16,8 +16,11 @@ Two modes, as the JAX solvers have:
   ``iterations`` is then an ``int32`` tensor on the device.
 * ``differentiable=False`` stops at convergence (the JAX ``while_loop``).
   Convergence can only be declared once ``it + 1 >= min_iterations``, so the
-  host reads the test from that body on, one synchronisation per body, and
-  none before.  ``iterations`` is then a Python int.
+  damped solver's host reads the test from that body on, one
+  synchronisation per body, and none before.  The Anderson solver's host
+  reads every body's stall, and from ``min_iterations`` on its test with
+  it: one synchronisation per body, after which a stalled body evaluates
+  no ``f``.  ``iterations`` is then a Python int.
 
 The convergence measure is the global relative update norm over the whole
 batch, so every sample of a batch shares one iteration count.
@@ -25,7 +28,8 @@ batch, so every sample of a batch shares one iteration count.
 Spans (``utils/profiling.py``): ``solver.f`` around each evaluation of
 ``f``, ``solver.mix`` around each body's update (Anderson: the history, the
 Gram solve, the mixing, the stall and the relative update), ``solver.test``
-around each host read of the convergence test.
+around each host read of the convergence test (stopped Anderson: of the
+body's stall and test).
 """
 
 from __future__ import annotations
@@ -68,6 +72,15 @@ def _read_test(err: torch.Tensor, tol) -> bool:
     """The host's read of the convergence test (it waits on the device)."""
     with span("solver.test"):
         return bool(err < tol)
+
+
+def _read_body(stall: torch.Tensor, err: torch.Tensor, tol, test: bool) -> Tuple[bool, bool]:
+    """The host's one read of a stopped Anderson body: ``(stalled, converged)``.
+    The stall's read waits on the device for the body; the test, where
+    ``test``, is read after it, from a drained queue."""
+    with span("solver.test"):
+        stalled = bool(stall)
+        return stalled, test and bool(err < tol)
 
 
 def solve_damped(
@@ -162,10 +175,16 @@ def solve_anderson(
     depend on the rows' order.  The first body, and any body whose
     differences vanish, takes the plain update ``z + β·(f(z) − z)``.
 
-    ``f`` runs once before the loop, so the stack runs ``1 + iterations``
-    times.  As in the JAX solver, in the differentiable mode the history and
-    the residual keep being written after convergence (only ``z``, ``f(z)``,
-    the count and the stats are masked).
+    ``f`` runs once before the loop.  In the differentiable mode it runs
+    after every body, so the stack runs ``1 + iterations`` times; as in the
+    JAX solver, the history and the residual keep being written after
+    convergence (only ``z``, ``f(z)``, the count and the stats are masked).
+    In the stopped mode the host reads each body's stall (and, from
+    ``min_iterations`` on, the convergence test with it), and ``f`` runs
+    only after a body that moved ``z``: a stalled body returns ``z`` bit for
+    bit, and ``f`` is a function of ``z`` alone, so ``f(z)`` and its stats
+    stand.  The stack then runs 1 + the moving bodies' count times (3 in a
+    solve of 10 bodies at m=5, below).
 
     The newest history row's difference is zero, so its weight is zero, and
     in exact arithmetic the published rule stalls: a body whose other rows
@@ -197,30 +216,33 @@ def solve_anderson(
     with span("solver.f"):
         fz, stats = f(z)
     err = torch.full((), float("inf"), dtype=dtype, device=dev)
-    if differentiable:
-        it = torch.zeros((), dtype=torch.int32, device=dev)
-        done = torch.zeros((), dtype=torch.bool, device=dev)
-        body = anderson_body_plain
-    else:
-        it, done = 0, None
-        body = fused_anderson_body
+    if not differentiable:
+        it = 0
+        for _ in range(max_iterations):
+            with span("solver.mix"):
+                z, err, X, F, (_, stall) = fused_anderson_body(z, fz, X, F, it, beta, lam)
+            it += 1
+            stalled, converged = _read_body(stall, err, tol, it >= min_iterations)
+            if not stalled:
+                with span("solver.f"):
+                    fz, stats = f(z)
+            if converged:
+                break
+        return z, {"iterations": it, "residual": err}, stats
 
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
     for _ in range(max_iterations):
         with span("solver.mix"):
-            z_new, err, X, F, _ = body(z, fz, X, F, it, beta, lam)
+            z_new, err, X, F, _ = anderson_body_plain(z, fz, X, F, it, beta, lam)
         with span("solver.f"):
             fz_new, new_stats = f(z_new)
         stats = _masked(done, stats, new_stats)
-        if differentiable:
-            new_done = done | _converged(it, err, tol, min_iterations)
-            z = torch.where(done, z, z_new)
-            fz = torch.where(done, fz, fz_new)
-            it = it + (~done).to(torch.int32)
-            done = new_done
-        else:
-            z, fz, it = z_new, fz_new, it + 1
-            if it >= min_iterations and _read_test(err, tol):
-                break
+        new_done = done | _converged(it, err, tol, min_iterations)
+        z = torch.where(done, z, z_new)
+        fz = torch.where(done, fz, fz_new)
+        it = it + (~done).to(torch.int32)
+        done = new_done
     return z, {"iterations": it, "residual": err}, stats
 
 

@@ -5,14 +5,17 @@ The eval forward is the fixed-point solve ``z* = f(z*)`` with
 ``f(z) = BatchNorm(stack(z))``.  The solve runs 10–20 iterations of the
 5-layer stack, the hottest loop of the implicit family, so the stack runs as
 the bare-stack build of the whole-network kernel (kernel row 3,
-``ops/fused_denoiser.py:fused_backbone``): ``1 + iterations`` launches per
-call with Anderson (one evaluation before the loop), ``iterations`` with the
-damped solver.  The Anderson solver's body runs as four kernel launches
+``ops/fused_denoiser.py:fused_backbone``): with Anderson one launch before
+the loop and one after each body that moved ``z`` (a stalled body reuses
+``f(z)``: 3 launches in a solve of 10 bodies at m=5), ``iterations`` with
+the damped solver.  The Anderson solver's body runs as four kernel launches
 (kernel row 14, ``ops/fused_anderson.py``).  Around them, in plain
 PyTorch: the timestep MLP and its per-layer projections, the input and
 output ChebConvs, the eval BatchNorm, the damped solver's relaxation, and
-the convergence test, which the host reads once per iteration from
-``min_iterations`` on (``models/solvers.py``).
+the host's reads: Anderson's of each body's stall and, from
+``min_iterations`` on, its convergence test, once per body; the damped
+solver's of the test, once per iteration from ``min_iterations`` on
+(``models/solvers.py``).
 
 Semantics are ``IGCN.forward`` in eval mode with ``differentiable=False``.
 """

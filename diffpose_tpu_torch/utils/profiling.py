@@ -37,7 +37,8 @@ SPANS = (
      "DiffposeRunner.evaluate: the group's per-sample errors copied to the host"),
     ("step.eval", "step",
      "make_eval_shell (make_eval_step, make_implicit_eval_step): one eval batch enqueued, from its "
-     "inputs to its errors (the implicit solve's convergence reads wait on the device inside it)"),
+     "inputs to its errors (the implicit solve's reads of its bodies wait on the device inside "
+     "it)"),
     ("step.inputs", "step",
      "make_eval_shell: the batch's arrays copied to the device"),
     ("step.gmm", "step",
@@ -52,7 +53,8 @@ SPANS = (
      "solve_anderson: one body's history update, Gram solve and mixing; solve_damped: one "
      "body's relaxation; enqueued"),
     ("solver.test", "solver",
-     "solve_anderson, solve_damped: the host's read of the convergence test, one a body from "
+     "solve_anderson (stopped): the host's read of a body's stall and, from min_iterations on, "
+     "its convergence test, one a body; solve_damped: the read of the test, one a body from "
      "min_iterations on"),
     ("metrics.accumulate", "metrics",
      "ActionErrorAccumulator.add: one batch's errors folded on the host"),

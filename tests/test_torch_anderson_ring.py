@@ -4,7 +4,9 @@ step where the differences vanish, the stalls) through the body that the
 stopped mode runs (``ops/fused_anderson.py:fused_anderson_body``, its plain
 version here), a stopped solve whose ring wraps twice against the
 benchmark's float64 reference, the published rule's count at the
-configuration's widths, and which body each mode runs."""
+configuration's widths, which body each mode runs, and the stopped solve,
+which evaluates the map only after a body that moved ``z``, against the
+same solve evaluating it after every body."""
 
 import numpy as np
 import pytest
@@ -114,7 +116,8 @@ def test_published_rule_runs_ten_bodies_at_the_config_widths(seed):
     """The eval solve of configs/human36m_ipose.yml (m 5, β 1, λ 0.1, tol 0.1,
     10–20 bodies) on a seeded IGCN at its widths (hid 96, 5 layers, 4 heads,
     17 joints), 16 rows instead of 2,560: 10 bodies, row 3's plain version
-    once before the loop and once a body."""
+    once before the loop and once after each of bodies 0 and 5, the two that
+    move ``z`` (the others stall and keep ``f(z)``)."""
     gen = torch.Generator().manual_seed(seed)
     model = IGCN(cheb_basis_from_edges(17, H36M_EDGES)).eval()
     with torch.no_grad():
@@ -131,7 +134,7 @@ def test_published_rule_runs_ten_bodies_at_the_config_widths(seed):
     fn = make_igcn_fn(model, device="cpu", backbone=backbone)
     x = torch.randn((16, 17, 5), generator=gen)
     out, aux = fn(prepare_weights(model, "cpu"), model, x, torch.full((16,), 12.0))
-    assert aux["iterations"] == 10 and len(calls) == 11
+    assert aux["iterations"] == 10 and len(calls) == 3
     assert float(aux["residual"]) == 0.0 and bool(torch.isfinite(out).all())
 
 
@@ -148,3 +151,104 @@ def test_the_mode_picks_the_body(monkeypatch, differentiable):
                                        differentiable=differentiable, **RULE)
     assert int(aux["iterations"]) == 6
     assert calls == ([] if differentiable else list(range(6)))
+
+
+def every_body_solve(f, z, tol, *, m, beta, lam, max_iterations, min_iterations,
+                     differentiable=False):
+    """The stopped Anderson solve with ``f`` evaluated after every body, the
+    stalled ones too: ``(z*, {"iterations", "residual"}, stats)`` and the count
+    of the bodies that moved ``z``."""
+    assert not differentiable
+    m = min(m, max_iterations)
+    X, F = z.new_zeros((m, z.numel())), z.new_zeros((m, z.numel()))
+    fz, stats = f(z)
+    err, moving = torch.full((), float("inf"), dtype=z.dtype), 0
+    for it in range(max_iterations):
+        z, err, X, F, (_, stall) = solvers.anderson_body_plain(z, fz, X, F, it, beta, lam)
+        moving += not bool(stall)
+        fz, stats = f(z)
+        if it + 1 >= min_iterations and bool(err < tol):
+            return (z, {"iterations": it + 1, "residual": err}, stats), moving
+    return (z, {"iterations": max_iterations, "residual": err}, stats), moving
+
+
+def skipping_against_every_body(f, z, tol, **kw):
+    """The stopped solve and :func:`every_body_solve` on one map and start:
+    ``(the solve's results, every_body_solve's, the moving bodies, f's calls
+    in the solve)``."""
+    calls = []
+
+    def counted(v):
+        calls.append(1)
+        return f(v)
+
+    got = solvers.solve_anderson(counted, z, tol, **kw)
+    want, moving = every_body_solve(f, z, tol, **kw)
+    return got, want, moving, len(calls)
+
+
+def igcn_solves(monkeypatch, path: str, tol: float):
+    """One forward of a seeded tiny IGCN (m=5, 3–12 bodies) by ``path``, its
+    solve held beside :func:`every_body_solve`."""
+    from diffpose_tpu_torch.models import igcn
+
+    held = []
+
+    def solve(f, z, tol, **kw):
+        held.append(skipping_against_every_body(f, z, tol, **kw))
+        return held[-1][0]
+
+    monkeypatch.setattr(igcn, "solve_anderson", solve)
+    torch.manual_seed(0)
+    model = IGCN(cheb_basis_from_edges(17, H36M_EDGES, 2).astype(np.float32), hid_dim=32,
+                 num_layers=2, num_heads=4, max_iterations=12, min_iterations=3, tolerance=tol)
+    gen = torch.Generator().manual_seed(1)
+    x, t = torch.randn((8, 17, 5), generator=gen), torch.full((8,), 12.0)
+    if path == "fused":
+        model.eval()
+        make_igcn_fn(model, device="cpu")(prepare_weights(model, "cpu"), model, x, t)
+    elif path == "module":
+        with torch.no_grad():
+            model.eval()(x, t, differentiable=False)
+    else:                       # the training forward's stopped solve: stats from z
+        model.train()(x, t, differentiable=False, generator=gen)
+    (res,) = held
+    return res
+
+
+def tanh_solve(m, beta):
+    """A generic float64 map, ``f(z) = tanh(a·z + b)``, 12 bodies (tolerance 0)."""
+    g = torch.Generator().manual_seed(11)
+    a, b, z0 = (torch.randn((6, 20), generator=g, dtype=torch.float64) for _ in range(3))
+    return skipping_against_every_body(lambda v: (torch.tanh(0.9 * a * v + b), None), z0, 0.0,
+                                       m=m, beta=beta, lam=0.1, max_iterations=12,
+                                       min_iterations=12)
+
+
+@pytest.mark.parametrize("case", [
+    ("fused", 0.1), ("fused", 0.0), ("module", 0.1), ("module", 0.0), ("train", 0.0),
+    ("tanh", 5, 1.0), ("tanh", 1, 1.0), ("tanh", 1, 0.6)], ids=lambda c: "-".join(map(str, c)))
+def test_skipping_solve_is_the_every_body_solve(monkeypatch, case):
+    """The stopped solve evaluates ``f`` before the loop and after each body
+    that moved ``z`` only, and returns what the solve that evaluates it after
+    every body returns, bit for bit: ``z*``, ``iterations``, ``residual`` and
+    the stats.  The tiny IGCN at m=5 (the fused CPU path, the module's eval,
+    its training forward) and the tanh map at m=5 stall on every body but 0,
+    5, 10; at m=1 every body takes the plain step and none stalls."""
+    if case[0] == "tanh":
+        got, want, moving, calls = tanh_solve(*case[1:])
+        m = case[1]
+    else:
+        got, want, moving, calls = igcn_solves(monkeypatch, *case)
+        m = 5
+    (z, aux, stats), (zw, auxw, statsw) = got, want
+    assert torch.equal(z, zw) and aux["iterations"] == auxw["iterations"]
+    assert torch.equal(aux["residual"], auxw["residual"])
+    assert (stats is None and statsw is None) or all(map(torch.equal, stats, statsw))
+    iterations = aux["iterations"]
+    assert iterations == (3 if case[-1] == 0.1 else 12)
+    if m == 1:
+        assert moving == iterations and calls == 1 + iterations
+    else:
+        assert moving == len(range(0, iterations, m)) < iterations
+        assert calls == 1 + moving

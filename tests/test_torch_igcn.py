@@ -91,14 +91,15 @@ def test_solvers_match_jax(solver, differentiable):
 
 def test_early_exit_reads_the_host_only_from_min_iterations(monkeypatch):
     """One read of the convergence test per iteration, from the iteration
-    where it can first succeed; none in the fixed-count mode."""
+    where it can first succeed (the stopped Anderson solve reads each body's
+    stall besides, just before); none in the fixed-count mode."""
     _, ft, z0 = contraction(1)
     reads = []
     real_bool = torch.Tensor.__bool__
     monkeypatch.setattr(torch.Tensor, "__bool__", lambda t: reads.append(1) or real_bool(t))
     _, aux, _ = solvers.solve_anderson(ft, torch.as_tensor(z0), 0.0, m=3, beta=1.0, lam=0.1,
                                        max_iterations=6, min_iterations=4)
-    assert aux["iterations"] == 6 and len(reads) == 3
+    assert aux["iterations"] == 6 and len(reads) == 6 + 3
     reads.clear()
     solvers.solve_damped(ft, torch.as_tensor(z0), 0.0, max_iterations=6, min_iterations=4,
                          differentiable=True, stats_init=(torch.tensor(0.0), torch.tensor(1.0)))

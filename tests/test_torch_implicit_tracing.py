@@ -1,9 +1,12 @@
 """The implicit family's spans (``utils/profiling.py``) on the CPU: one eval
 batch of ``make_implicit_eval_step`` under ``torch.profiler`` records
 ``step.eval`` once and the solver's ``solver.f`` / ``solver.mix`` /
-``solver.test`` once an evaluation of the map, a body and a host read;
+``solver.test`` once an evaluation of the map (before the loop and after
+each body that moved ``z``), a body and a host read (one a body);
 ``ImplicitRunner``'s evaluate records its ``runner.prepare`` and
 ``runner.readback``; nothing is recorded without a session."""
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -54,7 +57,8 @@ def test_solver_spans_are_listed():
     assert all(layers.get(n) == "solver" for n in SOLVER_SPANS)
 
 
-# tol 0.1: the solve stops at min_iterations (its stalls read 0); tol 0: it runs every body
+# tol 0.1: the solve stops at min_iterations (its stalls read 0); tol 0: it runs every body.
+# At m=5 bodies 0 and 5 move z and the others stall, so f runs 2 and 3 times.
 @pytest.mark.parametrize("impl", ["fused", "module"])
 @pytest.mark.parametrize("tol", [0.1, 0.0])
 def test_one_eval_batch_records_the_solver(impl, tol):
@@ -66,14 +70,33 @@ def test_one_eval_batch_records_the_solver(impl, tol):
     got = names(prof)
     assert iterations == (MIN if tol else MAX)
     assert got.count("step.eval") == 1
-    assert got.count("solver.f") == 1 + iterations
+    assert got.count("solver.f") == 1 + len(range(0, iterations, 5)) == (2 if tol else 3)
     assert got.count("solver.mix") == iterations
-    assert got.count("solver.test") == max(0, iterations - MIN + 1)
+    assert got.count("solver.test") == iterations
     for n in ("step.inputs", "step.gmm", "metrics.errors"):
         assert got.count(n) == 1
     recs = spans_of(prof)
     (outer,) = [(s, e) for n, s, e in recs if n == "step.eval"]
     assert all(outer[0] <= s and e <= outer[1] for n, s, e in recs if n in SOLVER_SPANS)
+
+
+@pytest.mark.parametrize("tol,maps", [(0.1, 2), (0.0, 3)])
+def test_solver_maps_reader_counts_the_maps_a_batch(tol, maps):
+    """``portbench/metrics/solver_maps.implicit.py`` on two profiled eval
+    batches: the whole ``solver.f`` spans over the ``step.eval`` spans."""
+    from portbench.harness import core
+
+    step, state, pose, batch = eval_setup("fused", tol)
+    prepared = step.prepare(state, pose)
+    step(state, pose, batch, prepared=prepared)                 # warm
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            step(state, pose, batch, prepared=prepared)
+    reader = core.load_file(core.BENCH_DIR / "metrics" / "solver_maps.implicit.py",
+                            "t_solver_maps")
+    slice_ = SimpleNamespace(host_ops=spans_of(prof), device_events=[])
+    assert reader.read(SimpleNamespace(slice=slice_)) == maps
+    assert reader.read(SimpleNamespace(slice=None)) is None
 
 
 def test_damped_solve_records_the_solver():
