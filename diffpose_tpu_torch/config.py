@@ -130,6 +130,24 @@ class VideoConfig:
 
 
 @dataclass
+class MixSTEConfig:
+    """The video family's MixSTE denoiser (``models/mixste.py``), which takes
+    the place of ``SpatioTemporalDiff`` where the section is present.  The
+    defaults are MixSTE's published widths (arXiv 2203.00859;
+    ``common/model_cross.py:MixSTE2`` run as ``-cs 512 -dep 8``): embedding
+    512, 8 spatial and 8 temporal blocks, 8 heads, MLP ratio 2, a biased
+    ``qkv``, LayerNorm eps 1e-6; no dropout at eval."""
+
+    embed_dim: int = 512
+    depth: int = 8
+    num_heads: int = 8
+    mlp_ratio: float = 2.0
+    qkv_bias: bool = True
+    ln_eps: float = 1e-6
+    dropout: float = 0.0
+
+
+@dataclass
 class Config:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
@@ -139,6 +157,7 @@ class Config:
     optim: OptimConfig = field(default_factory=OptimConfig)
     implicit: Optional[ImplicitConfig] = None
     video: Optional[VideoConfig] = None
+    mixste: Optional[MixSTEConfig] = None
 
 
 _SECTIONS = {
@@ -150,6 +169,7 @@ _SECTIONS = {
     "optim": OptimConfig,
     "implicit": ImplicitConfig,
     "video": VideoConfig,
+    "mixste": MixSTEConfig,
 }
 
 
@@ -201,7 +221,7 @@ def load_config(path: str, cli_overrides: Optional[dict] = None) -> Config:
 
 def config_to_dict(cfg: Config) -> dict:
     out = dataclasses.asdict(cfg)
-    for optional in ("implicit", "video"):
+    for optional in ("implicit", "video", "mixste"):
         if out.get(optional) is None:
             out.pop(optional, None)
     return out

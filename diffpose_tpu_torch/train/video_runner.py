@@ -11,7 +11,9 @@ through the train kernel pair (``ops/fused_video_train.py``);
 ``denoiser_impl`` picks the eval forward: ``"fused"`` (spatial blocks on
 kernel row 3, temporal blocks as torch operations), ``"fused_st"`` (row 3
 and row 10), ``"fused_full"`` (one launch of row 9 a layer), or
-``"module"``.
+``"module"``.  Where the config has a ``mixste`` section the denoiser is
+the MixSTE transformer (``models/mixste.py``), which runs on the module path
+alone (the kernels are ``SpatioTemporalDiff``'s) and on one device.
 
 ``mesh`` (a ``DeviceMesh`` from ``parallel.make_mesh``, this process one of
 its ranks): windows shard over ``data_axis`` and each window's frames over
@@ -42,6 +44,7 @@ from diffpose_tpu_torch.graph import H36M_EDGES, cheb_basis_from_edges
 from diffpose_tpu_torch.metrics import ActionErrorAccumulator, AverageMeter
 from diffpose_tpu_torch.models.convert import load_torch_states
 from diffpose_tpu_torch.models.ema import ema_register
+from diffpose_tpu_torch.models.mixste import MixSTE
 from diffpose_tpu_torch.models.video import SpatioTemporalDiff
 from diffpose_tpu_torch.ops.fused_denoiser import resolve_device
 from diffpose_tpu_torch.ops.fused_video import make_video_denoiser_fn
@@ -65,6 +68,7 @@ from diffpose_tpu_torch.train.trainer import (
     warn_default_tier,
 )
 from diffpose_tpu_torch.train.video_steps import make_video_eval_step, make_video_train_step
+from diffpose_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -128,6 +132,16 @@ class VideoRunner:
             if value not in allowed:
                 raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
         check_precisions(kernel_precision, (eval_matmul_precision, train_matmul_precision))
+        if config.mixste is not None:
+            x = config.mixste
+            for name, value in (("denoiser_impl", denoiser_impl), ("train_impl", train_impl)):
+                if value != "module":
+                    raise ValueError(
+                        f"--{name} {value}: the video kernels run SpatioTemporalDiff at hid 96 and "
+                        f"4 heads; the MixSTE denoiser (embed {x.embed_dim}, depth {x.depth}, "
+                        f"{x.num_heads} heads, MLP ratio {x.mlp_ratio}) runs on --{name} module")
+            if mesh is not None:
+                raise ValueError("the MixSTE denoiser runs on one device: no data or context mesh")
         self.config = config
         self.video_cfg = config.video or VideoConfig()
         self.seed = seed
@@ -168,7 +182,7 @@ class VideoRunner:
         self._init_generator = torch.Generator().manual_seed(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
-        self.model: Optional[SpatioTemporalDiff] = None
+        self.model: Optional[torch.nn.Module] = None       # SpatioTemporalDiff or MixSTE
         self.state: Optional[TrainState] = None
         self.train_data: Optional[VideoDataset] = None
         self.test_data: Optional[VideoDataset] = None
@@ -184,24 +198,33 @@ class VideoRunner:
     # ------------------------------------------------------------------
 
     def create_video_model(self, model_path: Optional[str] = None):
-        """The model at the config's widths, initialised from the runner's
+        """The model at the config's widths (MixSTE where the config has its
+        section, else ``SpatioTemporalDiff``), initialised from the runner's
         seed; ``model_path`` (a ``.pth`` of this runner's checkpoints) loads
         its weights strictly."""
-        m, v = self.config.model, self.video_cfg
+        m, v, x = self.config.model, self.video_cfg, self.config.mixste
         init_seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self._init_generator))
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(init_seed)
-            model = SpatioTemporalDiff(
-                self.basis, v.frames, hid_dim=m.hid_dim, coords_in=m.coords_dim[0],
-                coords_out=m.coords_dim[1], num_layers=v.num_layers, num_heads=m.n_head,
-                dropout_rate=v.dropout, n_pts=m.n_pts, cp_axis=self.cp_axis,
-                attention_chunk=v.attention_chunk)
+            if x is not None:
+                model = MixSTE(
+                    v.frames, n_pts=m.n_pts, coords_in=m.coords_dim[0], coords_out=m.coords_dim[1],
+                    embed_dim=x.embed_dim, depth=x.depth, num_heads=x.num_heads,
+                    mlp_ratio=x.mlp_ratio, qkv_bias=x.qkv_bias, ln_eps=x.ln_eps,
+                    dropout_rate=x.dropout, attention_chunk=v.attention_chunk)
+            else:
+                model = SpatioTemporalDiff(
+                    self.basis, v.frames, hid_dim=m.hid_dim, coords_in=m.coords_dim[0],
+                    coords_out=m.coords_dim[1], num_layers=v.num_layers, num_heads=m.n_head,
+                    dropout_rate=v.dropout, n_pts=m.n_pts, cp_axis=self.cp_axis,
+                    attention_chunk=v.attention_chunk)
         if model_path:
             logger.info("initialize video model from %s", model_path)
             if not model_path.endswith(".pth"):
                 raise ValueError(f"video model path {model_path!r}: only .pth checkpoints load here")
             model.load_state_dict(load_torch_states(model_path)[0], strict=True)
-        self.model = model.to(self.device).bind_mesh(self.mesh)
+        model = model.to(self.device)
+        self.model = model if x is not None else model.bind_mesh(self.mesh)
         return self.model
 
     def set_data(self, train: Optional[VideoDataset], test: Optional[VideoDataset]):
@@ -350,21 +373,27 @@ class VideoRunner:
             state = self.state
         was_training = self.model.training
         eval_fn = self._get_eval_fn(seq)
-        prepared = eval_fn.prepare(state)
+        with span("runner.prepare"):
+            prepared = eval_fn.prepare(state)
         loader = self._make_loader(self.test_data, shuffle=False, keyed=False)
         acc = ActionErrorAccumulator(self.test_data.actions, num_joints=self.config.model.n_pts,
                                      reference_compat=self.reference_compat)
+        sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
         self.inference_times = []
         for batch in loader.epoch(0):
-            t0 = time.time()
-            local = shard_windows(self.mesh, batch, self.data_axis, self.cp_axis)
-            p1_b, p2_b, _ = eval_fn(state, local, self.generator, prepared=prepared)
-            # every rank's [B_local, F_local] block joined into [B, F]; waits for the batch
-            p1_b, p2_b = (gather_windows(v, self._data, self._context).cpu().numpy()
-                          for v in (p1_b, p2_b))
-            self.inference_times.append(time.time() - t0)
-            # per-frame errors flatten; each frame inherits its window's action
-            acc.add(batch, p1_b, p2_b, frames_per_item=p1_b.shape[1])
+            with span("runner.batch"):
+                t0 = time.time()
+                local = shard_windows(self.mesh, batch, self.data_axis, self.cp_axis)
+                p1_b, p2_b, _ = eval_fn(state, local, self.generator, prepared=prepared)
+                with span("runner.sync"):
+                    sync()
+                with span("runner.readback"):
+                    # every rank's [B_local, F_local] block joined into [B, F]
+                    p1_b, p2_b = (gather_windows(v, self._data, self._context).cpu().numpy()
+                                  for v in (p1_b, p2_b))
+                self.inference_times.append(time.time() - t0)
+                # per-frame errors flatten; each frame inherits its window's action
+                acc.add(batch, p1_b, p2_b, frames_per_item=p1_b.shape[1])
         self.model.train(was_training)
 
         self.eval_frames = acc.frames

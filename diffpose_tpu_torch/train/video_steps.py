@@ -55,6 +55,7 @@ from diffpose_tpu_torch.parallel.mesh import MeshAxis
 from diffpose_tpu_torch.parallel.sharding import all_reduce_mean_grads, fold_in, joint_axis
 from diffpose_tpu_torch.train.state import TrainState
 from diffpose_tpu_torch.train.steps import DROPOUTS, IMPLS, _INT32_MAX, _INT32_MIN, _swapped_in
+from diffpose_tpu_torch.utils.profiling import span
 
 
 class VideoDraws(NamedTuple):
@@ -256,11 +257,16 @@ def make_video_eval_step(model, betas, seq: Sequence[int], *, test_times: int = 
     @torch.no_grad()
     def eval_step(state, batch: dict, generator: Optional[torch.Generator] = None,
                   prepared=None):
+        with span("step.eval"):
+            return step_body(state, batch, generator, prepared)
+
+    def step_body(state, batch, generator, prepared):
         if state.model is not model:
             raise ValueError("the state holds another model than the step")
-        p3 = torch.as_tensor(batch["poses_3d"], device=device)
-        gmm = torch.as_tensor(batch["poses_2d_gmm"], device=device)
-        seeds = torch.as_tensor(batch["seeds"], device=device)
+        with span("step.inputs"):
+            p3 = torch.as_tensor(batch["poses_3d"], device=device)
+            gmm = torch.as_tensor(batch["poses_2d_gmm"], device=device)
+            seeds = torch.as_tensor(batch["seeds"], device=device)
         b, f, j = p3.shape[:3]
         f_total = frames_total if frames_total is not None else f
         frame0 = cp_axis.index * f if cp_axis is not None else 0
@@ -269,8 +275,10 @@ def make_video_eval_step(model, betas, seq: Sequence[int], *, test_times: int = 
         frame_ids = frame0 + torch.arange(f, device=device, dtype=torch.int64)
         ids = wrap_int32(seeds.to(torch.int64).repeat_interleave(f) * f_total
                          + frame_ids.repeat(b))
-        _, _, input_2d = sample_gmm_batch_per_sample(
-            gmm_base_seed, ids, gmm.reshape(b * f, j, gmm.shape[3], 5), p3.reshape(b * f, j, 3))
+        with span("step.gmm"):
+            _, _, input_2d = sample_gmm_batch_per_sample(
+                gmm_base_seed, ids, gmm.reshape(b * f, j, gmm.shape[3], 5),
+                p3.reshape(b * f, j, 3))
         input_2d = input_2d.reshape(b, f, j, 2)
         uvxyz = torch.cat([input_2d, torch.zeros((b, f, j, 3), dtype=p3.dtype, device=device)],
                           dim=-1).repeat(test_times, 1, 1, 1)
@@ -293,8 +301,9 @@ def make_video_eval_step(model, betas, seq: Sequence[int], *, test_times: int = 
         pred = out[..., 2:]
         pred = pred - pred[..., :1, :]
         tgt = p3 - p3[..., :1, :]
-        p1 = mpjpe_per_sample(pred.reshape(b * f, j, 3), tgt.reshape(b * f, j, 3))
-        p2 = p_mpjpe_per_sample(pred.reshape(b * f, j, 3), tgt.reshape(b * f, j, 3))
+        with span("metrics.errors"):
+            p1 = mpjpe_per_sample(pred.reshape(b * f, j, 3), tgt.reshape(b * f, j, 3))
+            p2 = p_mpjpe_per_sample(pred.reshape(b * f, j, 3), tgt.reshape(b * f, j, 3))
         return p1.reshape(b, f), p2.reshape(b, f), pred
 
     eval_step.prepare = prepare

@@ -27,26 +27,29 @@ SPANS = (
     ("loader.batch", "loader",
      "BatchLoader.epoch: one batch built on the host (indices, seeds, the row gather)"),
     ("runner.prepare", "runner",
-     "DiffposeRunner.evaluate (the frame and implicit families' one eval loop): the eval step's "
-     "weights prepared once a call"),
+     "DiffposeRunner.evaluate (the frame and implicit families' one eval loop), "
+     "VideoRunner.evaluate: the eval step's weights prepared once a call"),
     ("runner.batch", "runner",
-     "DiffposeRunner.evaluate: one group of eval_sweep batches, enqueue to accumulate"),
+     "DiffposeRunner.evaluate: one group of eval_sweep batches, enqueue to accumulate; "
+     "VideoRunner.evaluate: one batch"),
     ("runner.sync", "runner",
-     "DiffposeRunner.evaluate: the host waiting on the device once a group"),
+     "DiffposeRunner.evaluate, VideoRunner.evaluate: the host waiting on the device once a group "
+     "(video: a batch)"),
     ("runner.readback", "runner",
-     "DiffposeRunner.evaluate: the group's per-sample errors copied to the host"),
+     "DiffposeRunner.evaluate, VideoRunner.evaluate: the group's per-sample (video: per-frame) "
+     "errors copied to the host"),
     ("step.eval", "step",
-     "make_eval_shell (make_eval_step, make_implicit_eval_step): one eval batch enqueued, from its "
-     "inputs to its errors (the implicit solve's reads of its bodies wait on the device inside "
-     "it)"),
+     "make_eval_shell (make_eval_step, make_implicit_eval_step), make_video_eval_step: one eval "
+     "batch enqueued, from its inputs to its errors (the implicit solve's reads of its bodies "
+     "wait on the device inside it)"),
     ("step.inputs", "step",
-     "make_eval_shell: the batch's arrays copied to the device"),
+     "make_eval_shell, make_video_eval_step: the batch's arrays copied to the device"),
     ("step.gmm", "step",
-     "make_eval_shell: the per-sample GMM kernel draw"),
+     "make_eval_shell, make_video_eval_step: the per-sample (video: per-frame) GMM kernel draw"),
     ("diffusion.step", "step",
      "ddim_sample: one DDIM step, the denoiser call and the update"),
     ("metrics.errors", "metrics",
-     "make_eval_shell: the batch's per-sample MPJPE and P-MPJPE"),
+     "make_eval_shell, make_video_eval_step: the batch's per-sample MPJPE and P-MPJPE"),
     ("solver.f", "solver",
      "solve_anderson, solve_damped: one evaluation of the fixed-point map f, enqueued"),
     ("solver.mix", "solver",
@@ -58,6 +61,11 @@ SPANS = (
      "min_iterations on"),
     ("metrics.accumulate", "metrics",
      "ActionErrorAccumulator.add: one batch's errors folded on the host"),
+    ("denoiser.spatial", "denoiser",
+     "MixSTE.spatial: one spatial block and the shared Spatial_norm over [B*F, J, D], enqueued"),
+    ("denoiser.temporal", "denoiser",
+     "MixSTE.temporal: one temporal block and the shared Temporal_norm over [B*J, F, D], "
+     "enqueued"),
 )
 
 _OFF = contextlib.nullcontext()

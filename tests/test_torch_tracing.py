@@ -25,6 +25,7 @@ torch.set_num_threads(1)
 
 NAMES = {s[0] for s in SPANS}
 SOLVER = {s[0] for s in SPANS if s[1] == "solver"}   # the implicit family's sampler's
+DENOISER = {s[0] for s in SPANS if s[1] == "denoiser"}   # the video family's MixSTE's
 # the spans only one family's sampler opens
 OWN = {"frame": {"diffusion.step"}, "implicit": SOLVER}
 # the prefixes of the benchmark's profiled slice that are not operators
@@ -82,19 +83,21 @@ def test_span_is_one_shared_no_op_without_a_profiler():
     # the listed names: unique, plain dotted words, none the slice drops as a non-operator
     assert len(NAMES) == len(SPANS)
     assert all(DOTTED.match(n) and not n.startswith(NOT_OPERATORS) for n in NAMES)
-    assert {layer for _, layer, _ in SPANS} == {"loader", "runner", "step", "metrics", "solver"}
+    assert {layer for _, layer, _ in SPANS} == {"loader", "runner", "step", "metrics", "solver",
+                                                "denoiser"}
 
 
 def test_every_span_recorded_and_nested(traced):
     runner, recs, _, _ = traced
-    others = set().union(*(v for k, v in OWN.items() if k != runner.family))
+    others = set().union(DENOISER, *(v for k, v in OWN.items() if k != runner.family))
     spans = [r for r in recs if r[0] in NAMES]
     count = collections.Counter(n for n, _, _ in spans)
     assert set(count) == NAMES - others
     assert {n for n, _, _ in recs if DOTTED.match(n)} <= NAMES   # no program span unlisted
     batches = len(runner._make_loader(runner.test_data, shuffle=False, keyed=False))
     assert count["runner.prepare"] == 1
-    assert all(count[n] == batches for n in NAMES - SOLVER - {"runner.prepare", "diffusion.step"})
+    assert all(count[n] == batches
+               for n in NAMES - SOLVER - DENOISER - {"runner.prepare", "diffusion.step"})
 
     def by(name):
         return [(s, e) for n, s, e in spans if n == name]
